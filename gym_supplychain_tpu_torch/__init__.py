@@ -1,11 +1,15 @@
-"""gym-supplychain-tpu-torch: the rollout slice of gym-supplychain-tpu on
-PyTorch, with hand-written CUDA collect kernels for Hopper (H100).
+"""gym-supplychain-tpu-torch: gym-supplychain-tpu on PyTorch, with
+hand-written CUDA kernels for Hopper (H100).
 
-Batched supply-chain and beer-game environments stepped in lockstep with
-auto-reset (``envs.vector``), their eager step engines (``core``), Philox
-random streams (``rng.device``) and whole-episode trajectory collection
-(``ops``).  The JAX package ``gym_supplychain_tpu`` is the reference the
-port is tested against; this package never imports it, nor jax.
+Two slices are ported.  Rollouts: batched supply-chain and beer-game
+environments stepped in lockstep with auto-reset (``envs.vector``), their
+eager step engines (``core``), Philox random streams (``rng.device``) and
+whole-episode trajectory collection (``ops``).  Training: the tanh-Gaussian
+actor-critic (``models.policy``), PPO with fused collection and the fused
+update kernel (``learn.ppo``) and the train CLI (``python -m
+gym_supplychain_tpu_torch.learn.train``).  The JAX package
+``gym_supplychain_tpu`` is the reference the port is tested against; this
+package never imports it, nor jax.
 
 >>> import gym_supplychain_tpu_torch as sct
 >>> from gym_supplychain_tpu_torch.ops.supplychain_collect import (

@@ -2,10 +2,12 @@
 
 The sources in ``csrc/`` compile at first use into one shared library with
 a plain C interface, for ``sm_90a`` (Hopper), with ``--fmad=false`` (the
-kernels' float rules need every product rounded before it is added).  The
-library lands in ``_build/<hash of sources and flags>/``, so a changed
-source builds anew and an unchanged one loads the library already built.
-Nothing is compiled or loaded when this module is imported.
+kernels' float rules need every product rounded before it is added; a
+kernel that wants FMA asks for it with ``fmaf``).  One nvcc process per
+source runs at once, then one links the objects.  The library lands in
+``_build/<hash of sources and flags>/``, so a changed source builds anew and
+an unchanged one loads the library already built.  Nothing is compiled or
+loaded when this module is imported.
 """
 from __future__ import annotations
 
@@ -22,18 +24,26 @@ __all__ = ["NVCC_FLAGS", "nvcc_path", "library", "check"]
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "--fmad=false")
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = _ARCH + ("-O3", "-std=c++17", "-Xcompiler", "-fPIC",
+                      "--fmad=false")
 
 _lock = threading.Lock()
 _lib = None
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
+_F = ctypes.c_float
 _SIGNATURES = {
     "sc_collect_launch": [_P, _I, _I, _I, _I, _P, _P, _P, _U, _U, _P, _P, _P,
                           _P],
+    "sc_policy_launch": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _U, _U,
+                         _I, _P, _P, _P, _P, _P, _P, _P],
     "bg_collect_launch": [_I] * 19 + [_P, _P, _P, _U, _U, _P, _P, _P],
+    "ppo_update_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F,
+                          _F, _F, _F, _P, _P, _I, _P],
     "sc_chain_bytes": [],
+    "mlp_layout_ints": [],
+    "ppo_layout_ints": [],
 }
 
 
@@ -67,13 +77,27 @@ def _build() -> Path:
     if lib.is_file():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libgst_kernels.{os.getpid()}.so"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc, pid = nvcc_path(), os.getpid()
+    objs = [out_dir / f"{f.stem}.{pid}.o" for f in cu]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(f)]
+            for f, o in zip(cu, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for c in cmds]
+    outs = [p.communicate() for p in procs]
+    tmp = out_dir / f"libgst_kernels.{pid}.so"
+    link = [nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
+    for cmd, p, (out, err) in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
+                               + out + err)
+    res = subprocess.run(link, capture_output=True, text=True)
     if res.returncode != 0:
-        raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
+        raise RuntimeError("nvcc failed:\n" + " ".join(link) + "\n"
                            + res.stdout + res.stderr)
     os.replace(tmp, lib)
+    for o in objs:
+        o.unlink()
     return lib
 
 

@@ -22,7 +22,7 @@ import torch
 
 from ..core.beergame import make_beergame_kernels
 from ..rng.device import philox_words
-from .supplychain_collect import _check, seed_key
+from .supplychain_collect import _check, resolve_device, seed_key
 
 __all__ = ["make_beergame_collect", "launch_beergame_collect",
            "beergame_collect_plain", "philox_actions"]
@@ -184,6 +184,7 @@ def make_beergame_collect(weeks: int, levels: int, B: int, episodes: int = 1,
     device = torch.device(device)
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
+    device = resolve_device(device)
     S = episodes * weeks
     kw = dict(delay=delay, init_delay=init_delay, init_ship=init_ship,
               init_orders=init_orders, init_inv=init_inv, inv_cost=inv_cost,

@@ -20,8 +20,9 @@ import torch
 from ..core.compile import CompiledChain, DemandConfig
 
 __all__ = ["poisson_clip_thresholds", "philox4x32", "philox_uniform",
-           "philox_words", "uniform_from_bits", "demand_from_uniform",
-           "leadtimes_from_uniform", "stateless_step_rows"]
+           "philox_words", "uniform_from_bits", "box_muller",
+           "demand_from_uniform", "leadtimes_from_uniform",
+           "stateless_step_rows"]
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57        # Philox4x32 multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85        # Weyl key increments
@@ -102,6 +103,15 @@ def philox_words(key, steps, n_words: int, B: int, device) -> torch.Tensor:
 def philox_uniform(key, steps, n_rows: int, B: int, device) -> torch.Tensor:
     """Float32 uniforms ``[len(steps), n_rows, B]`` (see ``philox_words``)."""
     return uniform_from_bits(philox_words(key, steps, n_rows, B, device))
+
+
+def box_muller(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """Two uniforms in [0, 1) -> one standard normal,
+    ``sqrt(-2 log1p(-u1)) * cos(2 pi u2)``: the JAX package's ``_box_muller``
+    (``ops/supplychain_pallas.py``), in the op order the CUDA collect kernel
+    follows (``1 - u1`` lies in (0, 1], so the log is finite)."""
+    r = torch.sqrt(-2.0 * torch.log1p(-u1))
+    return r * torch.cos((2.0 * math.pi) * u2)
 
 
 def _ndtri(u: torch.Tensor) -> torch.Tensor:

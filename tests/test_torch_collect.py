@@ -134,6 +134,8 @@ def test_wrapper_never_runs_a_cpu_tensor_through_the_kernel():
     with pytest.raises(ValueError, match="CUDA"):
         scc.launch_supplychain_collect(desc, cc, 3, 2, "random", seed=0)
     with pytest.raises(NotImplementedError):
+        scc.make_supplychain_collect(cc, 3, 2, mode="greedy")
+    with pytest.raises(ValueError, match="hidden"):
         scc.make_supplychain_collect(cc, 3, 2, mode="policy")
     with pytest.raises(ValueError):
         scc.make_supplychain_collect(cc, 4, 2)          # T != cc.T

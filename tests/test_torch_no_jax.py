@@ -31,4 +31,4 @@ def test_port_imports_no_jax():
                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 11, res.stdout
+    assert n_modules >= 22, res.stdout
