@@ -5,9 +5,10 @@ Builds the kernels from ``gym_supplychain_tpu_torch/csrc``, holds each
 against its plain PyTorch version on the card, then drives the main paths
 through the package's entry points, timing kernel and plain version with
 CUDA events: trajectory collection at 4096 envs for
-``supplychain-linear-v0``, ``supplychain-ntom-v0`` and ``beergame-v0``, and
-the PPO trainer on ``supplychain-ntom-v0`` at 4096 envs, hidden (128, 128),
-horizon 60.
+``supplychain-linear-v0``, ``supplychain-ntom-v0`` and ``beergame-v0``, the
+PPO trainer on ``supplychain-ntom-v0`` at 4096 envs, hidden (128, 128),
+horizon 60, and greedy evaluation of its checkpoint at 4096 envs, horizon
+360, with the base-stock baseline beside it.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -25,9 +26,21 @@ Phases, in order; any failure exits nonzero:
   8. the trainer's path: the train CLI, then ``make_ppo_fused`` timed per
      phase (collect / gae / update) against the plain trainer, whose first
      iteration must match the kernel trainer's
-The line before the last is a JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``.  Without CUDA it prints no result and
-exits nonzero.
+  9. the episode kernel against plain at B = 4096, T = 360 (linear, ntom):
+     ``actions`` on random tables, ``seeded`` against ``actions`` fed its
+     Philox rows (bit for bit), greedy ``policy`` at hidden (128, 128);
+     then the rewards-only sweeps through ``make_supplychain_episode``
+  10. the evaluation path: the train CLI writes a checkpoint, a resumed run
+     must repeat the uninterrupted one bit for bit, the evaluate CLI runs
+     both engines on it (B = 4096, T = 360, 4 episodes; they share their
+     inputs, so their mean returns agree within 1e-5), ``best_base_stock``
+     runs at the same size, and both evaluators are timed
+The line before the last is a JSON summary of the kernels, each with its
+bound: the larger of the bytes it must move over 3.35 TB/s and the float32
+operations it must do over 67 TFLOP/s (the H100 SXM data sheet at 700 W;
+the env step's scalar operations are not counted, so the bound stays a
+lower bound).  The last line is ``{"ok": true, "device": {...}}``.  Without
+CUDA it prints no result and exits nonzero.
 """
 from __future__ import annotations
 
@@ -53,6 +66,11 @@ HIDDEN = (128, 128)        # phases 6-8: the trainer's widths
 PRE_ATOL, VALUE_ATOL = 1e-4, 1e-4   # policy outputs (the JAX collect tests')
 LOGP_RTOL, LOGP_ATOL = 1e-4, 1e-3
 TRAIN_REPS, PLAIN_TRAIN_REPS = 5, 3  # phase 8: timed iterations (median)
+EVAL_EPISODES = 4          # phase 10: the evaluate CLI's episodes
+PLAIN_REPS = 2             # phases 9-10: timed plain calls (median)
+EVAL_RTOL = 1e-5           # phase 10: kernel vs scan evaluator, mean return
+PEAK_FLOPS = 67e12         # H100 SXM float32 outside the tensor cores
+PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s
 
 
 def _cmd(args):
@@ -76,6 +94,20 @@ def _timed(fn, reps):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times), out
+
+
+def _bound(n_bytes, n_flops):
+    """(ms, 'bytes' or 'operations'): the least time the card could take
+    to move ``n_bytes`` and do ``n_flops`` float32 operations."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_flops / PEAK_FLOPS
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _macs(layout, nets):
+    """Multiply-adds of one forward pass of the networks ``nets`` (0 the
+    actor with its mu head, 1 the critic with its v head)."""
+    return sum(K * J for net in nets for K, J, *_ in layout.layers[net])
 
 
 def _compare(k, p):
@@ -528,6 +560,272 @@ def phase_trainer(seed):
     return dict(counts=counts, kernel=res[False], plain=res[True])
 
 
+def _episode_tables(cc, B, seed, device):
+    """Random demand [T+1,R,P,B], lead-time [T,K,B] and action [T,A,B]
+    tables for one episode."""
+    import numpy as np
+    import torch
+
+    rs = np.random.RandomState(seed)
+    put = (lambda x: None if x is None
+           else torch.as_tensor(x, device=device).contiguous())
+    dem = rs.randint(0, 25, size=(cc.T + 1, cc.R, cc.P, B)).astype(np.float32)
+    lt = (rs.randint(1, cc.Lmax + 1, size=(cc.T, cc.K, B)).astype(np.int32)
+          if cc.stochastic_leadtimes else None)
+    act = (2 * rs.rand(cc.T, cc.A, B) - 1).astype(np.float32)
+    act[act < -0.5] = -1.0              # some supplies must not fire
+    return put(dem), put(lt), put(act)
+
+
+def _check_episode(tag, k, p, errs, bits=False):
+    """k, p: (rewards [T,B], final stock [N,P,B])."""
+    import torch
+
+    rew_abs = float((k[0] - p[0]).abs().max())
+    rew_rel = rew_abs / max(float(p[0].abs().max()), 1e-30)
+    lanes = int((k[1] != p[1]).any(dim=0).any(dim=0).sum())
+    finite = bool(torch.isfinite(k[0]).all())
+    same = torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    print(f"  {tag}: max reward err / max|r| {rew_rel:.3e} (tol "
+          f"{0 if bits else REW_RTOL:g}), lanes with divergent stock {lanes},"
+          f" finite {finite}, bit-equal {same}")
+    errs.append(rew_abs)
+    if not (rew_rel <= REW_RTOL and lanes == 0 and finite
+            and (same or not bits)):
+        raise RuntimeError(f"{tag}: kernel disagrees")
+
+
+def phase_episode(B, seed, errs):
+    """Phase 9: the episode kernel (K4/K6a) against its plain version at
+    B = 4096, T = 360, then the rewards-only sweeps and the timings."""
+    import torch
+    import gym_supplychain_tpu_torch as sct
+    from gym_supplychain_tpu_torch.ops import supplychain_episode as sce
+    from gym_supplychain_tpu_torch.ops._mlp import MlpLayout
+
+    dev = torch.device("cuda")
+    print(f"phase 9: supplychain_episode, B={B}, T=360, modes actions / "
+          f"seeded / policy (hidden {HIDDEN}, mu.w x100), vs plain")
+    res = {}
+    for env_id in ("supplychain-linear-v0", "supplychain-ntom-v0"):
+        cc = sct.make_chain(env_id)
+        desc = torch.as_tensor(sce.chain_descriptor(cc), device=dev)
+        dem, lt, act = _episode_tables(cc, B, seed, dev)
+        model = _policy_model(cc, seed, dev)
+        layout = MlpLayout(cc.obs_dim, cc.A, HIDDEN)
+        greedy_args = (desc, cc, layout, torch.as_tensor(layout.ints,
+                                                         device=dev),
+                       layout.pack(model.flat()), B, dem, lt)
+        calls = {
+            "actions": (lambda: sce.launch_supplychain_episode(
+                desc, cc, B, "actions", dem, lt, actions=act),
+                lambda: sce.supplychain_episode_plain(
+                    cc, B, "actions", dem, lt, actions=act)),
+            "seeded": (lambda: sce.launch_supplychain_episode(
+                desc, cc, B, "seeded", dem, lt, seed=seed),
+                lambda: sce.supplychain_episode_plain(
+                    cc, B, "seeded", dem, lt, seed=seed)),
+            "policy": (lambda: sce.launch_supplychain_greedy(*greedy_args),
+                       lambda: sce.supplychain_episode_plain(
+                           cc, B, "policy", dem, lt, params=model)),
+        }
+        tag = f"{env_id} B={B} T={cc.T}"
+        k, p = calls["actions"][0](), calls["actions"][1]()
+        torch.cuda.synchronize()
+        _check_episode(f"(a) {tag} actions kernel vs plain", k, p, errs)
+        k_s = calls["seeded"][0]()
+        k_a = sce.launch_supplychain_episode(
+            desc, cc, B, "actions", dem, lt,
+            actions=sce.seeded_actions(cc, seed, B, dev))
+        torch.cuda.synchronize()
+        _check_episode(f"(b) {tag} seeded vs actions on its Philox rows",
+                       k_s, k_a, errs, bits=True)
+        k, p = calls["policy"][0](), calls["policy"][1]()
+        torch.cuda.synchronize()
+        _check_episode(f"(c) {tag} greedy policy kernel vs plain", k, p, errs)
+        if env_id == "supplychain-ntom-v0":
+            for mode, (kern, plain) in calls.items():
+                ms, _ = _timed(kern, REPS)
+                plain_ms, _ = _timed(plain, PLAIN_REPS)
+                res[mode] = dict(ms=ms, plain_ms=plain_ms)
+            flops = 2 * _macs(layout, [0]) * cc.T * B
+            tables = 4 * (dem.numel() + (lt.numel() if lt is not None else 0))
+            out = 4 * (cc.T * B + cc.N * cc.P * B)
+            res["actions"]["bound"] = _bound(tables + 4 * act.numel() + out, 0)
+            res["seeded"]["bound"] = _bound(tables + out, 0)
+            res["policy"]["bound"] = _bound(tables + out + 4 * layout.wsec[0],
+                                            flops)
+            for mode, r in res.items():
+                print(f"  {tag} {mode}: kernel {r['ms']:.3f} ms (median of "
+                      f"{REPS}), plain {r['plain_ms']:.1f} ms (median of "
+                      f"{PLAIN_REPS}), bound {r['bound'][0]:.4f} ms "
+                      f"({r['bound'][1]}): {r['bound'][0] / r['ms']:.2%} of "
+                      f"it; {cc.T * B / r['ms'] * 1e3:.4e} env-steps/s")
+
+    # the rewards-only sweeps through the entry point: counts zeroed just
+    # before each, read just after
+    cc = sct.make_chain("supplychain-ntom-v0")
+    dem, lt, act = _episode_tables(cc, B, seed + 1, dev)
+    run_seeded, run_actions = sce.make_supplychain_episode(cc, cc.T, B,
+                                                           device="cuda")
+    for mode, run, last in (("seeded", run_seeded, seed),
+                            ("actions", run_actions, act)):
+        sce.launch_supplychain_episode.launches = 0
+        ms, rew = _timed(lambda: run(dem, lt, last), REPS)
+        res[mode]["launches"] = sce.launch_supplychain_episode.launches
+        print(f"  sweep through make_supplychain_episode, {mode}: {ms:.3f} ms"
+              f" per episode, launches {res[mode]['launches']}, rewards "
+              f"{tuple(rew.shape)}, finite {bool(torch.isfinite(rew).all())}")
+        if not (res[mode]["launches"] > 0 and rew.shape == (cc.T, B)
+                and bool(torch.isfinite(rew).all())):
+            raise RuntimeError(f"episode sweep {mode} failed")
+    return res
+
+
+def phase_eval(seed):
+    """Phase 10: the evaluation path: train, checkpoint, exact resume, the
+    evaluate CLI with both engines, the base-stock grid, timings."""
+    import shutil
+    import torch
+    import gym_supplychain_tpu_torch as sct
+    from gym_supplychain_tpu_torch.learn import evaluate, heuristics, train
+    from gym_supplychain_tpu_torch.ops import supplychain_episode as sce
+    from gym_supplychain_tpu_torch.utils.checkpoint import restore_checkpoint
+
+    B, work = ENVS, ROOT / "gym_supplychain_tpu_torch" / "_build" / "ckpt"
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 10: evaluation, supplychain-ntom-v0, B={B}, hidden "
+          f"{HIDDEN}: train (T={TRAIN_T}), checkpoint, resume, evaluate "
+          f"(T=360, {EVAL_EPISODES} episodes)")
+    base = ["--env", "supplychain-ntom-v0", "--envs", str(B), "--hidden",
+            *map(str, HIDDEN), "--horizon", str(TRAIN_T), "--epochs", "2",
+            "--log-every", "1", "--seed", str(seed)]
+    train.main(base + ["--iters", "2", "--checkpoint-dir", str(work / "a")])
+    resumed, _ = train.main(base + ["--iters", "1", "--restore",
+                                    str(work / "a"), "--checkpoint-dir",
+                                    str(work / "b")])
+    full, _ = train.main(base + ["--iters", "3"])
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(resumed.params.flat(),
+                                                 full.params.flat()))
+    print(f"  train CLI 2 iterations + checkpoint + 1 resumed: parameters "
+          f"bit-equal to 3 uninterrupted iterations: {same}")
+    if not same:
+        raise RuntimeError("checkpoint: the resumed run differs")
+
+    argv = ["--restore", str(work / "b"), "--envs", str(B), "--horizon",
+            "360", "--episodes", str(EVAL_EPISODES), "--seed", str(seed)]
+    sce.launch_supplychain_greedy.launches = 0
+    stats_k = evaluate.main(argv + ["--engine", "kernel"])
+    torch.cuda.synchronize()
+    launches = sce.launch_supplychain_greedy.launches
+    stats_s = evaluate.main(argv + ["--engine", "scan"])
+    rel = (abs(stats_k["mean_return"] - stats_s["mean_return"])
+           / abs(stats_s["mean_return"]))
+    ordered = all(s["min_return"] <= s["mean_return"] <= s["max_return"]
+                  and all(math.isfinite(v) for v in s.values())
+                  for s in (stats_k, stats_s))
+    print(f"  evaluate CLI, kernel engine: {stats_k}; greedy kernel launches "
+          f"{launches}")
+    print(f"  evaluate CLI, scan engine: {stats_s}")
+    print(f"  the engines share their inputs (same episode keys and Philox "
+          f"rows): mean returns differ by {rel:.3e} relative (tol "
+          f"{EVAL_RTOL:g})")
+    if not (rel <= EVAL_RTOL and ordered and launches == EVAL_EPISODES):
+        raise RuntimeError("evaluation: the engines disagree")
+
+    cc = sct.make_chain("supplychain-ntom-v0")
+    t0 = time.perf_counter()
+    z, best, scores = heuristics.best_base_stock(cc, B, seed, device="cuda")
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    print(f"  best_base_stock B={B} T=360: best z {z}, mean return "
+          f"{best:.1f}, grid {({k: round(v, 1) for k, v in scores.items()})},"
+          f" {grid_s:.2f} s (host clock); the greedy policy after 3 "
+          f"iterations {stats_k['mean_return']:.1f}")
+    if not all(math.isfinite(v) for v in scores.values()):
+        raise RuntimeError("base stock: returns not finite")
+
+    params = restore_checkpoint(str(work / "b"))["params"].to("cuda")
+    fused = evaluate.make_fused_evaluator(cc, B, HIDDEN, device="cuda")
+    scan = evaluate.make_evaluator(cc, B, device="cuda")
+    k_ms, _ = _timed(lambda: fused(params, seed, 1), REPS)
+    s_ms, _ = _timed(lambda: scan(params, seed, 1), PLAIN_REPS)
+    for name, ms, reps in (("kernel", k_ms, REPS), ("scan", s_ms, PLAIN_REPS)):
+        print(f"  {name} evaluator: {ms:.3f} ms per episode (tables "
+              f"included; median of {reps}) = {cc.T * B / ms * 1e3:.4e} "
+              f"env-steps/s")
+    shutil.rmtree(work, ignore_errors=True)
+    return dict(launches=launches, kernel_ms=k_ms, scan_ms=s_ms,
+                grid_s=grid_s)
+
+
+def _kernel_lines(res, tr, upd, ep, ev, sc_errs, bg_errs, pol_errs, pu_errs,
+                  ep_errs):
+    """The ``kernels`` summary: each kernel with its main-path launches,
+    its error against plain, its time, its plain version's and its bound
+    at the main path's shapes (no single PyTorch call computes any of these
+    functions, so ``library_ms`` is null)."""
+    import gym_supplychain_tpu_torch as sct
+    from gym_supplychain_tpu_torch.ops._mlp import MlpLayout
+
+    src = "gym_supplychain_tpu_torch/csrc/"
+    sc_pallas = "gym_supplychain_tpu/ops/supplychain_pallas.py"
+    B, lines = ENVS, []
+
+    def line(name, source, replaces, launches, err, ms, plain_ms, bound):
+        lines.append(dict(name=name, route="cuda", source=src + source,
+                          replaces=replaces, launches=launches,
+                          max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound[0], bound_by=bound[1],
+                          library_ms=None))
+
+    for env_id, r in res.items():
+        S = r["S"]
+        if env_id.startswith("beergame"):
+            spec = sct.make_chain(env_id)
+            # demand [S,B] in; obs [S,L,B] and reward [S,B] out, int32
+            bound = _bound(4 * S * B * (2 + spec.levels), 0)
+            line(f"beergame_collect[{env_id}]", "beergame_collect.cu",
+                 "gym_supplychain_tpu/ops/beergame_pallas.py:149",
+                 r["launches"], max(bg_errs + [r["max_abs_err"]]), r["ms"],
+                 r["plain_ms"], bound)
+        else:
+            cc = sct.make_chain(env_id)
+            # obs [S,O,B], reward [S,B], final stock out
+            bound = _bound(4 * B * (S * (cc.obs_dim + 1) + cc.N * cc.P), 0)
+            line(f"supplychain_collect[{env_id}]", "supplychain_collect.cu",
+                 f"{sc_pallas}:791", r["launches"],
+                 max(sc_errs + [r["max_abs_err"]]), r["ms"], r["plain_ms"],
+                 bound)
+    cc = sct.make_chain("supplychain-ntom-v0", total_time_steps=TRAIN_T)
+    lay = MlpLayout(cc.obs_dim, cc.A, HIDDEN)
+    M = TRAIN_T * B
+    # policy collection: weights in; obs, pre, logp, value, reward, stock out
+    line("supplychain_collect[policy]", "supplychain_collect.cu",
+         f"{sc_pallas}:791", tr["counts"]["supplychain_collect[policy]"],
+         max(pol_errs), tr["kernel"]["collect"], tr["plain"]["collect"],
+         _bound(4 * (sum(lay.wsec) + M * (cc.obs_dim + cc.A + 3)
+                     + cc.N * cc.P * B),
+                2 * _macs(lay, [0, 1]) * M))
+    # update: obs, pre and three [M] rows and the weights in, the gradients
+    # out; forward, weight gradients, and input gradients past layer 0
+    macs = 3 * _macs(lay, [0, 1]) - cc.obs_dim * 2 * HIDDEN[0]
+    line("ppo_update", "ppo_update.cu",
+         "gym_supplychain_tpu/ops/ppo_update_pallas.py:91",
+         tr["counts"]["ppo_update"], max(pu_errs), upd["ms"],
+         upd["plain_ms"],
+         _bound(4 * (M * (cc.obs_dim + cc.A + 3) + 2 * lay.n_params),
+                2 * macs * M))
+    for mode in ("seeded", "actions", "policy"):
+        r = ep[mode]
+        line(f"supplychain_episode[{mode}]", "supplychain_collect.cu",
+             f"{sc_pallas}:736",
+             ev["launches"] if mode == "policy" else r["launches"],
+             max(ep_errs), r["ms"], r["plain_ms"], r["bound"])
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -563,42 +861,18 @@ def main(argv=None) -> int:
     B = ENVS
     chains = {env_id: sct.make_chain(env_id)
               for env_id in ("supplychain-linear-v0", "supplychain-ntom-v0")}
-    sc_errs, bg_errs, pol_errs, pu_errs = [], [], [], []
+    sc_errs, bg_errs, pol_errs, pu_errs, ep_errs = [], [], [], [], []
     phase_supplychain(chains, B, CHECK_EPISODES, args.seed, sc_errs)
     phase_beergame(B, CHECK_EPISODES, args.seed, bg_errs)
     res = phase_main_path(B, MAIN_EPISODES, args.seed, REPS)
     phase_policy(B, CHECK_EPISODES, args.seed, pol_errs)
     upd = phase_ppo_update(args.seed, pu_errs)
     tr = phase_trainer(args.seed)
+    ep = phase_episode(B, args.seed, ep_errs)
+    ev = phase_eval(args.seed)
 
-    src = "gym_supplychain_tpu_torch/csrc/"
-    kernels = []
-    for env_id, r in res.items():
-        bg = env_id.startswith("beergame")
-        errs = bg_errs if bg else sc_errs
-        kernels.append(dict(
-            name=("beergame_collect" if bg else "supplychain_collect")
-            + f"[{env_id}]",
-            route="cuda",
-            source=src + ("beergame_collect.cu" if bg
-                          else "supplychain_collect.cu"),
-            replaces=("gym_supplychain_tpu/ops/beergame_pallas.py:149" if bg
-                      else "gym_supplychain_tpu/ops/supplychain_pallas.py:791"),
-            launches=r["launches"],
-            max_abs_err=max(errs + [r["max_abs_err"]]),
-            ms=r["ms"], plain_ms=r["plain_ms"]))
-    kernels.append(dict(
-        name="supplychain_collect[policy]", route="cuda",
-        source=src + "supplychain_collect.cu",
-        replaces="gym_supplychain_tpu/ops/supplychain_pallas.py:791",
-        launches=tr["counts"]["supplychain_collect[policy]"],
-        max_abs_err=max(pol_errs), ms=tr["kernel"]["collect"],
-        plain_ms=tr["plain"]["collect"]))
-    kernels.append(dict(
-        name="ppo_update", route="cuda", source=src + "ppo_update.cu",
-        replaces="gym_supplychain_tpu/ops/ppo_update_pallas.py:91",
-        launches=tr["counts"]["ppo_update"], max_abs_err=max(pu_errs),
-        ms=upd["ms"], plain_ms=upd["plain_ms"]))
+    kernels = _kernel_lines(res, tr, upd, ep, ev, sc_errs, bg_errs, pol_errs,
+                            pu_errs, ep_errs)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

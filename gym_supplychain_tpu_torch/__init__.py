@@ -1,15 +1,19 @@
 """gym-supplychain-tpu-torch: gym-supplychain-tpu on PyTorch, with
 hand-written CUDA kernels for Hopper (H100).
 
-Two slices are ported.  Rollouts: batched supply-chain and beer-game
+Three slices are ported.  Rollouts: batched supply-chain and beer-game
 environments stepped in lockstep with auto-reset (``envs.vector``), their
 eager step engines (``core``), Philox random streams (``rng.device``) and
 whole-episode trajectory collection (``ops``).  Training: the tanh-Gaussian
 actor-critic (``models.policy``), PPO with fused collection and the fused
 update kernel (``learn.ppo``) and the train CLI (``python -m
-gym_supplychain_tpu_torch.learn.train``).  The JAX package
-``gym_supplychain_tpu`` is the reference the port is tested against; this
-package never imports it, nor jax.
+gym_supplychain_tpu_torch.learn.train``) with checkpoints
+(``utils.checkpoint``).  Evaluation: greedy rollouts through the episode
+kernel or the batched env (``learn.evaluate`` and its CLI) and the
+base-stock baselines (``learn.heuristics``, ``learn.compare_baseline``).
+Entry points run on the card (``device="cuda"``) unless the caller asks
+for the CPU.  The JAX package ``gym_supplychain_tpu`` is the reference the
+port is tested against; this package never imports it, nor jax.
 
 >>> import gym_supplychain_tpu_torch as sct
 >>> from gym_supplychain_tpu_torch.ops.supplychain_collect import (
@@ -20,11 +24,14 @@ package never imports it, nor jax.
 >>> obs, reward = run(0)            # obs [8*360, obs_dim, 4096]
 """
 from .core.compile import CompiledChain, DemandConfig, compile_chain
-from .envs.presets import BeerGameSpec, beergame_v0, linear_chain, ntom_chain
+from .envs.presets import (BeerGameSpec, beergame_v0, linear_chain,
+                           ntom_chain, twoperstage_chain)
 
 _REGISTRY = {
     "supplychain-linear-v0": linear_chain,
     "supplychain-ntom-v0": ntom_chain,
+    "supplychain-2perstage-v0": twoperstage_chain,
+    "sc-2perstage-v0": twoperstage_chain,
     "beergame-v0": beergame_v0,
 }
 

@@ -32,7 +32,7 @@ class BeerGameState(NamedTuple):
 def make_beergame_kernels(levels: int, max_weeks: int, max_delay: int,
                           inv_cost=1, backlog_cost=2,
                           exceeded_capacity_penalty=0, max_stock: int = 0,
-                          v2: bool = False, itype=torch.int32, device="cpu"):
+                          v2: bool = False, itype=torch.int32, device="cuda"):
     """Build ``(reset_fn, step_fn, obs_fn)`` for a beer game family.
 
     ``max_delay`` bounds every shipment delay (including the prepended

@@ -118,7 +118,7 @@ def _in_edge_index(cc: CompiledChain) -> np.ndarray:
 
 def make_supplychain_kernels(cc: CompiledChain, dtype=torch.float32,
                              debug: bool = False, stateless_rng: bool = False,
-                             device="cpu"):
+                             device="cuda"):
     """Build ``(reset_fn, step_fn, obs_fn)`` over a compiled chain.
 
     Table mode: ``reset_fn(demands, leadtimes, B)``.  Stateless mode
@@ -415,7 +415,7 @@ def make_supplychain_kernels(cc: CompiledChain, dtype=torch.float32,
     return (reset_fn_stateless if stateless_rng else reset_fn), step_fn, obs_fn
 
 
-def state_from_numpy(d: dict, device="cpu"):
+def state_from_numpy(d: dict, device="cuda"):
     """A state from numpy arrays keyed by the JAX field names: an
     ``EnvState``, or a ``BeerGameState`` when ``d`` has a ``week``."""
     from .beergame import BeerGameState

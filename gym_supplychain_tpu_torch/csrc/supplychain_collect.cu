@@ -1,7 +1,9 @@
-// Supply-chain trajectory collection, one thread per environment.
+// Supply-chain trajectory collection and whole-episode rollouts, one thread
+// per environment.
 //
 // Replaces the TPU collect kernel `_collect_kernel` of
-// gym_supplychain_tpu/ops/supplychain_pallas.py in all its modes.  Each
+// gym_supplychain_tpu/ops/supplychain_pallas.py in all its modes, and its
+// episode kernel `_kernel` (modes `seeded`, `actions`, `policy`).  Each
 // env runs through S = episodes * T steps with auto-reset at every episode
 // boundary, writing the pre-action observation and the reward of every
 // step.  The per-env state (stock [N*P], pipeline ring [RING*N*P]) lives in
@@ -21,13 +23,25 @@
 //   dynamic shared memory once per launch, so at B = 4096 the 128 blocks
 //   spread over 128 of the 132 SMs, one block each.  It writes obs, the
 //   pre-tanh action, its log-prob, the critic's value and the reward.
+// * sc_episode_kernel (K6a: `seeded`, `actions`) and sc_greedy_kernel (K4:
+//   `policy`): one episode of T steps from demand [T+1,R,P,B] and lead-time
+//   [T,K,B] tables, writing only the reward [T,B] and the final stock.  The
+//   episode kernel is sc_collect_kernel without the obs stream, its actions
+//   from a table or from Philox at counter (lane, step, block, 0); the
+//   greedy kernel is sc_policy_kernel with the actor alone: warp 0 steps 32
+//   envs, all 4 warps run the actor trunk and the mu head on the obs tile,
+//   and the action is tanh(mu), with no noise and no critic.  Only the
+//   actor section of the packed weights (88 KB for ntom at hidden
+//   (128, 128)) is copied to shared memory.
 //
 // Bounds on the card: the step is branchy scalar float work with indices
 // known only at run time, so the state sits in local memory (L1) and the
 // step is latency-bound; the only large traffic is the obs stream
-// (S * O * B * 4 bytes).  The MLP reads weights as shared-memory broadcasts
-// and activations without bank conflicts; it is issue-bound (a rounded
-// product and an add per weight per env).
+// (S * O * B * 4 bytes), and in the episode kernels the tables they read.
+// The MLP reads weights as shared-memory broadcasts and activations without
+// bank conflicts; it is issue-bound (a rounded product and an add per
+// weight per env), which makes the greedy kernel's floor its float32
+// multiply-adds (2 * 21,632 FLOP per env-step for ntom at (128, 128)).
 //
 // Floating-point rules (the plain versions, core/step.py and
 // ops/supplychain_collect.py, follow the same):
@@ -81,6 +95,7 @@
 #define MODE_ACTIONS 1
 #define MODE_POLICY 2
 #define MODE_POLICY_EPS 3
+#define MODE_SEEDED 4
 
 // policy kernel: 4 warps, 32 envs a block; MLP layout of ops/_mlp.py
 #define PK_THREADS 128
@@ -191,6 +206,20 @@ __device__ __forceinline__ void sc_draw_inputs(const ScChain& ch, int b, int s,
   }
 }
 
+// ---- n uniforms in [0, 1) from Philox at counter (lane, step, blk, 0) ----
+__device__ __forceinline__ void sc_draw_uniforms(int b, int s, uint32_t k0,
+                                                 uint32_t k1, int n, float* u) {
+  for (int blk = 0; blk * 4 < n; ++blk) {
+    const uint4 w = philox4x32_10(
+        make_uint4((uint32_t)b, (uint32_t)s, (uint32_t)blk, 0u), k0, k1);
+    for (int q = 0; q < 4; ++q) {
+      const int i = blk * 4 + q;
+      if (i >= n) break;
+      u[i] = uniform01(philox_word(w, q));
+    }
+  }
+}
+
 // ---- one step's table rows: demands [S,R,P,B], lead-times [S,K,B] --------
 __device__ __forceinline__ void sc_read_inputs(const ScChain& ch, int s, int b,
                                                size_t Bz,
@@ -216,10 +245,19 @@ struct ObsSink {
   }
 };
 
+// the obs tile alone (the greedy kernel writes no obs stream)
+struct TileSink {
+  float* tile;  // [O][PK_ENVS] at this env's column
+  __device__ __forceinline__ void operator()(int o, float v) const {
+    tile[o * PK_ENVS] = v;
+  }
+};
+
 // ---- pre-action observation (core/step.py obs_fn) -------------------------
+template <class Sink>
 __device__ __forceinline__ void sc_obs(const ScChain& ch, const float* stock,
                                        const float* ring, const float* dem,
-                                       int te, const ObsSink& out) {
+                                       int te, const Sink& out) {
   const int N = ch.N, P = ch.P, NP = N * P, RING = ch.ring, RP = ch.R * P;
   const int Lavg = ch.Lavg, H = ch.H, T = ch.T, t = te + 1;
   int o = 0;
@@ -626,6 +664,100 @@ sc_policy_kernel(const ScChain* __restrict__ gch, const int* __restrict__ glay,
     for (int i = 0; i < ch.N * ch.P; ++i) stock_out[(size_t)i * Bz + b] = stock[i];
 }
 
+// ---- K6a: one episode, actions from a table or from Philox ---------------
+__global__ void __launch_bounds__(128)
+sc_episode_kernel(const ScChain* __restrict__ gch, int mode, int B,
+                  const float* __restrict__ dem_tab,
+                  const int* __restrict__ lt_tab,
+                  const float* __restrict__ act_tab, uint32_t k0, uint32_t k1,
+                  float* __restrict__ rew, float* __restrict__ stock_out) {
+  __shared__ ScChain ch;
+  copy_chain(gch, &ch);
+  __syncthreads();
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+
+  const int NP = ch.N * ch.P, T = ch.T, A = ch.A;
+  const size_t Bz = (size_t)B;
+
+  float stock[SC_MAX_NP], ring[SC_MAX_RING * SC_MAX_NP];
+  float a[SC_MAX_A], dem[SC_MAX_RP];
+  int lt_row[SC_MAX_K];
+
+  sc_episode_init(ch, stock, ring);
+  for (int s = 0; s < T; ++s) {
+    if (mode == MODE_SEEDED) {
+      sc_draw_uniforms(b, s, k0, k1, A, a);
+      for (int i = 0; i < A; ++i) a[i] = 2.0f * a[i] - 1.0f;
+    } else {
+      for (int i = 0; i < A; ++i) a[i] = act_tab[((size_t)s * A + i) * Bz + b];
+    }
+    sc_read_inputs(ch, s, b, Bz, dem_tab, lt_tab, lt_row, dem);
+    for (int i = 0; i < A; ++i) a[i] = (a[i] + 1.0f) * 0.5f;
+    rew[(size_t)s * Bz + b] = sc_step(ch, stock, ring, a, lt_row, dem, s + 1);
+  }
+  if (stock_out != nullptr)
+    for (int i = 0; i < NP; ++i) stock_out[(size_t)i * Bz + b] = stock[i];
+}
+
+// ---- K4: one episode of the greedy policy tanh(mu) ------------------------
+__global__ void __launch_bounds__(PK_THREADS)
+sc_greedy_kernel(const ScChain* __restrict__ gch, const int* __restrict__ glay,
+                 const float* __restrict__ gw, int B,
+                 const float* __restrict__ dem_tab,
+                 const int* __restrict__ lt_tab, float* __restrict__ rew,
+                 float* __restrict__ stock_out) {
+  __shared__ ScChain ch;
+  __shared__ int lay[MLP_LAYOUT_INTS];
+  extern __shared__ float4 dyn[];
+  copy_chain(gch, &ch);
+  for (int i = threadIdx.x; i < MLP_LAYOUT_INTS; i += blockDim.x) lay[i] = glay[i];
+  __syncthreads();
+  const int O = lay[1], A = lay[2], Hmax = lay[9];
+  const int nw = lay[3];  // the actor section, a multiple of 8 floats
+  float* W = reinterpret_cast<float*>(dyn);
+  {
+    const float4* src = reinterpret_cast<const float4*>(gw);
+    for (int i = threadIdx.x; i < nw / 4; i += blockDim.x) dyn[i] = src[i];
+  }
+  float* xs = W + nw;                   // obs tile [O][32]
+  float* hA = xs + O * PK_ENVS;         // hidden activations [Hmax][32]
+  float* hB = hA + Hmax * PK_ENVS;
+  float* mu_s = hB + Hmax * PK_ENVS;    // actor head [Jp][32]
+  __syncthreads();
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * PK_ENVS + lane;
+  const bool env = warp == 0 && b < B;
+  const int T = ch.T;
+  const size_t Bz = (size_t)B;
+
+  float stock[SC_MAX_NP], ring[SC_MAX_RING * SC_MAX_NP];
+  float a[SC_MAX_A], dem[SC_MAX_RP];
+  int lt_row[SC_MAX_K];
+
+  if (env) sc_episode_init(ch, stock, ring);
+  for (int s = 0; s < T; ++s) {
+    if (env) {
+      sc_read_inputs(ch, s, b, Bz, dem_tab, lt_tab, lt_row, dem);
+      sc_obs(ch, stock, ring, dem, s, TileSink{xs + lane});
+    } else if (warp == 0) {
+      for (int o = 0; o < O; ++o) xs[o * PK_ENVS + lane] = 0.0f;
+    }
+    __syncthreads();
+    mlp_net(lay, W, 0, xs, hA, hB, mu_s);
+    if (env) {
+      for (int i = 0; i < A; ++i)
+        a[i] = (tanhf(mu_s[i * PK_ENVS + lane]) + 1.0f) * 0.5f;
+      rew[(size_t)s * Bz + b] = sc_step(ch, stock, ring, a, lt_row, dem, s + 1);
+    }
+    // the next step's obs tile is written after every warp read this one
+    __syncthreads();
+  }
+  if (env && stock_out != nullptr)
+    for (int i = 0; i < ch.N * ch.P; ++i) stock_out[(size_t)i * Bz + b] = stock[i];
+}
+
 extern "C" int sc_collect_launch(const void* chain, int chain_bytes, int mode,
                                  int S, int B, const float* dem_tab,
                                  const int* lt_tab, const float* act_tab,
@@ -657,6 +789,37 @@ extern "C" int sc_policy_launch(const void* chain, int chain_bytes,
   sc_policy_kernel<<<blocks, PK_THREADS, smem_bytes, (cudaStream_t)stream>>>(
       (const ScChain*)chain, layout, weights, mode, S, B, dem_tab, lt_tab,
       eps_tab, k0, k1, sample_major, obs, act_pre, logp, value, rew,
+      stock_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sc_episode_launch(const void* chain, int chain_bytes, int mode,
+                                 int B, const float* dem_tab, const int* lt_tab,
+                                 const float* act_tab, unsigned int k0,
+                                 unsigned int k1, float* rew, float* stock_out,
+                                 void* stream) {
+  if (chain_bytes != (int)sizeof(ScChain)) return -1;
+  if (mode != MODE_SEEDED && mode != MODE_ACTIONS) return -3;
+  const int threads = 128;
+  const int blocks = (B + threads - 1) / threads;
+  sc_episode_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const ScChain*)chain, mode, B, dem_tab, lt_tab, act_tab, k0, k1, rew,
+      stock_out);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sc_greedy_launch(const void* chain, int chain_bytes,
+                                const int* layout, const float* weights,
+                                int smem_bytes, int B, const float* dem_tab,
+                                const int* lt_tab, float* rew, float* stock_out,
+                                void* stream) {
+  if (chain_bytes != (int)sizeof(ScChain)) return -1;
+  cudaError_t e = cudaFuncSetAttribute(
+      sc_greedy_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (B + PK_ENVS - 1) / PK_ENVS;
+  sc_greedy_kernel<<<blocks, PK_THREADS, smem_bytes, (cudaStream_t)stream>>>(
+      (const ScChain*)chain, layout, weights, B, dem_tab, lt_tab, rew,
       stock_out);
   return (int)cudaGetLastError();
 }

@@ -1,10 +1,11 @@
 """Configurations of the rollout slice, as compiled chains.
 
-The topology builders of the JAX package's ``SupplyChainLinearEnv`` and
-``SupplyChainNtoMEnv`` (``gym_supplychain_tpu/envs/presets.py``), returning
-a ``CompiledChain`` instead of a single-env object, plus the classic beer
-game's defaults.  Values are those of the JAX presets, which mirror the
-reference's README topologies and its ``__main__`` demo.
+The topology builders of the JAX package's ``SupplyChainLinearEnv``,
+``SupplyChainNtoMEnv`` and ``SupplyChain2perStageEnv``
+(``gym_supplychain_tpu/envs/presets.py``), returning a ``CompiledChain``
+instead of a single-env object, plus the classic beer game's defaults.
+Values are those of the JAX presets, which mirror the reference's README
+topologies, its ``__main__`` demo and its ``SupplyChain2perStageEnv``.
 """
 from __future__ import annotations
 
@@ -13,7 +14,8 @@ from typing import Tuple
 
 from ..core.compile import CompiledChain, compile_chain
 
-__all__ = ["linear_chain", "ntom_chain", "BeerGameSpec", "beergame_v0"]
+__all__ = ["linear_chain", "ntom_chain", "twoperstage_chain", "BeerGameSpec",
+           "beergame_v0"]
 
 
 def _linear_nodes(num_products=1, initial_stock=10, stock_capacity=100,
@@ -107,6 +109,61 @@ def ntom_chain(num_products=1, demand_range=(10, 20), stock_capacity=300,
         exceeded_process_capacity_cost=exceeded_capacity_cost,
         exceeded_ship_capacity_cost=exceeded_capacity_cost,
         processing_ratio=processing_ratio,
+        stochastic_leadtimes=stochastic_leadtimes, avg_leadtime=avg_leadtime,
+        max_leadtime=max_leadtime, total_time_steps=total_time_steps, **kw)
+
+
+def twoperstage_chain(num_products=1, initial_stocks=(0,) * 8,
+                      initial_supply=([[60, 60]],) * 2,
+                      initial_shipments=([[60, 60]],) * 2 + ([[20, 20]],) * 4,
+                      supply_capacities=(120, 150),
+                      processing_capacities=(300, 300),
+                      stock_capacities=(200, 300) * 4, ship_capacity=300,
+                      processing_ratio=3, processing_costs=(12, 10),
+                      stock_costs=(1,) * 8, supply_costs=(6, 4), dest_cost=2,
+                      unmet_demand_cost=216, exceeded_stock_capacity_cost=10,
+                      exceeded_process_capacity_cost=10,
+                      exceeded_ship_capacity_cost=10, demand_range=(10, 20),
+                      stochastic_leadtimes=False, avg_leadtime=2,
+                      max_leadtime=2, total_time_steps=360,
+                      **kw) -> CompiledChain:
+    """``supplychain-2perstage-v0`` (``sc-2perstage-v0``): 2 suppliers ->
+    2 factories -> 2 wholesalers -> 2 retailers, full bipartite between
+    stages, with seeded initial supplies and shipments."""
+    nodes_info = {}
+    stages = (("Supplier", ["Factory1", "Factory2"]),
+              ("Factory", ["WholeSaler1", "WholeSaler2"]),
+              ("WholeSaler", ["Retailer1", "Retailer2"]),
+              ("Retailer", None))
+    for s, (stage, dests) in enumerate(stages):
+        for i in range(2):
+            n = 2 * s + i
+            node = {'initial_stock': initial_stocks[n],
+                    'stock_capacity': stock_capacities[n],
+                    'stock_cost': stock_costs[n]}
+            if s == 0:
+                node.update({'initial_supply': initial_supply[i],
+                             'supply_capacity': supply_capacities[i],
+                             'supply_cost': supply_costs[i]})
+            else:
+                node['initial_shipments'] = initial_shipments[n - 2]
+            if s == 1:
+                node.update({'processing_capacity': processing_capacities[i],
+                             'processing_cost': processing_costs[i]})
+            if dests is None:
+                node['last_level'] = True
+            else:
+                node.update({'destinations': dests,
+                             'dest_costs': [[dest_cost] * 2] * num_products,
+                             'ship_capacity': [ship_capacity] * 2})
+            nodes_info[f"{stage}{i + 1}"] = node
+    return compile_chain(
+        nodes_info, num_products=num_products,
+        unmet_demand_cost=unmet_demand_cost,
+        exceeded_stock_capacity_cost=exceeded_stock_capacity_cost,
+        exceeded_process_capacity_cost=exceeded_process_capacity_cost,
+        exceeded_ship_capacity_cost=exceeded_ship_capacity_cost,
+        processing_ratio=processing_ratio, demand_range=demand_range,
         stochastic_leadtimes=stochastic_leadtimes, avg_leadtime=avg_leadtime,
         max_leadtime=max_leadtime, total_time_steps=total_time_steps, **kw)
 

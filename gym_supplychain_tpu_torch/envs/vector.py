@@ -44,7 +44,7 @@ def _split(key):
 
 
 def make_vec_env(cc: CompiledChain, batch_size: int, dtype=torch.float32,
-                 device="cpu"):
+                 device="cuda"):
     """Functional batched env over a compiled chain.
 
     Returns ``(init_fn, step_fn, obs_fn)``: ``init_fn(key) -> VecState``
@@ -83,7 +83,7 @@ class VecSupplyChainEnv:
     (its host MT19937 modes are not ported)."""
 
     def __init__(self, nodes_info=None, batch_size: int = 1024, cc=None,
-                 dtype=torch.float32, seed: int = 0, device="cpu",
+                 dtype=torch.float32, seed: int = 0, device="cuda",
                  **env_kwargs):
         if cc is None:
             cc = compile_chain(nodes_info, **env_kwargs)
@@ -119,7 +119,7 @@ def _is_range(x):
 
 def make_beergame_table_draw(weeks: int, dem_range=None, delay_range=None,
                              scripted_demand=None, scripted_delays=None,
-                             itype=torch.int32, device="cpu"):
+                             itype=torch.int32, device="cuda"):
     """Per-lane episode tables for the stochastic beer game v2.
 
     Returns ``draw(key, B) -> (demand [weeks, B], delays [weeks+1, B])``.
@@ -165,7 +165,7 @@ class VecBeerGameEnv:
                  initial_shipment: int = 4, initial_orders: int = 4,
                  v2: bool = False, max_stock: int = 100,
                  exceeded_capacity_penalty: int = 100, seed: int = 0,
-                 weeks: int = 35, itype=torch.int32, device="cpu"):
+                 weeks: int = 35, itype=torch.int32, device="cuda"):
         from ..core.beergame import make_beergame_kernels
 
         self.B = batch_size

@@ -233,7 +233,7 @@ def _metrics(losses, traj: Trajectory, reward_scale: float):
 
 
 def make_ppo(cc: CompiledChain, batch_size: int, cfg: PPOConfig = PPOConfig(),
-             reward_scale: float = 1e-4, device="cpu"):
+             reward_scale: float = 1e-4, device="cuda"):
     """The scan trainer: ``cfg.rollout_steps`` steps of the batched env
     (``envs/vector.py``, auto-reset) with the policy sampled per step, then
     GAE bootstrapped from the last value and ``cfg.epochs`` PPO epochs.
@@ -308,7 +308,7 @@ def _draw_seed(gen: torch.Generator) -> int:
 def make_ppo_fused(cc: CompiledChain, batch_size: int,
                    cfg: PPOConfig = PPOConfig(), episodes: int = 1,
                    noise: str = "prng", reward_scale: float = 1e-4,
-                   device="cpu", plain: bool = False):
+                   device="cuda", plain: bool = False):
     """PPO with whole-episode collection through the collect kernel.
 
     Each iteration collects ``episodes`` back-to-back ``cc.T``-step

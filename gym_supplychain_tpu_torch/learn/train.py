@@ -4,16 +4,20 @@ Usage:
     python -m gym_supplychain_tpu_torch.learn.train --env supplychain-ntom-v0 \\
         --envs 4096 --horizon 60 --iters 200
 
-On a CUDA device the trainer defaults to fused collection (the collect
-kernel's policy mode, ``make_ppo_fused``) and the fused update (the PPO
-update kernel); ``--no-fused`` / ``--no-fused-update`` select the scan
-trainer and autograd.  On the CPU the scan trainer runs.  One JSON line of
-metrics every ``--log-every`` iterations.
+It runs on the card (``--device cuda``, the default) and stops with an
+error where there is none; ``--device cpu`` asks for the CPU.  On a CUDA
+device the trainer defaults to fused collection (the collect kernel's
+policy mode, ``make_ppo_fused``) and the fused update (the PPO update
+kernel); ``--no-fused`` / ``--no-fused-update`` select the scan trainer and
+autograd.  On the CPU the scan trainer runs.  One JSON line of metrics
+every ``--log-every`` iterations.  ``--checkpoint-dir`` writes the train
+state after the last iteration (``step_<iters>.pt``); ``--restore`` loads
+one before the first (``utils/checkpoint.py``).
 
-The flags are those of ``gym_supplychain_tpu.learn.train``.  Those whose
-modules are not ported yet (multi-process and tensor-parallel training,
-checkpoints, traces, the bf16 learner, the beer game's trainer) stop with
-an error instead of being ignored.
+The flags are those of ``gym_supplychain_tpu.learn.train``, plus
+``--device``.  Those whose modules are not ported yet (multi-process and
+tensor-parallel training, traces, the bf16 learner, the beer game's
+trainer) stop with an error instead of being ignored.
 """
 from __future__ import annotations
 
@@ -22,13 +26,25 @@ import argparse
 _UNPORTED = "is not ported to the PyTorch package yet"
 
 
+def device_from_flag(name: str):
+    """The ``--device`` of a CLI as a ``torch.device``; stops with an error
+    for a CUDA device where there is none (never falls back to the CPU)."""
+    import torch
+
+    device = torch.device(name)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit(f"--device {name}: no CUDA device is available "
+                         "(pass --device cpu to run on the CPU)")
+    if device.type not in ("cuda", "cpu"):
+        raise SystemExit(f"--device {name}: the port runs on cuda or cpu")
+    return device
+
+
 def _refuse(args):
     """Stop on a flag whose module is not ported."""
     checks = [
         (args.multihost, "--multihost (multi-process training)"),
         (args.model_axis > 1, "--model-axis > 1 (tensor parallelism)"),
-        (args.checkpoint_dir, "--checkpoint-dir (checkpoints)"),
-        (args.restore, "--restore (checkpoints)"),
         (args.trace_dir, "--trace-dir (device traces)"),
         (args.learner_dtype == "bf16", "--learner-dtype bf16"),
         (args.env.startswith("beergame"),
@@ -73,16 +89,20 @@ def main(argv=None):
     p.add_argument("--restore", default=None)
     p.add_argument("--trace-dir", default=None)
     p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--device", default="cuda",
+                   help="cuda (default; an error where there is no card) or "
+                        "cpu")
     args = p.parse_args(argv)
     _refuse(args)
 
     import torch
 
     from .. import make_chain
+    from ..utils.checkpoint import restore_checkpoint, save_checkpoint
     from ..utils.profiling import Throughput, log_metrics
     from .ppo import PPOConfig, make_ppo, make_ppo_fused
 
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = device_from_flag(args.device)
     on_cuda = device.type == "cuda"
     if args.fused is None:
         args.fused = on_cuda
@@ -109,6 +129,8 @@ def main(argv=None):
             torch.cuda.synchronize(device)
 
     state = init_fn(args.seed)
+    if args.restore:
+        state = restore_checkpoint(args.restore, like=state)
     meter = Throughput(args.envs * steps_per_iter)
     metrics, last = None, 0
     for it in range(args.iters):
@@ -123,6 +145,9 @@ def main(argv=None):
             last = it + 1
             log_metrics(it + 1, {**metrics, "env_steps_per_s": sps})
     sync()
+    if args.checkpoint_dir:
+        path = save_checkpoint(args.checkpoint_dir, state, step=args.iters)
+        print(f"# checkpoint: {path}")
     return state, metrics
 
 

@@ -56,7 +56,7 @@ class ActorCritic(nn.Module):
     """
 
     def __init__(self, cfg: MLPConfig, generator: torch.Generator = None,
-                 device="cpu"):
+                 device="cuda"):
         super().__init__()
         self.cfg = MLPConfig(cfg.obs_dim, cfg.act_dim, tuple(cfg.hidden))
         if not self.cfg.hidden:
@@ -167,14 +167,14 @@ def sample_tanh_gaussian(generator: torch.Generator, mu, log_std):
     return torch.tanh(pre), tanh_gaussian_logp(pre, mu, log_std)
 
 
-def params_from_jax(tree, device="cpu") -> ActorCritic:
+def params_from_jax(tree, device="cuda") -> ActorCritic:
     """An ``ActorCritic`` holding the values of an ``init_actor_critic``
     tree (numpy or JAX arrays: ``{"actor": [{"w", "b"}], "critic": [...],
     "mu", "v", "log_std"}``)."""
     hidden = tuple(int(np.shape(layer["w"])[0]) for layer in tree["actor"])
     obs_dim = int(np.shape(tree["actor"][0]["w"])[1])
     act_dim = int(np.shape(tree["mu"]["w"])[0])
-    model = ActorCritic(MLPConfig(obs_dim, act_dim, hidden))
+    model = ActorCritic(MLPConfig(obs_dim, act_dim, hidden), device="cpu")
     src = []
     for layer in tree["actor"]:
         src += [layer["w"], layer["b"]]

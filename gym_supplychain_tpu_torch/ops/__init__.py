@@ -5,7 +5,10 @@
 * ``beergame_collect``: beer-game trajectory collection (replaces
   ``make_beergame_collect_pallas``);
 * ``ppo_update``: the PPO update's forward, loss and backward (replaces
-  ``make_ppo_update_grads``).
+  ``make_ppo_update_grads``);
+* ``supplychain_episode``: one rewards-only episode, greedy policy,
+  Philox or table actions (replaces ``make_supplychain_episode_pallas``
+  and ``make_supplychain_policy_rollout_pallas``).
 
 The CUDA sources build with nvcc at first use (``_build``), never at import.
 """

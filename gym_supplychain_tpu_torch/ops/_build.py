@@ -38,6 +38,8 @@ _SIGNATURES = {
                           _P],
     "sc_policy_launch": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _U, _U,
                          _I, _P, _P, _P, _P, _P, _P, _P],
+    "sc_episode_launch": [_P, _I, _I, _I, _P, _P, _P, _U, _U, _P, _P, _P],
+    "sc_greedy_launch": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     "bg_collect_launch": [_I] * 19 + [_P, _P, _P, _U, _U, _P, _P, _P],
     "ppo_update_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F,
                           _F, _F, _F, _P, _P, _I, _P],

@@ -161,7 +161,7 @@ def make_beergame_collect(weeks: int, levels: int, B: int, episodes: int = 1,
                           backlog_cost: int = 2, max_order: int = 16,
                           v2: bool = False, max_stock: int = 100,
                           exceeded_capacity_penalty: int = 100,
-                          max_delay=None, device="cpu"):
+                          max_delay=None, device="cuda"):
     """Beer-game trajectory collection (v0 and v2), S = episodes * weeks.
 
     * constant delay: ``run(demand, seed)`` (random) or

@@ -53,8 +53,8 @@ from ._mlp import LAYOUT_INTS, SMEM_MAX, MlpLayout
 
 __all__ = ["make_supplychain_collect", "launch_supplychain_collect",
            "launch_supplychain_policy", "supplychain_collect_plain",
-           "philox_tables", "chain_descriptor", "policy_smem_bytes",
-           "resolve_device", "seed_key"]
+           "philox_tables", "chain_descriptor", "check_uniform_demand",
+           "policy_smem_bytes", "resolve_device", "seed_key"]
 
 _MODES = {"random": 0, "actions": 1, "policy": 2, "policy_eps": 3}
 _POLICY_MODES = ("policy", "policy_eps")
@@ -93,7 +93,9 @@ _DESC_FIELDS = _desc_fields()
 DESC_BYTES = 4 * sum(c for _, _, c in _DESC_FIELDS)
 
 
-def _check_uniform_demand(cc: CompiledChain) -> None:
+def check_uniform_demand(cc: CompiledChain) -> None:
+    """Raise for a chain whose demand the kernels cannot draw in-kernel
+    (the modes that read demand tables take any chain)."""
     for cfg in cc.demand:
         if cfg.std is not None or cfg.sen_peaks is not None:
             raise NotImplementedError(
@@ -111,7 +113,6 @@ def _check_kernel_support(cc: CompiledChain) -> None:
     if over:
         raise NotImplementedError(f"chain too large for the collect kernel: "
                                   f"{over} (limits {m})")
-    _check_uniform_demand(cc)
     # the kernel's capacity gates assume capacities >= 0
     for name in ("stock_cap", "supply_cap", "proc_cap", "ship_cap_edge"):
         if (np.asarray(getattr(cc, name)) < 0).any():
@@ -187,7 +188,7 @@ def philox_tables(cc: CompiledChain, seed: int, steps, B: int, device,
     actions [S,A,B] f32)``.  With ``policy`` the rows ``policy`` mode draws:
     2A noise uniforms first, so the third table is the normal noise
     ``eps [S,A,B]`` (Box-Muller of uniforms i and A + i)."""
-    _check_uniform_demand(cc)
+    check_uniform_demand(cc)
     A, R, P = cc.A, cc.R, cc.P
     Kr = cc.K if cc.stochastic_leadtimes else 0
     n_noise = 2 * A if policy else A
@@ -355,7 +356,9 @@ def launch_supplychain_collect(desc: torch.Tensor, cc: CompiledChain, S: int,
         raise ValueError("the collect kernel runs on a CUDA device")
     _check(desc, "desc", torch.uint8, (DESC_BYTES,), device)
     ptrs = (None, None, None)
-    if mode == "actions":
+    if mode == "random":
+        check_uniform_demand(cc)
+    else:
         ptrs = _check_tables(cc, S, B, device, demands, leadtimes, actions,
                              "actions")
     lib = library()
@@ -427,7 +430,9 @@ def launch_supplychain_policy(desc: torch.Tensor, cc: CompiledChain,
            (layout.wsec[0] + layout.wsec[1],), device)
     smem = policy_smem_bytes(layout)
     ptrs = (None, None, None)
-    if mode == "policy_eps":
+    if mode == "policy":
+        check_uniform_demand(cc)
+    else:
         ptrs = _check_tables(cc, S, B, device, demands, leadtimes, eps, "eps")
     lib = library()
     if lib.sc_chain_bytes() != DESC_BYTES:
@@ -463,7 +468,7 @@ launch_supplychain_policy.launches = 0
 
 def make_supplychain_collect(cc: CompiledChain, T: int, B: int,
                              mode: str = "random", episodes: int = 1,
-                             device="cpu", hidden=None,
+                             device="cuda", hidden=None,
                              sample_major: bool = False):
     """Trajectory collection over ``episodes`` back-to-back episodes.
 
@@ -500,6 +505,8 @@ def make_supplychain_collect(cc: CompiledChain, T: int, B: int,
     device = resolve_device(device)
     S = episodes * T
     # unsupported chains and networks fail here, when the collector is built
+    if mode in ("random", "policy"):
+        check_uniform_demand(cc)
     desc = (torch.as_tensor(chain_descriptor(cc), device=device)
             if device.type == "cuda" else None)
     if policy:

@@ -22,7 +22,8 @@ from ..core.compile import CompiledChain, DemandConfig
 __all__ = ["poisson_clip_thresholds", "philox4x32", "philox_uniform",
            "philox_words", "uniform_from_bits", "box_muller",
            "demand_from_uniform", "leadtimes_from_uniform",
-           "stateless_step_rows"]
+           "stateless_step_rows", "device_demand_tables",
+           "device_leadtime_tables", "device_episode_tables"]
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57        # Philox4x32 multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85        # Weyl key increments
@@ -152,7 +153,7 @@ def leadtimes_from_uniform(u: torch.Tensor, cdf: np.ndarray) -> torch.Tensor:
 
 
 def stateless_step_rows(ep_key, t: int, cc: CompiledChain, B: int,
-                        dtype=torch.float32, device="cpu"):
+                        dtype=torch.float32, device="cuda"):
     """All of one step's stochastic inputs from one Philox draw.
 
     Returns ``(demand_row [R,P,B] for period t, leadtime_row [K,B] int32 or
@@ -173,3 +174,53 @@ def stateless_step_rows(ep_key, t: int, cc: CompiledChain, B: int,
                                 t, cc.T, dtype)
             for p in range(cc.P)]
     return torch.stack(cols, dim=1), lt_row
+
+
+def _demand_rows(u: torch.Tensor, cc: CompiledChain, t0: int, dtype):
+    """Demand uniforms ``[S, R*P, B]`` of the periods ``t0 ..`` -> demands
+    ``[S, R, P, B]``, each row as ``stateless_step_rows`` turns it."""
+    S, _, B = u.shape
+    ud = u.reshape(S, cc.R, cc.P, B)
+    cols = []
+    for p in range(cc.P):
+        cfg = cc.demand[p if cc.demand_by_product else 0]
+        if cfg.sen_peaks is None:         # the period does not enter
+            cols.append(demand_from_uniform(ud[:, :, p], cfg, t0, cc.T, dtype))
+        else:
+            cols.append(torch.stack([
+                demand_from_uniform(ud[s, :, p], cfg, t0 + s, cc.T, dtype)
+                for s in range(S)]))
+    return torch.stack(cols, dim=2)
+
+
+def device_episode_tables(ep_key, cc: CompiledChain, B: int,
+                          dtype=torch.float32, device="cuda"):
+    """One episode's tables from one Philox draw per period:
+    ``(demands [T+1, R, P, B], leadtimes [T, K, B] int32 or None)``.
+
+    Row ``t`` of ``demands`` is the demand row ``stateless_step_rows(ep_key,
+    t)`` draws, and row ``t - 1`` of ``leadtimes`` its lead-time row (step
+    ``t`` of an episode ships with the lead-times drawn at period ``t``), so
+    the table engine fed these tables and the stateless engine keyed
+    ``ep_key`` step through the same inputs.
+    """
+    K = cc.K if cc.stochastic_leadtimes else 0
+    u = philox_uniform(ep_key, range(cc.T + 1), K + cc.R * cc.P, B, device)
+    demands = _demand_rows(u[:, K:], cc, 0, dtype)
+    leadtimes = None
+    if cc.stochastic_leadtimes:
+        leadtimes = leadtimes_from_uniform(
+            u[1:, :K], poisson_clip_thresholds(cc.Lavg - 1, cc.Lmax))
+    return demands, leadtimes
+
+
+def device_demand_tables(ep_key, cc: CompiledChain, B: int,
+                         dtype=torch.float32, device="cuda"):
+    """Demands ``[T+1, R, P, B]`` of ``device_episode_tables``."""
+    return device_episode_tables(ep_key, cc, B, dtype, device)[0]
+
+
+def device_leadtime_tables(ep_key, cc: CompiledChain, B: int, device="cuda"):
+    """Lead-times ``[T, K, B]`` int32 of ``device_episode_tables`` (None for
+    constant lead-times)."""
+    return device_episode_tables(ep_key, cc, B, device=device)[1]

@@ -1,0 +1,121 @@
+"""Checkpoint and exact resume of a training run, single process.
+
+The counterpart of ``gym_supplychain_tpu/utils/checkpoint.py``.  A
+checkpoint is one file, ``<dir>/step_<N>.pt``, written with ``torch.save``
+and read with ``torch.load(..., weights_only=True)``, so it holds tensors
+and plain containers only:
+
+    {"format": "gst-torch-ckpt-v1", "step": N, "kind": "TrainState" or
+     "FusedTrainState", "mlp": {"obs_dim", "act_dim", "hidden"},
+     "params": the actor-critic's state dict, "opt": Adam's state dict,
+     "gen": {"device", "state"}, "env": the scan trainer's ``VecState`` as
+     a dict (None for the fused trainer)}
+
+The generator's state and the env's Philox keys (``VecState.key``,
+``EnvState.ep_key``) are in it, so a resumed run continues the same random
+streams and repeats the uninterrupted run bit for bit.
+"""
+from __future__ import annotations
+
+import os
+from typing import Any
+
+import torch
+
+from ..core.step import EnvState
+from ..envs.vector import VecState
+from ..models.policy import ActorCritic, MLPConfig
+
+__all__ = ["FORMAT", "save_checkpoint", "restore_checkpoint"]
+
+FORMAT = "gst-torch-ckpt-v1"
+
+
+def _env_to_dict(env: VecState) -> dict:
+    e = env.env._asdict()
+    return {"key": list(env.key),
+            "env": {k: (list(v) if k == "ep_key" and v is not None else v)
+                    for k, v in e.items()}}
+
+
+def _env_from_dict(d: dict, device) -> VecState:
+    e = dict(d["env"])
+    for k, v in e.items():
+        if isinstance(v, torch.Tensor):
+            e[k] = v.to(device)
+    if e["ep_key"] is not None:
+        e["ep_key"] = tuple(int(x) for x in e["ep_key"])
+    return VecState(key=tuple(int(x) for x in d["key"]), env=EnvState(**e))
+
+
+def save_checkpoint(path: str, state: Any, step: int = 0) -> str:
+    """Write ``state`` (a ``TrainState`` or ``FusedTrainState``) as
+    ``<path>/step_<step>.pt``; returns the written file."""
+    cfg = state.params.cfg
+    env = getattr(state, "env", None)
+    payload = {
+        "format": FORMAT, "step": int(step), "kind": type(state).__name__,
+        "mlp": {"obs_dim": cfg.obs_dim, "act_dim": cfg.act_dim,
+                "hidden": list(cfg.hidden)},
+        "params": {k: v.detach().cpu()
+                   for k, v in state.params.state_dict().items()},
+        "opt": state.opt.state_dict(),
+        "gen": {"device": str(state.gen.device),
+                "state": state.gen.get_state()},
+        "env": None if env is None else _env_to_dict(env),
+    }
+    os.makedirs(path, exist_ok=True)
+    target = os.path.join(path, f"step_{int(step)}.pt")
+    tmp = target + ".tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, target)
+    return target
+
+
+def _resolve(path: str) -> str:
+    """A ``step_N.pt`` file, or the highest step in a checkpoint dir."""
+    if os.path.isdir(path):
+        steps = [e for e in os.listdir(path)
+                 if e.startswith("step_") and e.endswith(".pt")]
+        if not steps:
+            raise FileNotFoundError(f"no step_*.pt checkpoints under {path}")
+        path = os.path.join(path, max(
+            steps, key=lambda e: int(e[len("step_"):-len(".pt")])))
+    return path
+
+
+def restore_checkpoint(path: str, like: Any = None) -> Any:
+    """Read a checkpoint written by ``save_checkpoint``.
+
+    ``path`` is a ``step_N.pt`` file or the checkpoint directory, whose
+    highest step is read.  With ``like`` (a freshly built train state of the
+    same trainer) the parameters, the optimizer state and the generator are
+    loaded into ``like``'s objects in place, and the state is returned with
+    its env rebuilt on ``like``'s device.  Without it, the result is a dict:
+    ``params`` an ``ActorCritic`` on the CPU rebuilt from the stored
+    ``MLPConfig``, plus ``step``, ``mlp``, ``opt``, ``gen`` and ``env`` as
+    stored.
+    """
+    path = _resolve(path)
+    payload = torch.load(path, map_location="cpu", weights_only=True)
+    if not (isinstance(payload, dict) and payload.get("format") == FORMAT):
+        raise ValueError(f"{path} is not a {FORMAT} checkpoint")
+    mlp = MLPConfig(payload["mlp"]["obs_dim"], payload["mlp"]["act_dim"],
+                    tuple(payload["mlp"]["hidden"]))
+    if like is None:
+        params = ActorCritic(mlp, device="cpu")
+        params.load_state_dict(payload["params"])
+        return {**payload, "params": params, "mlp": mlp}
+    if type(like).__name__ != payload["kind"]:
+        raise ValueError(f"{path} holds a {payload['kind']}, not a "
+                         f"{type(like).__name__}")
+    if like.params.cfg != mlp:
+        raise ValueError(f"{path} holds an actor-critic {mlp}, not "
+                         f"{like.params.cfg}")
+    like.params.load_state_dict(payload["params"])
+    like.opt.load_state_dict(payload["opt"])
+    like.gen.set_state(payload["gen"]["state"])
+    if payload["env"] is None:
+        return like
+    device = like.params.log_std.device
+    return like._replace(env=_env_from_dict(payload["env"], device))

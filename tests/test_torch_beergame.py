@@ -44,7 +44,7 @@ def test_engine_matches_jax_bit_exact(variant):
                              .astype(np.int32)])
     actions = rs.randint(0, 16, size=(W, L, B)).astype(np.int32)
     j_reset, j_step, _ = jax_kernels(L, W, MAXD, itype=jnp.int32, **kw)
-    t_reset, t_step, _ = make_beergame_kernels(L, W, MAXD, **kw)
+    t_reset, t_step, _ = make_beergame_kernels(L, W, MAXD, device="cpu", **kw)
     jst = j_reset(demand, delays, [12] * L, 4, 4, B)
     tst = t_reset(demand, delays, [12] * L, 4, 4, B)
     j_step = jax.jit(j_step)
@@ -68,13 +68,13 @@ def test_continue_from_jax_mid_episode_state():
     delays = np.full(W + 1, 2, np.int32)
     actions = rs.randint(0, 16, size=(W, L, B)).astype(np.int32)
     j_reset, j_step, _ = jax_kernels(L, W, 2, itype=jnp.int32)
-    _, t_step, _ = make_beergame_kernels(L, W, 2)
+    _, t_step, _ = make_beergame_kernels(L, W, 2, device="cpu")
     j_step = jax.jit(j_step)
     jst = j_reset(demand, delays, [12] * L, 4, 4, B)
     for w in range(7):
         jst, _ = j_step(jst, actions[w])
     snap = {k: np.asarray(v) for k, v in jst._asdict().items()}
-    tst = state_from_numpy(snap)
+    tst = state_from_numpy(snap, device="cpu")
     assert tst.week == 7
     for k, v in state_to_numpy(tst).items():
         np.testing.assert_array_equal(v, snap[k], err_msg=k)
@@ -93,7 +93,8 @@ def test_plain_collect_v0_two_episodes_matches_jax_kernel():
     jo, jr = make_beergame_collect_pallas(W, L, B, episodes=E, mode="actions",
                                           interpret=True)(demand, actions)
     to, tr = bgc.make_beergame_collect(W, L, B, episodes=E,
-                                       mode="actions")(demand, actions)
+                                       mode="actions", device="cpu")(
+        demand, actions)
     _eq(to, jo)
     _eq(tr, jr)
 
@@ -107,7 +108,7 @@ def test_plain_collect_v2_per_lane_delays_matches_jax_kernel():
     kw = dict(episodes=E, mode="actions", delay=None, max_delay=MAXD, **V2)
     jo, jr = make_beergame_collect_pallas(W, L, B, interpret=True, **kw)(
         demand, delays, actions)
-    to, tr = bgc.make_beergame_collect(W, L, B, **kw)(demand, delays, actions)
+    to, tr = bgc.make_beergame_collect(W, L, B, device="cpu", **kw)(demand, delays, actions)
     assert (delays == 0).any()
     _eq(to, jo)
     _eq(tr, jr)
@@ -122,7 +123,7 @@ def test_plain_collect_v2_scalar_delay_matches_jax_kernel():
               exceeded_capacity_penalty=11)
     jo, jr = make_beergame_collect_pallas(W, L, B, interpret=True, **kw)(
         demand, actions)
-    to, tr = bgc.make_beergame_collect(W, L, B, **kw)(demand, actions)
+    to, tr = bgc.make_beergame_collect(W, L, B, device="cpu", **kw)(demand, actions)
     _eq(to, jo)
     _eq(tr, jr)
 
@@ -136,12 +137,14 @@ def test_random_equals_actions_on_philox_actions(per_lane):
     head = ([rs.randint(0, 4, size=(E * W, B)).astype(np.int32)]
             if per_lane else [])
     obs, rew = bgc.make_beergame_collect(W, L, B, episodes=E, mode="random",
-                                         max_order=max_order, **kw)(
+                                         max_order=max_order, device="cpu",
+                                         **kw)(
         demand, *head, seed)
     act = bgc.philox_actions(seed, range(E * W), L, max_order, B, "cpu")
     assert int(act.min()) >= 0 and int(act.max()) < max_order
     obs2, rew2 = bgc.make_beergame_collect(W, L, B, episodes=E,
-                                           mode="actions", **kw)(
+                                           mode="actions", device="cpu",
+                                           **kw)(
         demand, *head, act)
     assert torch.equal(obs, obs2) and torch.equal(rew, rew2)
 
@@ -156,4 +159,4 @@ def test_wrapper_checks():
         bgc.launch_beergame_collect(35, 4, 8, 1, "random", demand=demand)
     # a CPU collector takes no tensor from another device
     with pytest.raises(ValueError, match="collector on cpu"):
-        bgc.make_beergame_collect(35, 4, 8)(demand.to("meta"), 0)
+        bgc.make_beergame_collect(35, 4, 8, device="cpu")(demand.to("meta"), 0)

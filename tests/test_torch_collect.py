@@ -51,7 +51,8 @@ def test_plain_actions_matches_jax_kernel_two_episodes(env_id, T):
     jax_run = make_supplychain_collect_pallas(cc, T, B, mode="actions",
                                               episodes=E, interpret=True)
     want_obs, want_rew = [np.asarray(x) for x in jax_run(*args)]
-    run = scc.make_supplychain_collect(cc, T, B, mode="actions", episodes=E)
+    run = scc.make_supplychain_collect(cc, T, B, mode="actions", episodes=E,
+                                       device="cpu")
     obs, rew = run(*args)
     assert obs.shape == (E * T, cc.obs_dim, B) and rew.shape == (E * T, B)
     np.testing.assert_allclose(obs.numpy(), want_obs, rtol=0, atol=1e-6)
@@ -79,11 +80,11 @@ def test_random_equals_actions_on_philox_tables(env_id):
     T, B, E, seed = 9, 5, 2, 2 ** 33 + 7
     cc = make_chain(env_id, total_time_steps=T)
     obs, rew = scc.make_supplychain_collect(cc, T, B, mode="random",
-                                            episodes=E)(seed)
+                                            episodes=E, device="cpu")(seed)
     dem, lt, act = scc.philox_tables(cc, seed, range(E * T), B, "cpu")
     args = [dem] + ([lt] if cc.stochastic_leadtimes else []) + [act]
     obs2, rew2 = scc.make_supplychain_collect(cc, T, B, mode="actions",
-                                              episodes=E)(*args)
+                                              episodes=E, device="cpu")(*args)
     assert torch.equal(obs, obs2) and torch.equal(rew, rew2)
     assert ((act >= -1) & (act < 1)).all()
     cfg = cc.demand[0]
@@ -118,9 +119,13 @@ def test_descriptor_layout_matches_kernel_struct():
 
 
 def test_descriptor_rejects_what_the_kernel_does_not_take():
-    with pytest.raises(NotImplementedError):     # seasonal demand
-        scc.chain_descriptor(
-            jsct.make("sc-2perstage-seasonal-v0", total_time_steps=4).cc)
+    seasonal = jsct.make("sc-2perstage-seasonal-v0", total_time_steps=4).cc
+    # tables carry any demand: only the modes drawing it in-kernel refuse
+    assert scc.chain_descriptor(seasonal).nbytes == scc.DESC_BYTES
+    for mode in ("random", "policy"):
+        with pytest.raises(NotImplementedError):     # seasonal demand
+            scc.make_supplychain_collect(seasonal, 4, 2, mode=mode,
+                                         hidden=(4,), device="cpu")
     cc = make_chain("supplychain-linear-v0", total_time_steps=4)
     bad = cc.__class__(**{**cc.__dict__,
                           "supply_cap": -np.asarray(cc.supply_cap)})
@@ -138,9 +143,9 @@ def test_wrapper_never_runs_a_cpu_tensor_through_the_kernel():
     with pytest.raises(ValueError, match="hidden"):
         scc.make_supplychain_collect(cc, 3, 2, mode="policy")
     with pytest.raises(ValueError):
-        scc.make_supplychain_collect(cc, 4, 2)          # T != cc.T
+        scc.make_supplychain_collect(cc, 4, 2, device="cpu")   # T != cc.T
     # a CPU collector takes no tensor from another device
-    run = scc.make_supplychain_collect(cc, 3, 2, mode="actions")
+    run = scc.make_supplychain_collect(cc, 3, 2, mode="actions", device="cpu")
     dem = torch.zeros((3, cc.R, cc.P, 2), device="meta")
     act = torch.zeros((3, cc.A, 2), device="meta")
     with pytest.raises(ValueError, match="collector on cpu"):

@@ -9,7 +9,9 @@ Tolerances: supply chain obs atol 1e-6 and rewards atol 1e-5 * max|r| (the
 costs are summed in another order), stock bit-equal (the dynamics follow
 the same op sequence with no FMA); beer game bit-exact (integers); the
 policy modes' pre, logp and value at the JAX collect tests' tolerances; the
-update kernel's gradients within 4x the plain float32 error against float64.
+update kernel's gradients within 4x the plain float32 error against float64;
+the episode kernel's rewards atol 1e-5 * max|r| with its final stock
+bit-equal.
 """
 import numpy as np
 import pytest
@@ -20,6 +22,7 @@ torch.set_num_threads(1)
 from gym_supplychain_tpu_torch import make_chain  # noqa: E402
 from gym_supplychain_tpu_torch.ops import beergame_collect as bgc  # noqa: E402
 from gym_supplychain_tpu_torch.ops import supplychain_collect as scc  # noqa: E402
+from gym_supplychain_tpu_torch.ops._mlp import MlpLayout  # noqa: E402
 
 
 def _device():
@@ -221,3 +224,55 @@ def test_fused_trainer_launches_both_kernels():
     assert scc.launch_supplychain_policy.launches == k1 + 1
     assert pu.launch_ppo_update.launches == k2 + 2
     assert bool(torch.isfinite(metrics["loss"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["actions", "seeded", "policy"])
+@pytest.mark.parametrize("env_id", ["supplychain-linear-v0",
+                                    "supplychain-ntom-v0"])
+def test_supplychain_episode_kernel_matches_plain(env_id, mode):
+    """Rewards atol 1e-5 * max|r| (costs summed in another order), final
+    stock bit-equal; the runners built with a bare "cuda" launch the
+    kernels and take tables made on the current device."""
+    from gym_supplychain_tpu_torch.ops import supplychain_episode as sce
+
+    dev = _device()
+    T, B, hidden, seed = 40, 300, (32, 16), 7
+    cc = make_chain(env_id, total_time_steps=T)
+    rs = np.random.RandomState(2)
+    dem = torch.as_tensor(rs.randint(0, 25, size=(T + 1, cc.R, cc.P, B))
+                          .astype(np.float32), device=dev)
+    lt = (torch.as_tensor(rs.randint(1, cc.Lmax + 1, size=(T, cc.K, B))
+                          .astype(np.int32), device=dev)
+          if cc.stochastic_leadtimes else None)
+    tables = [dem] + ([lt] if lt is not None else [])
+    act = (2 * rs.rand(T, cc.A, B) - 1).astype(np.float32)
+    act[act < -0.5] = -1.0
+    kw = dict(actions=torch.as_tensor(act, device=dev))
+    if mode == "seeded":
+        kw = dict(seed=seed)
+    elif mode == "policy":
+        kw = dict(params=_policy_model(cc, hidden, dev))
+    if mode == "policy":
+        run = sce.make_supplychain_policy_rollout(cc, T, B, hidden=hidden,
+                                                  device="cuda")
+        launcher = sce.launch_supplychain_greedy
+    else:
+        run = sce.make_supplychain_episode(cc, T, B, device="cuda")[
+            mode == "actions"]
+        launcher = sce.launch_supplychain_episode
+    before = launcher.launches
+    rew = run(*tables, *kw.values())
+    assert launcher.launches == before + 1 and rew.device == dem.device
+    desc = torch.as_tensor(sce.chain_descriptor(cc), device=dev)
+    if mode == "policy":
+        lay = MlpLayout(cc.obs_dim, cc.A, hidden)
+        k = sce.launch_supplychain_greedy(
+            desc, cc, lay, torch.as_tensor(lay.ints, device=dev),
+            lay.pack(kw["params"].flat()), B, dem, lt)
+    else:
+        k = sce.launch_supplychain_episode(desc, cc, B, mode, dem, lt, **kw)
+    p = sce.supplychain_episode_plain(cc, B, mode, dem, lt, **kw)
+    assert torch.equal(k[0], rew)
+    assert float((k[0] - p[0]).abs().max()) <= 1e-5 * float(p[0].abs().max())
+    assert torch.equal(k[1], p[1])

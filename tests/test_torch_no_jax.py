@@ -1,5 +1,6 @@
 """The port imports no jax: every module of ``gym_supplychain_tpu_torch``
-and ``chip_smoke.py`` load in a fresh interpreter without it."""
+(the evaluation slice's among them) and ``chip_smoke.py`` load in a fresh
+interpreter without it."""
 import os
 import subprocess
 import sys
@@ -21,6 +22,7 @@ import chip_smoke
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m.startswith("gym_supplychain_tpu.") or m == "gym_supplychain_tpu")
 print(len(names), bad)
+print(" ".join(names))
 assert not bad, bad
 """
 
@@ -31,4 +33,9 @@ def test_port_imports_no_jax():
                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 22, res.stdout
+    assert n_modules >= 27, res.stdout
+    loaded = set(res.stdout.splitlines()[1].split())
+    for name in ("ops.supplychain_episode", "learn.evaluate",
+                 "learn.heuristics", "learn.compare_baseline",
+                 "utils.checkpoint"):
+        assert "gym_supplychain_tpu_torch." + name in loaded, name

@@ -52,7 +52,7 @@ def test_forward_and_logp_match_jax(hidden):
     tree = _jax_params(O, A, hidden, seed=3, mu_scale=50.0)
     rs = np.random.RandomState(0)
     obs = rs.uniform(-1, 1, size=(O, B)).astype(np.float32)
-    model = params_from_jax(tree)
+    model = params_from_jax(tree, device="cpu")
     mu, log_std, v = actor_critic_forward(model, torch.from_numpy(obs))
     jmu, jls, jv = (np.array(x) for x in j_forward(tree, jnp.asarray(obs)))
     np.testing.assert_allclose(mu.detach().numpy(), jmu, rtol=0,
@@ -74,7 +74,7 @@ def test_forward_and_logp_match_jax(hidden):
 
 def test_params_round_trip_and_flat_order():
     tree = _jax_params(7, 3, (8, 4), seed=1)
-    model = params_from_jax(tree)
+    model = params_from_jax(tree, device="cpu")
     back = params_to_numpy(model)
     for a, b in zip(jax.tree.leaves(tree), jax.tree.leaves(back)):
         np.testing.assert_array_equal(a, b)
@@ -84,8 +84,10 @@ def test_params_round_trip_and_flat_order():
                       (8, 7), (8, 1), (4, 8), (4, 1), (1, 4), (1, 1), (3, 1)]
     assert {id(p) for p in model.flat()} == {id(p) for p in model.parameters()}
     # a seed gives the same weights, the init's scales hold
-    m1 = ActorCritic(MLPConfig(7, 3, (8,)), torch.Generator().manual_seed(5))
-    m2 = ActorCritic(MLPConfig(7, 3, (8,)), torch.Generator().manual_seed(5))
+    m1 = ActorCritic(MLPConfig(7, 3, (8,)), torch.Generator().manual_seed(5),
+                      device="cpu")
+    m2 = ActorCritic(MLPConfig(7, 3, (8,)), torch.Generator().manual_seed(5),
+                      device="cpu")
     assert all(torch.equal(a, b) for a, b in zip(m1.flat(), m2.flat()))
     assert float(m1.mu.w.detach().abs().max()) < 0.1
     assert bool((m1.log_std == -0.5).all())
@@ -123,11 +125,11 @@ def test_plain_policy_eps_matches_jax_kernel(env_id, T, B, hidden, seed):
     jargs = (demands, eps, tree) if lt is None else (demands, lt, eps, tree)
     want = [np.asarray(x) for x in jax_run(*jargs)]
     run = scc.make_supplychain_collect(cc, T, B, mode="policy_eps",
-                                       hidden=hidden)
+                                       hidden=hidden, device="cpu")
     # the port takes S-row tables: row T only feeds the terminal obs
     args = (demands[:T], eps) if lt is None else (demands[:T], lt, eps)
     obs, pre, logp, value, rew = (x.numpy()
-                                  for x in run(*args, params_from_jax(tree)))
+                                  for x in run(*args, params_from_jax(tree, device="cpu")))
     assert obs.shape == (T, cc.obs_dim, B) and pre.shape == (T, cc.A, B)
     np.testing.assert_allclose(obs, want[0], rtol=0, atol=1e-6)
     np.testing.assert_allclose(pre, want[1], rtol=0, atol=1e-4)
@@ -143,17 +145,18 @@ def test_policy_equals_policy_eps_on_philox_tables(env_id):
     T, B, E, seed, hidden = 6, 5, 2, 2 ** 40 + 3, (8,)
     cc = make_chain(env_id, total_time_steps=T)
     model = ActorCritic(MLPConfig(cc.obs_dim, cc.A, hidden),
-                        torch.Generator().manual_seed(0))
+                        torch.Generator().manual_seed(0), device="cpu")
     with torch.no_grad():
         model.mu.w.mul_(100.0)
     out = scc.make_supplychain_collect(cc, T, B, mode="policy", episodes=E,
-                                       hidden=hidden)(model, seed)
+                                       hidden=hidden, device="cpu")(model,
+                                                                    seed)
     dem, lt, eps = scc.philox_tables(cc, seed, range(E * T), B, "cpu",
                                      policy=True)
     args = [dem] + ([lt] if cc.stochastic_leadtimes else []) + [eps]
     out2 = scc.make_supplychain_collect(cc, T, B, mode="policy_eps",
-                                        episodes=E, hidden=hidden)(*args,
-                                                                   model)
+                                        episodes=E, hidden=hidden,
+                                        device="cpu")(*args, model)
     assert all(torch.equal(a, b) for a, b in zip(out, out2))
     # the noise rows are standard normals; a step's rows depend on the step
     assert abs(float(eps.mean())) < 0.3
@@ -165,8 +168,8 @@ def test_sample_major_layout_matches_default():
     S = E * T
     cc = make_chain("supplychain-ntom-v0", total_time_steps=T)
     model = ActorCritic(MLPConfig(cc.obs_dim, cc.A, hidden),
-                        torch.Generator().manual_seed(1))
-    kw = dict(mode="policy", episodes=E, hidden=hidden)
+                        torch.Generator().manual_seed(1), device="cpu")
+    kw = dict(mode="policy", episodes=E, hidden=hidden, device="cpu")
     od, ad, ld, vd, rd = scc.make_supplychain_collect(cc, T, B, **kw)(model, 7)
     os_, as_, ls, vs, rs_ = scc.make_supplychain_collect(
         cc, T, B, sample_major=True, **kw)(model, 7)
@@ -177,7 +180,7 @@ def test_sample_major_layout_matches_default():
 
 def test_mlp_layout_packs_transposed_padded_weights():
     model = ActorCritic(MLPConfig(5, 3, (12, 6)),
-                        torch.Generator().manual_seed(2))
+                        torch.Generator().manual_seed(2), device="cpu")
     lay = MlpLayout(5, 3, (12, 6))
     packed = lay.pack(model.flat())
     assert packed.numel() == sum(lay.wsec) and lay.wsec[0] % 8 == 0
@@ -218,8 +221,10 @@ def test_policy_collect_rejects_what_it_does_not_take():
         scc.policy_smem_bytes(MlpLayout(cc.obs_dim, cc.A, (256, 256)))
     assert scc.policy_smem_bytes(MlpLayout(27, 14, (128, 128))) < 232448
     # a CPU collector takes no parameters from another device
-    run = scc.make_supplychain_collect(cc, 3, 2, mode="policy", hidden=(4,))
-    model = ActorCritic(MLPConfig(cc.obs_dim, cc.A, (4,))).to("meta")
+    run = scc.make_supplychain_collect(cc, 3, 2, mode="policy", hidden=(4,),
+                                       device="cpu")
+    model = ActorCritic(MLPConfig(cc.obs_dim, cc.A, (4,)),
+                        device="cpu").to("meta")
     with pytest.raises(ValueError, match="collector on cpu"):
         run(model, 0)
     # a CPU launch never reaches the kernel

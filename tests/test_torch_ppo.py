@@ -103,7 +103,7 @@ def test_plain_update_grads_match_jax(O, A, hidden, M, tile, seed, ref):
                                          interpret=True, **kw)(
             tree, *map(jnp.asarray, data))
     gf = make_ppo_update_grads(O, A, hidden, M, **kw)
-    loss, grads = gf(params_from_jax(tree), *map(torch.from_numpy, data))
+    loss, grads = gf(params_from_jax(tree, device="cpu"), *map(torch.from_numpy, data))
     assert abs(float(loss) - float(want_loss)) <= 1e-5 * max(
         1.0, abs(float(want_loss)))
     _close([g.numpy() for g in grads], _leaves(want))
@@ -114,7 +114,7 @@ def test_loss_function_hands_back_its_gradients():
     tree = _tree(O, A, hidden, 1)
     data = tuple(map(torch.from_numpy, _update_data(tree, O, A, M, 1)))
     gf = make_ppo_update_grads(O, A, hidden, M)
-    model = params_from_jax(tree)
+    model = params_from_jax(tree, device="cpu")
     loss = fused_ppo_loss(gf, model, data)
     (2.0 * loss).backward()
     fused = [p.grad.clone() for p in model.flat()]
@@ -196,7 +196,7 @@ def test_update_matches_optax(minibatches, fused_update):
         jtree, tx.init(jtree), tuple(map(jnp.asarray, data)))
 
     cfg = ppo.PPOConfig(**kw, fused_update=fused_update)
-    model = params_from_jax(tree)
+    model = params_from_jax(tree, device="cpu")
     opt = torch.optim.Adam(model.parameters(), lr=cfg.lr, betas=(0.9, 0.999),
                            eps=1e-8)
     losses = ppo._make_update(cfg, ppo._make_cont_loss(cfg), dims=(O, A))(
@@ -243,7 +243,7 @@ def test_fused_train_step_matches_jax_on_the_same_tables():
     cc = make_chain(env_id, total_time_steps=T)
     init_fn, step = ppo.make_ppo_fused(
         cc, B, ppo.PPOConfig(hidden=hidden, **cfg_kw), episodes=E,
-        noise="table")
+        noise="table", device="cpu")
     state = init_fn(11)
     with torch.no_grad():
         state.params.mu.w.mul_(100.0)          # non-degenerate actions
@@ -281,7 +281,8 @@ def test_fused_train_step_matches_jax_on_the_same_tables():
 def _fused(env_id, T, B, hidden, episodes=1, **kw):
     cc = make_chain(env_id, total_time_steps=T)
     cfg = ppo.PPOConfig(hidden=hidden, epochs=2, lr=1e-3, **kw)
-    return ppo.make_ppo_fused(cc, B, cfg, episodes=episodes, noise="table")
+    return ppo.make_ppo_fused(cc, B, cfg, episodes=episodes, noise="table",
+                              device="cpu")
 
 
 def test_fused_train_step_runs_and_updates():
@@ -313,7 +314,8 @@ def test_fused_prng_and_table_noise_agree():
     cfg = ppo.PPOConfig(hidden=(8,), epochs=1)
     got = []
     for noise in ("prng", "table"):
-        init_fn, train_step = ppo.make_ppo_fused(cc, 3, cfg, noise=noise)
+        init_fn, train_step = ppo.make_ppo_fused(cc, 3, cfg, noise=noise,
+                                                 device="cpu")
         _, metrics = train_step(init_fn(4))
         got.append({k: float(v) for k, v in metrics.items()})
     assert got[0] == got[1]
@@ -329,7 +331,7 @@ def test_scan_trainer_fused_update_moves_like_autograd():
     deltas, losses = [], []
     for fused in (False, True):
         init_fn, train_step = ppo.make_ppo(
-            cc, 8, ppo.PPOConfig(**kw, fused_update=fused))
+            cc, 8, ppo.PPOConfig(**kw, fused_update=fused), device="cpu")
         state = init_fn(0)
         p0 = torch.cat([p.detach().reshape(-1) for p in state.params.flat()])
         state, metrics = train_step(state)
@@ -356,7 +358,8 @@ def test_sample_tanh_gaussian_draws_from_its_density():
 def test_train_cli_runs_the_scan_trainer_on_the_cpu(capsys):
     state, metrics = train.main(["--envs", "4", "--hidden", "8",
                                  "--horizon", "6", "--rollout-steps", "4",
-                                 "--iters", "2", "--log-every", "1"])
+                                 "--iters", "2", "--log-every", "1",
+                                 "--device", "cpu"])
     out = capsys.readouterr().out
     assert "fused_collect=False" in out and '"env_steps_per_s"' in out
     assert np.isfinite(float(metrics["loss"]))
@@ -364,9 +367,9 @@ def test_train_cli_runs_the_scan_trainer_on_the_cpu(capsys):
 
 
 @pytest.mark.parametrize("flags", [
-    ["--multihost"], ["--model-axis", "2"], ["--checkpoint-dir", "ck"],
-    ["--restore", "ck"], ["--trace-dir", "tr"], ["--learner-dtype", "bf16"],
-    ["--env", "beergame-v0"]])
+    ["--multihost"], ["--model-axis", "2"], ["--model-axis", "4"],
+    ["--env", "beergame-v2"], ["--trace-dir", "tr"],
+    ["--learner-dtype", "bf16"], ["--env", "beergame-v0"]])
 def test_train_cli_refuses_unported_flags(flags):
     with pytest.raises(SystemExit, match="not ported"):
         train.main(flags + ["--iters", "1"])

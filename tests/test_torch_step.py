@@ -77,7 +77,7 @@ def test_engine_matches_jax(env_id, dt):
     acts, dem, lt = _tables(cc, T, B, seed=ENVS.index(env_id))
     jdt, tdt, _ = DTYPES[dt]
     j_reset, j_step, j_obs = jax_kernels(cc, dtype=jdt)
-    t_reset, t_step, t_obs = make_supplychain_kernels(cc, dtype=tdt)
+    t_reset, t_step, t_obs = make_supplychain_kernels(cc, dtype=tdt, device="cpu")
     jst, tst = j_reset(dem, lt, B), t_reset(dem, lt, B)
     np.testing.assert_allclose(t_obs(tst).numpy(), np.asarray(j_obs(jst)),
                                rtol=0, atol=OBS_ATOL[dt])
@@ -100,14 +100,14 @@ def test_continue_from_jax_mid_episode_state(dt):
     acts, dem, lt = _tables(cc, T, B, seed=11)
     jdt, tdt, _ = DTYPES[dt]
     j_reset, j_step, _ = jax_kernels(cc, dtype=jdt)
-    _, t_step, t_obs = make_supplychain_kernels(cc, dtype=tdt)
+    _, t_step, t_obs = make_supplychain_kernels(cc, dtype=tdt, device="cpu")
     j_step = jax.jit(j_step)
     jst = j_reset(dem, lt, B)
     for t in range(split):
         jst, _ = j_step(jst, jnp.asarray(acts[t]))
     snap = {k: (None if v is None else np.asarray(v))
             for k, v in jst._asdict().items()}
-    tst = state_from_numpy(snap)
+    tst = state_from_numpy(snap, device="cpu")
     assert tst.t == split and tst.stock.dtype == tdt
     back = state_to_numpy(tst)
     for k, v in snap.items():
@@ -127,7 +127,7 @@ def test_debug_push_outputs_match_jax():
     cc = jsct.make("supplychain-ntom-v0", total_time_steps=T).cc
     acts, dem, lt = _tables(cc, T, B, seed=3)
     j_reset, j_step, _ = jax_kernels(cc, debug=True)
-    t_reset, t_step, _ = make_supplychain_kernels(cc, debug=True)
+    t_reset, t_step, _ = make_supplychain_kernels(cc, debug=True, device="cpu")
     j_step = jax.jit(j_step)
     jst, tst = j_reset(dem, lt, B), t_reset(dem, lt, B)
     for t in range(T):

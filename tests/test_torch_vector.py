@@ -45,8 +45,9 @@ def _pmf(x, lo, hi):
 def test_vec_env_auto_reset_contract(env_id):
     T, B = 5, 4
     cc = make_chain(env_id, total_time_steps=T)
-    init_fn, step_fn, obs_fn = make_vec_env(cc, B)
-    _, _, obs_k = make_supplychain_kernels(cc, stateless_rng=True)
+    init_fn, step_fn, obs_fn = make_vec_env(cc, B, device="cpu")
+    _, _, obs_k = make_supplychain_kernels(cc, stateless_rng=True,
+                                         device="cpu")
     state = init_fn(7)
     first_dem = state.env.demands.clone()
     rs = np.random.RandomState(0)
@@ -72,8 +73,8 @@ def test_vec_env_auto_reset_contract(env_id):
 
 def test_vec_supplychain_env_resets_continue_the_stream():
     cc = make_chain("supplychain-ntom-v0", total_time_steps=4)
-    a = VecSupplyChainEnv(cc=cc, batch_size=6, seed=3)
-    b = VecSupplyChainEnv(cc=cc, batch_size=6, seed=3)
+    a = VecSupplyChainEnv(cc=cc, batch_size=6, seed=3, device="cpu")
+    b = VecSupplyChainEnv(cc=cc, batch_size=6, seed=3, device="cpu")
     o1, o2 = a.reset(), a.reset()
     assert not torch.equal(o1, o2)               # fresh episodes
     assert torch.equal(b.reset(), o1)            # a seed reproduces them
@@ -87,7 +88,8 @@ def test_vec_supplychain_env_resets_continue_the_stream():
 def test_vec_beergame_env_auto_reset_and_draws():
     env = VecBeerGameEnv(batch_size=8, customer_demand=(0, 12),
                          shipment_delays=(0, 4), v2=True, max_stock=40,
-                         exceeded_capacity_penalty=37, seed=2, weeks=10)
+                         exceeded_capacity_penalty=37, seed=2, weeks=10,
+                         device="cpu")
     obs0 = env.reset()
     dem0 = env.state.customer_demand.clone()
     assert obs0.shape == (4, 8)
@@ -102,7 +104,7 @@ def test_vec_beergame_env_auto_reset_and_draws():
     assert env.state.week == 0
     assert not torch.equal(env.state.customer_demand, dem0)
     draw = make_beergame_table_draw(10, dem_range=(0, 12),
-                                    scripted_delays=[2] * 11)
+                                    scripted_delays=[2] * 11, device="cpu")
     dem, delays = draw((2, 0), 8)
     assert torch.equal(dem, dem0) and (delays == 2).all()
 
@@ -113,7 +115,8 @@ def test_stateless_step_rows_marginals():
     B, n_keys = 8192, 16
     dems, lts = [], []
     for s in range(n_keys):
-        d, lt = stateless_step_rows((s, 1), s * 7 + 1, cc, B)
+        d, lt = stateless_step_rows((s, 1), s * 7 + 1, cc, B,
+                                    device="cpu")
         assert d.shape == (cc.R, cc.P, B) and lt.shape == (cc.K, B)
         dems.append(d.numpy())
         lts.append(lt.numpy())
