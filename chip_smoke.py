@@ -7,8 +7,10 @@ through the package's entry points, timing kernel and plain version with
 CUDA events: trajectory collection at 4096 envs for
 ``supplychain-linear-v0``, ``supplychain-ntom-v0`` and ``beergame-v0``, the
 PPO trainer on ``supplychain-ntom-v0`` at 4096 envs, hidden (128, 128),
-horizon 60, and greedy evaluation of its checkpoint at 4096 envs, horizon
-360, with the base-stock baseline beside it.
+horizon 60, greedy evaluation of its checkpoint at 4096 envs, horizon 360,
+with the base-stock baseline beside it, the large-topology benchmark's
+three chains (26, 40 and 8 nodes) at 4096 envs, horizon 360, and the
+beer-game episode sweep at 4096 envs.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -35,6 +37,15 @@ Phases, in order; any failure exits nonzero:
      both engines on it (B = 4096, T = 360, 4 episodes; they share their
      inputs, so their mean returns agree within 1e-5), ``best_base_stock``
      runs at the same size, and both evaluators are timed
+  11. the dense collect kernel (K5) at B = 4096, T = 360 on the configs of
+     ``gym_supplychain_tpu_torch.benchmarks.large_topologies``: ``actions``
+     on random tables against plain over 2 episodes (all three), ``random``
+     against plain on its Philox tables ([5,4,7,10] x 4), then the
+     benchmark's timings (1 and 2 episodes a call, the plain version, the
+     eager env's step)
+  12. the beer-game episode sweep (K6b), beergame-v0 at B = 4096: bit-exact
+     against plain at delay 2 and at delay 0 with init_delay 2, then timed
+     through ``beergame_episode``
 The line before the last is a JSON summary of the kernels, each with its
 bound: the larger of the bytes it must move over 3.35 TB/s and the float32
 operations it must do over 67 TFLOP/s (the H100 SXM data sheet at 700 W;
@@ -69,6 +80,8 @@ TRAIN_REPS, PLAIN_TRAIN_REPS = 5, 3  # phase 8: timed iterations (median)
 EVAL_EPISODES = 4          # phase 10: the evaluate CLI's episodes
 PLAIN_REPS = 2             # phases 9-10: timed plain calls (median)
 EVAL_RTOL = 1e-5           # phase 10: kernel vs scan evaluator, mean return
+DENSE_REPS = 3             # phase 11: timed calls of the dense kernel (median)
+EAGER_STEPS = 10           # phase 11: the eager env's slope, 10 vs 20 steps
 PEAK_FLOPS = 67e12         # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s
 
@@ -760,8 +773,131 @@ def phase_eval(seed):
                 grid_s=grid_s)
 
 
-def _kernel_lines(res, tr, upd, ep, ev, sc_errs, bg_errs, pol_errs, pu_errs,
-                  ep_errs):
+def phase_dense(B, seed):
+    """Phase 11: the dense collect kernel (K5) on the three large configs:
+    gates against the plain version, then the benchmark's timings
+    through ``make_supplychain_dense_collect``."""
+    import torch
+    from gym_supplychain_tpu_torch.benchmarks import large_topologies as lt
+    from gym_supplychain_tpu_torch.ops import supplychain_dense as scd
+
+    dev = torch.device("cuda")
+    print(f"phase 11: supplychain_dense (K5), B={B}, T=360, configs "
+          f"{list(lt.CONFIGS)}")
+    errs = {}
+    # (a) `actions` on random tables over 2 episodes, kernel vs plain
+    for name in lt.CONFIGS:
+        cc = lt.config_chain(name)
+        r = lt.parity(cc, B, CHECK_EPISODES, seed, dev)
+        print(f"  (a) {name} (N={cc.N}, P={cc.P}, Dmax={cc.Dmax}, A={cc.A}, "
+              f"K={cc.K}) actions, {CHECK_EPISODES} episodes: max obs err "
+              f"{r['max_abs_obs_err']:.3e} (tol {OBS_ATOL:g}), max reward err "
+              f"/ max|r| {r['max_rel_reward_err']:.3e} (tol {REW_RTOL:g}), "
+              f"lanes with divergent stock {r['lanes_stock_differs']}, finite "
+              f"{r['finite']}")
+        errs[name] = max(r["max_abs_obs_err"], r["max_abs_reward_err"])
+        if not r["ok"]:
+            raise RuntimeError(f"dense {name}: kernel disagrees with plain")
+    # (b) `random` against the Philox tables through the plain `actions`
+    name = "nperstage-5-4-7-10-x4"
+    cc = lt.config_chain(name)
+    S = CHECK_EPISODES * cc.T
+    desc = torch.as_tensor(scd.dense_descriptor(cc), device=dev)
+    k = scd.launch_supplychain_dense(desc, cc, S, B, "random", seed=seed)
+    p = scd.supplychain_dense_collect_plain(cc, CHECK_EPISODES, B, "random",
+                                            seed=seed, device=dev)
+    torch.cuda.synchronize()
+    errs_b = []
+    _check_sc(f"(b) {name} random vs plain on its Philox tables, "
+              f"{CHECK_EPISODES} episodes", k, p, errs_b)
+    errs[name] = max(errs[name], errs_b[0])
+    del k, p
+
+    # (c) the benchmark's timings: counts zeroed just before each config's
+    # run, read just after
+    res = {}
+    for name in lt.CONFIGS:
+        scd.launch_supplychain_dense.launches = 0
+        out = lt.run_benchmark("cuda", B, 360, reps=DENSE_REPS,
+                               eager_steps=EAGER_STEPS, parity_episodes=0,
+                               plain_reps=1, seed=seed, configs=[name])
+        launches = scd.launch_supplychain_dense.launches
+        r = out[name]
+        d, cc = r["dense"], lt.config_chain(name)
+        # obs [T,O,B], reward [T,B] and the final stock out
+        bound = _bound(4 * B * (cc.T * (cc.obs_dim + 1) + cc.N * cc.P), 0)
+        res[name] = dict(ms=d["ms_1_episode"], plain_ms=d["plain_ms_1_episode"],
+                         launches=launches, err=errs[name], bound=bound)
+        print(f"  (c) {name}: kernel {d['ms_1_episode']:.3f} ms an episode, "
+              f"{d['ms_2_episodes']:.3f} ms two (median of {DENSE_REPS}); "
+              f"{d['per_step_ms'] * 1e3:.2f} us a step = "
+              f"{d['env_steps_per_s'] or float('nan'):.4e} env-steps/s; bound "
+              f"{bound[0]:.4f} ms ({bound[1]}): "
+              f"{bound[0] / d['ms_1_episode']:.2%} of it; plain "
+              f"{d['plain_ms_1_episode']:.1f} ms an episode; eager env "
+              f"{r['eager']['per_step_ms']:.3f} ms a step = "
+              f"{r['eager']['env_steps_per_s'] or float('nan'):.4e} "
+              f"env-steps/s; launches {launches}")
+        if launches == 0:
+            raise RuntimeError(f"dense {name}: the benchmark launched no kernel")
+    return res
+
+
+def phase_beergame_episode(B, seed):
+    """Phase 12: the beer-game episode sweep (K6b), bit-exact against
+    plain at delay 2 and at delay 0 with init_delay 2, then timed through
+    ``beergame_episode``."""
+    import numpy as np
+    import torch
+    import gym_supplychain_tpu_torch as sct
+    from gym_supplychain_tpu_torch.ops import beergame_episode as bge
+
+    dev = torch.device("cuda")
+    spec = sct.make_chain("beergame-v0")
+    W, L = spec.weeks, spec.levels
+    rs = np.random.RandomState(seed)
+    put = lambda x: torch.as_tensor(x, device=dev).contiguous()  # noqa: E731
+    args = (put(rs.randint(0, 13, size=(W, B)).astype(np.int32)),
+            put(rs.randint(0, 16, size=(W, L, B)).astype(np.int32)),
+            put(rs.randint(0, 2 * spec.init_inv + 1, size=(L, B))
+                .astype(np.int32)))
+    base = dict(init_ship=spec.init_ship, init_orders=spec.init_orders,
+                inv_cost=spec.inv_cost, backlog_cost=spec.backlog_cost)
+    print(f"phase 12: beergame_episode (K6b), beergame-v0, B={B}, W={W}, "
+          f"per-lane demand, orders and initial inventory, vs plain "
+          f"(bit-exact)")
+    err = 0
+    for kw in (dict(delay=spec.delay), dict(delay=0, init_delay=2)):
+        k = bge.launch_beergame_episode(*args, **base, **kw)
+        p = bge.beergame_episode_plain(*args, **base, **kw)
+        torch.cuda.synchronize()
+        e = int((k - p).abs().max())
+        err = max(err, e)
+        print(f"  {kw}: max reward err {e}, bit-equal {torch.equal(k, p)}")
+        if not torch.equal(k, p):
+            raise RuntimeError(f"beergame episode {kw}: not bit-exact")
+    bge.launch_beergame_episode.launches = 0
+    ms, rew = _timed(lambda: bge.beergame_episode(*args, device="cuda",
+                                                  delay=spec.delay, **base),
+                     REPS)
+    launches = bge.launch_beergame_episode.launches
+    plain_ms, _ = _timed(lambda: bge.beergame_episode_plain(
+        *args, delay=spec.delay, **base), PLAIN_REPS)
+    # demand [W,B], orders [W,L,B] and inventory [L,B] in, rewards [W,B] out
+    bound = _bound(4 * B * (2 * W + W * L + L), 0)
+    print(f"  through beergame_episode: {ms:.4f} ms an episode (median of "
+          f"{REPS}) = {W * B / ms * 1e3:.4e} env-weeks/s; bound "
+          f"{bound[0]:.5f} ms ({bound[1]}): {bound[0] / ms:.2%} of it; plain "
+          f"{plain_ms:.2f} ms; launches {launches}; rewards "
+          f"{tuple(rew.shape)}")
+    if not (launches > 0 and rew.shape == (W, B)):
+        raise RuntimeError("beergame episode sweep failed")
+    return dict(ms=ms, plain_ms=plain_ms, launches=launches, err=float(err),
+                bound=bound)
+
+
+def _kernel_lines(res, tr, upd, ep, ev, dn, bge, sc_errs, bg_errs, pol_errs,
+                  pu_errs, ep_errs):
     """The ``kernels`` summary: each kernel with its main-path launches,
     its error against plain, its time, its plain version's and its bound
     at the main path's shapes (no single PyTorch call computes any of these
@@ -823,6 +959,13 @@ def _kernel_lines(res, tr, upd, ep, ev, sc_errs, bg_errs, pol_errs, pu_errs,
              f"{sc_pallas}:736",
              ev["launches"] if mode == "policy" else r["launches"],
              max(ep_errs), r["ms"], r["plain_ms"], r["bound"])
+    for name, r in dn.items():
+        line(f"supplychain_dense_collect[{name}]", "supplychain_dense.cu",
+             "gym_supplychain_tpu/ops/supplychain_pallas_dense.py:470",
+             r["launches"], r["err"], r["ms"], r["plain_ms"], r["bound"])
+    line("beergame_episode", "beergame_collect.cu",
+         "gym_supplychain_tpu/ops/beergame_pallas.py:125", bge["launches"],
+         bge["err"], bge["ms"], bge["plain_ms"], bge["bound"])
     return lines
 
 
@@ -870,9 +1013,11 @@ def main(argv=None) -> int:
     tr = phase_trainer(args.seed)
     ep = phase_episode(B, args.seed, ep_errs)
     ev = phase_eval(args.seed)
+    dn = phase_dense(B, args.seed)
+    bge = phase_beergame_episode(B, args.seed)
 
-    kernels = _kernel_lines(res, tr, upd, ep, ev, sc_errs, bg_errs, pol_errs,
-                            pu_errs, ep_errs)
+    kernels = _kernel_lines(res, tr, upd, ep, ev, dn, bge, sc_errs, bg_errs,
+                            pol_errs, pu_errs, ep_errs)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

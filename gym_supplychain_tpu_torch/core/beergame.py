@@ -52,11 +52,13 @@ def make_beergame_kernels(levels: int, max_weeks: int, max_delay: int,
                  initial_shipment_value, initial_orders_value, B: int):
         """State from episode tables: ``customer_demand`` [weeks(, B)],
         ``shipment_delays`` [weeks + 1(, B)] with the prepended initial
-        delay in slot 0."""
+        delay in slot 0, ``initial_inventory`` [L(, B)]."""
         demand = _table(customer_demand, B)
         delays = _table(shipment_delays, B)
-        inv0 = torch.as_tensor(initial_inventory, dtype=itype,
-                               device=device)[:, None].expand(L, B).clone()
+        inv0 = torch.as_tensor(initial_inventory, dtype=itype, device=device)
+        if inv0.ndim == 1:
+            inv0 = inv0[:, None].expand(L, B)
+        inv0 = inv0.clone()
         # shipments[1 : 1 + delays[0]] = initial_shipment_value
         seeded = (ridx >= 1) & (ridx <= delays[0][None, :])          # [R,B]
         ship0 = torch.where(seeded[:, None, :],

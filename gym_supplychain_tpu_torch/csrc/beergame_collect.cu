@@ -1,19 +1,26 @@
-// Beer-game trajectory collection (v0 and v2), one thread per environment.
+// Beer-game trajectory collection (v0 and v2) and the rewards-only episode
+// sweep, one thread per environment.
 //
 // Replaces the TPU collect kernel `_collect_kernel` of
-// gym_supplychain_tpu/ops/beergame_pallas.py.  Each thread plays
-// S = episodes * weeks weeks with auto-reset at every episode boundary and
-// writes the post-week observation obs[s, l, b] and reward rew[s, b].  The
-// int32 state (inventory, backlog and orders [L], shipment ring [RING * L])
-// lives in per-thread arrays.  Delays are a constant or a per-lane table;
-// actions come from a table (`actions`) or from Philox (`random`: the low
-// bits of word l % 4 at counter (lane, step, l / 4, 0), masked to the
-// power-of-two max_order).  All arithmetic is integer, so the kernel is
-// bit-exact against its plain version (core/beergame.py).
+// gym_supplychain_tpu/ops/beergame_pallas.py (K3) and its episode kernel
+// `_episode_kernel` (beergame_episode_pallas, K6b).  The collect kernel
+// plays S = episodes * weeks weeks with auto-reset at every episode
+// boundary and writes the post-week observation obs[s, l, b] and reward
+// rew[s, b].  The int32 state (inventory, backlog and orders [L], shipment
+// ring [RING * L]) lives in per-thread arrays.  Delays are a constant or a
+// per-lane table; actions come from a table (`actions`) or from Philox
+// (`random`: the low bits of word l % 4 at counter (lane, step, l / 4, 0),
+// masked to the power-of-two max_order).  The episode sweep is the same
+// kernel with its template flag EPISODE set: one v0 episode from a per-lane
+// initial inventory inv0[l, b], actions from a table, a constant delay, and
+// no obs stream; it writes only the weekly rewards.  All arithmetic is
+// integer, so both are bit-exact against their plain versions
+// (core/beergame.py).
 //
-// Bounds on the card: a few integer ops per level and week; the kernel is
-// bound by the obs and reward stores ((L + 1) * 4 bytes per env-week) and,
-// at B = 4096 with 128 threads a block, fills 32 of the 132 SMs.
+// Bounds on the card: a few integer ops per level and week; the collect
+// kernel is bound by the obs and reward stores ((L + 1) * 4 bytes per
+// env-week), the sweep by its demand and action reads; at B = 4096 with 128
+// threads a block they fill 32 of the 132 SMs.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -31,10 +38,12 @@ struct BgArgs {
   uint32_t k0, k1;
 };
 
+template <bool EPISODE>
 __global__ void __launch_bounds__(128)
 bg_collect_kernel(BgArgs g, const int* __restrict__ demand,
                   const int* __restrict__ delays,
-                  const int* __restrict__ actions, int* __restrict__ obs,
+                  const int* __restrict__ actions,
+                  const int* __restrict__ inv0, int* __restrict__ obs,
                   int* __restrict__ rew) {
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= g.B) return;
@@ -47,7 +56,7 @@ bg_collect_kernel(BgArgs g, const int* __restrict__ demand,
     const int te = s % g.weeks, week = te + 1;
     if (te == 0) {
       for (int l = 0; l < L; ++l) {
-        inv[l] = g.init_inv;
+        inv[l] = EPISODE ? inv0[(size_t)l * Bz + b] : g.init_inv;
         back[l] = 0;
         orders[l] = g.init_orders;
       }
@@ -105,8 +114,9 @@ bg_collect_kernel(BgArgs g, const int* __restrict__ demand,
         const int pen = max(inv[l] - g.max_stock, 0) + max(back[l] - g.max_stock, 0);
         reward -= g.penalty * pen;
       }
-      obs[((size_t)s * L + l) * Bz + b] =
-          (g.v2 ? g.max_stock : 0) + inv[l] - back[l];
+      if (!EPISODE)
+        obs[((size_t)s * L + l) * Bz + b] =
+            (g.v2 ? g.max_stock : 0) + inv[l] - back[l];
     }
     rew[(size_t)s * Bz + b] = reward;
   }
@@ -130,7 +140,27 @@ extern "C" int bg_collect_launch(int mode, int S, int B, int weeks, int L,
               k1};
   const int threads = 128;
   const int blocks = (B + threads - 1) / threads;
-  bg_collect_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      g, demand, delays, actions, obs, rew);
+  bg_collect_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      g, demand, delays, actions, nullptr, obs, rew);
+  return (int)cudaGetLastError();
+}
+
+// K6b: one v0 episode of `weeks` weeks, constant delay, rewards only
+extern "C" int bg_episode_launch(int weeks, int B, int L, int ring, int delay,
+                                 int init_delay, int init_ship,
+                                 int init_orders, int inv_cost,
+                                 int backlog_cost, const int* demand,
+                                 const int* actions, const int* inv0,
+                                 int* rew, void* stream) {
+  if (L > BG_MAX_L || ring > BG_MAX_RING) return -2;
+  BgArgs g = {1,         weeks,       B,     weeks,        L,
+              ring,      0,           delay, delay,        init_delay,
+              init_ship, init_orders, 0,     inv_cost,     backlog_cost,
+              1,         0,           0,     0,            0u,
+              0u};
+  const int threads = 128;
+  const int blocks = (B + threads - 1) / threads;
+  bg_collect_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      g, demand, nullptr, actions, inv0, nullptr, rew);
   return (int)cudaGetLastError();
 }

@@ -43,31 +43,19 @@
 // weight per env), which makes the greedy kernel's floor its float32
 // multiply-adds (2 * 21,632 FLOP per env-step for ntom at (128, 128)).
 //
-// Floating-point rules (the plain versions, core/step.py and
-// ops/supplychain_collect.py, follow the same):
-// * built with --fmad=false: every product is rounded before it is added,
-//   as PyTorch eager and XLA:CPU do; one ulp in a shipped amount flips the
-//   capacity gates downstream.  Divisions are IEEE (x / inf = 0, 0 / 0 =
-//   nan as the reference emits).
-// * pipeline adds keep (pipe + supply) + (e1 + e2 + ...): supply goes into
-//   the ring directly, ship pushes are summed per (lead-time, dst, product)
-//   in edge order, then added once.
-// * the material leaving a node sums its destinations in index order.
-// * the sorted cut is stable by destination index; its cut is
-//   (v - pred) * avail, then a sequential clamp over sorted positions.
-// * costs are summed per (category, product) and then over both, which is
-//   not the plain version's order: rewards agree to ~1e-7 relative, the
-//   dynamics bit for bit.
-// * MLP layers accumulate w[j][k] * x[k] over k in order, starting from the
-//   k = 0 product, then add the bias; the log-prob sums its A terms in
-//   order; tanhf, expf, log1pf, cosf and sqrtf are the functions PyTorch's
-//   CUDA kernels call, so policy actions match the plain version bit for
-//   bit as well.
+// The step itself (chain descriptor, episode init, observation, the six
+// phases) and its floating-point rules are in supplychain_step.cuh, shared
+// with the dense kernel.  Beyond them: MLP layers accumulate w[j][k] * x[k]
+// over k in order, starting from the k = 0 product, then add the bias; the
+// log-prob sums its A terms in order; tanhf, expf, log1pf, cosf and sqrtf
+// are the functions PyTorch's CUDA kernels call, so policy actions match
+// the plain version bit for bit as well.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include "philox.cuh"
+#include "supplychain_step.cuh"
 
 #define SC_MAX_N 32
 #define SC_MAX_P 8
@@ -80,22 +68,6 @@
 #define SC_MAX_A 64
 #define SC_MAX_RP 16
 #define SC_MAX_CDF 8
-
-// cost categories (core/step.py COST_KEYS)
-#define C_STOCK 0
-#define C_STOCK_PEN 1
-#define C_SUPPLY 2
-#define C_PROCESS 3
-#define C_PROCESS_PEN 4
-#define C_SHIP 5
-#define C_SHIP_PEN 6
-#define C_UNMET 7
-
-#define MODE_RANDOM 0
-#define MODE_ACTIONS 1
-#define MODE_POLICY 2
-#define MODE_POLICY_EPS 3
-#define MODE_SEEDED 4
 
 // policy kernel: 4 warps, 32 envs a block; MLP layout of ops/_mlp.py
 #define PK_THREADS 128
@@ -112,69 +84,14 @@
 #define LN2_F 0.6931471805599453f        // log(2)
 #define TWO_PI_F 6.283185307179586f      // 2 pi
 
-// Layout mirrored field for field by ops/supplychain_collect.py
-// (_DESC_FIELDS); every field is 4 bytes, so there is no padding.
-// Indexing: np = n*P + p, nd = n*dmax + d, npd = np*dmax + d,
-// pipe row h at h*N*P + np.
-struct ScChain {
-  int N, P, R, A, K, T, Lavg, Lmax, H, ring, dmax, obs_dim;
-  int stochastic, n_cdf, any_factory, pad0;
-  float c_unmet, c_stock_pen, c_proc_pen, c_ship_pen;
-  float init_stock[SC_MAX_NP];
-  float stock_cap[SC_MAX_NP];
-  float stock_cost[SC_MAX_NP];
-  float supply_cap[SC_MAX_NP];
-  float supply_cost[SC_MAX_NP];
-  float proc_cost[SC_MAX_NP];
-  float proc_ratio[SC_MAX_NP];
-  float ms[SC_MAX_NP];       // obs normalizer max_ship (1 where it is 0)
-  float ms_tail[SC_MAX_NP];  // ms * (Lmax - (Lavg - 1)), in float32
-  int has_supply[SC_MAX_NP];
-  int has_ship[SC_MAX_NP];
-  int sup_act_idx[SC_MAX_NP];
-  int ms_ok[SC_MAX_NP];
-  int cap_finite[SC_MAX_NP];
-  float proc_cap[SC_MAX_N];
-  int is_factory[SC_MAX_N];
-  int lt_base[SC_MAX_N];
-  int node_ships[SC_MAX_N];
-  int edge_dst[SC_MAX_ND];
-  int edge_mask[SC_MAX_ND];
-  float ship_cap_edge[SC_MAX_ND];
-  float ship_cost[SC_MAX_NPD];
-  int ship_act_idx[SC_MAX_NPD];
-  float init_pipe[SC_MAX_RING * SC_MAX_NP];
-  int retailer_idx[SC_MAX_RP];
-  float dem_min[SC_MAX_P];
-  float dem_range[SC_MAX_P];
-  float dem_n[SC_MAX_P];   // uniform demand: floor(u * n) + lo
-  float dem_lo[SC_MAX_P];
-  float cdf[SC_MAX_CDF];   // lead-time thresholds: 1 + sum(u >= cdf[j])
-};
-
-__device__ __forceinline__ float clip_pm1(float x) {
-  // 2x - 1 clipped to [-1, 1]; comparisons keep a nan, as jnp.clip does
-  float y = 2.0f * x - 1.0f;
-  y = y < -1.0f ? -1.0f : y;
-  return y > 1.0f ? 1.0f : y;
-}
+using ScChain = ChainT<SC_MAX_N, SC_MAX_P, SC_MAX_NP, SC_MAX_D, SC_MAX_ND,
+                       SC_MAX_NPD, SC_MAX_RING, SC_MAX_RP, SC_MAX_CDF>;
 
 __device__ __forceinline__ void copy_chain(const ScChain* gch, ScChain* ch) {
   const int* src = reinterpret_cast<const int*>(gch);
   int* dst = reinterpret_cast<int*>(ch);
   for (int i = threadIdx.x; i < (int)(sizeof(ScChain) / 4); i += blockDim.x)
     dst[i] = src[i];
-}
-
-// ---- episode init: initial stock, seeded pipeline -------------------------
-__device__ __forceinline__ void sc_episode_init(const ScChain& ch, float* stock,
-                                                float* ring) {
-  const int NP = ch.N * ch.P;
-  for (int i = 0; i < NP; ++i) stock[i] = ch.init_stock[i];
-  for (int r = 0; r < ch.ring; ++r)
-    for (int i = 0; i < NP; ++i)
-      ring[r * NP + i] =
-          (r >= 1 && r <= ch.H) ? ch.init_pipe[(r - 1) * NP + i] : 0.0f;
 }
 
 // ---- one step's random inputs from Philox at counter (lane, step, blk, 0):
@@ -253,207 +170,14 @@ struct TileSink {
   }
 };
 
-// ---- pre-action observation (core/step.py obs_fn) -------------------------
-template <class Sink>
-__device__ __forceinline__ void sc_obs(const ScChain& ch, const float* stock,
-                                       const float* ring, const float* dem,
-                                       int te, const Sink& out) {
-  const int N = ch.N, P = ch.P, NP = N * P, RING = ch.ring, RP = ch.R * P;
-  const int Lavg = ch.Lavg, H = ch.H, T = ch.T, t = te + 1;
-  int o = 0;
-  for (int j = 0; j < RP; ++j) {
-    const int p = j % P;
-    out(o++, clip_pm1((dem[j] - ch.dem_min[p]) / ch.dem_range[p]));
-  }
-  for (int n = 0; n < N; ++n) {
-    for (int p = 0; p < P; ++p) {
-      const int i = n * P + p;
-      out(o++, clip_pm1(stock[i] / ch.stock_cap[i]));
-    }
-    for (int p = 0; p < P; ++p) {
-      const int i = n * P + p;
-      const bool ok = ch.ms_ok[i] != 0;
-      // pipe[j] (arriving at te + 1 + j) sits in ring slot (t + j) % RING
-      for (int j = 0; j < Lavg - 1; ++j) {
-        const float x = ring[((t + j) % RING) * NP + i];
-        out(o++, clip_pm1(ok ? x / ch.ms[i] : 0.0f));
-      }
-      float tail = ring[((t + Lavg - 1) % RING) * NP + i];
-      for (int j = Lavg; j < H; ++j) tail = tail + ring[((t + j) % RING) * NP + i];
-      out(o++, clip_pm1(ok ? tail / ch.ms_tail[i] : 0.0f));
-    }
-  }
-  out(o, clip_pm1((float)(T - te) / (float)T));
-}
-
-// ---- phases 1-6 of one step; a[] holds the actions scaled to [0, 1] -------
-__device__ __forceinline__ float sc_step(const ScChain& ch, float* stock,
-                                         float* ring, const float* a,
-                                         const int* lt_row, const float* dem,
-                                         int t) {
-  const int N = ch.N, P = ch.P, NP = N * P, D = ch.dmax, RING = ch.ring;
-  const int K = ch.K, Lavg = ch.Lavg, Lmax = ch.Lmax;
-  const bool stoch = ch.stochastic != 0;
-  float upd[SC_MAX_RING * SC_MAX_NP], cost[8 * SC_MAX_P];
-  int nfired[SC_MAX_N];
-
-  for (int i = 0; i < 8 * P; ++i) cost[i] = 0.0f;
-
-  // ---- phases 1+2: arrivals, stock-capacity penalty ---------------------
-  const int slot0 = t % RING;
-  for (int i = 0; i < NP; ++i) {
-    const int p = i % P;
-    float sv = stock[i] + ring[slot0 * NP + i];
-    const float cap = ch.stock_cap[i];
-    if (ch.cap_finite[i]) {
-      const float ex = sv - cap;
-      cost[C_STOCK_PEN * P + p] += ex > 0.0f ? ex : 0.0f;
-    }
-    stock[i] = fminf(sv, cap);
-    ring[slot0 * NP + i] = 0.0f;
-  }
-
-  // ---- phase 3: supply --------------------------------------------------
-  for (int n = 0; n < N; ++n) {
-    int nf = 0;
-    for (int p = 0; p < P; ++p) {
-      const int i = n * P + p;
-      if (!ch.has_supply[i]) continue;
-      const float amt = a[ch.sup_act_idx[i]] * ch.supply_cap[i];
-      cost[C_SUPPLY * P + p] += amt * ch.supply_cost[i];
-      const bool fired = amt > 0.0f;
-      int L = Lavg;
-      if (stoch) {  // column = base + #earlier fired supplies at the node
-        L = lt_row[min(ch.lt_base[n] + nf, K - 1)];
-        nf += fired;
-      }
-      if (fired && L >= 1 && (!stoch || L <= Lmax))
-        ring[((t + L) % RING) * NP + i] += amt;
-    }
-    nfired[n] = nf;
-  }
-
-  // ---- phase 4: ship -----------------------------------------------------
-  const int Lhi = stoch ? Lmax : Lavg;
-  for (int i = 0; i < (Lhi + 1) * NP; ++i) upd[i] = 0.0f;
-  for (int n = 0; n < N; ++n) {
-    if (!ch.node_ships[n]) continue;
-    const bool fac = ch.is_factory[n] != 0;
-    float avail_proc = ch.proc_cap[n];
-    float avail_ship[SC_MAX_D];
-    int Ld[SC_MAX_D];
-    for (int d = 0; d < D; ++d) {
-      avail_ship[d] = ch.ship_cap_edge[n * D + d];
-      // transport columns follow the fired supplies, shared by products
-      Ld[d] = stoch ? lt_row[min(ch.lt_base[n] + nfired[n] + d, K - 1)]
-                    : Lavg;
-    }
-    for (int p = 0; p < P; ++p) {
-      const int i = n * P + p;
-      float v[SC_MAX_D], cut[SC_MAX_D], amounts[SC_MAX_D], to_ship[SC_MAX_D];
-      int rank[SC_MAX_D];
-      for (int d = 0; d < D; ++d)
-        v[d] = (ch.has_ship[i] && ch.edge_mask[n * D + d])
-                   ? a[ch.ship_act_idx[i * D + d]]
-                   : 0.0f;
-      const float s_g = stock[i];
-      // sorted cut: predecessor and rank in the stable ascending sort
-      for (int d = 0; d < D; ++d) {
-        float w = -INFINITY;
-        int r = 0;
-        for (int j = 0; j < D; ++j) {
-          const bool before = (v[j] < v[d]) || (v[j] == v[d] && j < d);
-          if (before) {
-            w = fmaxf(w, v[j]);
-            ++r;
-          }
-        }
-        if (r == 0) w = 0.0f;
-        cut[d] = (v[d] - w) * s_g;
-        rank[d] = r;
-        amounts[d] = 0.0f;
-      }
-      float availr = s_g;
-      for (int k = 0; k < D; ++k) {
-        float cut_k = 0.0f;
-        for (int d = 0; d < D; ++d) cut_k += (rank[d] == k) ? cut[d] : 0.0f;
-        const float amt_k = fminf(cut_k, availr);
-        availr = availr - amt_k;
-        for (int d = 0; d < D; ++d) amounts[d] += (rank[d] == k) ? amt_k : 0.0f;
-      }
-      for (int d = 0; d < D; ++d)
-        if (!ch.edge_mask[n * D + d]) amounts[d] = 0.0f;
-
-      // processing-capacity clip, sequential over destinations
-      float exc_proc = 0.0f;
-      if (ch.any_factory) {
-        for (int d = 0; d < D; ++d) {
-          const float ai = amounts[d];
-          const bool gate = fac && ai > 0.0f;
-          const bool over = gate && ai > avail_proc;
-          exc_proc = exc_proc + (over ? ai - avail_proc : 0.0f);
-          const float ai2 = over ? avail_proc : ai;
-          avail_proc = avail_proc - (gate ? ai2 : 0.0f);
-          amounts[d] = ai2;
-        }
-      }
-      for (int d = 0; d < D; ++d)
-        to_ship[d] = (ch.any_factory && fac) ? amounts[d] / ch.proc_ratio[i]
-                                             : amounts[d];
-
-      // ship-capacity clip, bug-compatible shared-capacity bookkeeping
-      float exc_ship = 0.0f, leaving = 0.0f;
-      for (int d = 0; d < D; ++d) {
-        const float a2 = to_ship[d], capd = avail_ship[d];
-        const bool g2 = a2 > 0.0f && a2 > capd;
-        exc_ship += g2 ? a2 - capd : 0.0f;
-        const float a2c = g2 ? capd : a2;
-        const float raw = g2 ? (fac ? a2c * ch.proc_ratio[i] : a2c) : amounts[d];
-        avail_ship[d] = capd - (g2 ? raw : 0.0f);
-        leaving = d == 0 ? raw : leaving + raw;
-        cost[C_SHIP * P + p] += a2c * ch.ship_cost[i * D + d];
-        if (ch.edge_mask[n * D + d]) {
-          const int L = Ld[d];
-          if (L >= 1 && L <= Lhi && (stoch || L == Lavg)) {
-            const int dst = ch.edge_dst[n * D + d];
-            upd[L * NP + dst * P + p] += a2c > 0.0f ? a2c : 0.0f;
-          }
-        }
-      }
-      stock[i] = s_g - leaving;
-      if (fac) cost[C_PROCESS * P + p] += leaving * ch.proc_cost[i];
-      cost[C_PROCESS_PEN * P + p] += exc_proc;
-      cost[C_SHIP_PEN * P + p] += exc_ship;
-    }
-  }
-  // one pipeline add per (lead-time, dst, product)
-  for (int L = stoch ? 1 : Lavg; L <= Lhi; ++L)
-    for (int i = 0; i < NP; ++i)
-      ring[((t + L) % RING) * NP + i] += upd[L * NP + i];
-
-  // ---- phase 5: retailer demand ------------------------------------------
-  for (int ri = 0; ri < ch.R; ++ri) {
-    const int n = ch.retailer_idx[ri];
-    for (int p = 0; p < P; ++p) {
-      const int i = n * P + p;
-      const float d = dem[ri * P + p];
-      const float ful = fminf(stock[i], d);
-      stock[i] = stock[i] - ful;
-      cost[C_UNMET * P + p] += d - ful;
-    }
-  }
-
-  // ---- phase 6: holding costs, reward ------------------------------------
-  for (int i = 0; i < NP; ++i) cost[C_STOCK * P + i % P] += stock[i] * ch.stock_cost[i];
-  float total = 0.0f;
-  for (int p = 0; p < P; ++p) {
-    cost[C_STOCK_PEN * P + p] = ch.c_stock_pen * cost[C_STOCK_PEN * P + p];
-    cost[C_PROCESS_PEN * P + p] = ch.c_proc_pen * cost[C_PROCESS_PEN * P + p];
-    cost[C_SHIP_PEN * P + p] = ch.c_ship_pen * cost[C_SHIP_PEN * P + p];
-    cost[C_UNMET * P + p] = ch.c_unmet * cost[C_UNMET * P + p];
-  }
-  for (int k = 0; k < 8 * P; ++k) total += cost[k];
-  return -total;
+// ---- the shared step (supplychain_step.cuh) on per-thread arrays --------
+__device__ __forceinline__ float sc_step_local(const ScChain& ch, float* stock,
+                                               float* ring, float* upd,
+                                               const float* a,
+                                               const int* lt_row,
+                                               const float* dem, int t) {
+  LocalIn in{a, lt_row, dem};
+  return sc_step(ch, stock, ring, upd, in, t);
 }
 
 __global__ void __launch_bounds__(128)
@@ -473,6 +197,7 @@ sc_collect_kernel(const ScChain* __restrict__ gch, int mode, int S, int B,
   const size_t Bz = (size_t)B;
 
   float stock[SC_MAX_NP], ring[SC_MAX_RING * SC_MAX_NP];
+  float upd[SC_MAX_RING * SC_MAX_NP];
   float a[SC_MAX_A], dem[SC_MAX_RP];
   int lt_row[SC_MAX_K];
 
@@ -492,7 +217,7 @@ sc_collect_kernel(const ScChain* __restrict__ gch, int mode, int S, int B,
 
     sc_obs(ch, stock, ring, dem, te,
            ObsSink{obs + (size_t)s * O * Bz + b, Bz, nullptr});
-    rew[(size_t)s * Bz + b] = sc_step(ch, stock, ring, a, lt_row, dem, te + 1);
+    rew[(size_t)s * Bz + b] = sc_step_local(ch, stock, ring, upd, a, lt_row, dem, te + 1);
   }
   if (stock_out != nullptr)
     for (int i = 0; i < NP; ++i) stock_out[(size_t)i * Bz + b] = stock[i];
@@ -606,6 +331,7 @@ sc_policy_kernel(const ScChain* __restrict__ gch, const int* __restrict__ glay,
   const size_t Bz = (size_t)B, SB = (size_t)S * B;
 
   float stock[SC_MAX_NP], ring[SC_MAX_RING * SC_MAX_NP];
+  float upd[SC_MAX_RING * SC_MAX_NP];
   float a[SC_MAX_A], eps[SC_MAX_A], dem[SC_MAX_RP];
   float noise[2 * SC_MAX_A];
   int lt_row[SC_MAX_K];
@@ -655,7 +381,7 @@ sc_policy_kernel(const ScChain* __restrict__ gch, const int* __restrict__ glay,
       }
       logp_out[(size_t)s * Bz + b] = lp;
       value_out[(size_t)s * Bz + b] = v_s[lane];
-      rew[(size_t)s * Bz + b] = sc_step(ch, stock, ring, a, lt_row, dem, te + 1);
+      rew[(size_t)s * Bz + b] = sc_step_local(ch, stock, ring, upd, a, lt_row, dem, te + 1);
     }
     // the next step's obs tile is written after every warp read this one
     __syncthreads();
@@ -681,6 +407,7 @@ sc_episode_kernel(const ScChain* __restrict__ gch, int mode, int B,
   const size_t Bz = (size_t)B;
 
   float stock[SC_MAX_NP], ring[SC_MAX_RING * SC_MAX_NP];
+  float upd[SC_MAX_RING * SC_MAX_NP];
   float a[SC_MAX_A], dem[SC_MAX_RP];
   int lt_row[SC_MAX_K];
 
@@ -694,7 +421,7 @@ sc_episode_kernel(const ScChain* __restrict__ gch, int mode, int B,
     }
     sc_read_inputs(ch, s, b, Bz, dem_tab, lt_tab, lt_row, dem);
     for (int i = 0; i < A; ++i) a[i] = (a[i] + 1.0f) * 0.5f;
-    rew[(size_t)s * Bz + b] = sc_step(ch, stock, ring, a, lt_row, dem, s + 1);
+    rew[(size_t)s * Bz + b] = sc_step_local(ch, stock, ring, upd, a, lt_row, dem, s + 1);
   }
   if (stock_out != nullptr)
     for (int i = 0; i < NP; ++i) stock_out[(size_t)i * Bz + b] = stock[i];
@@ -733,6 +460,7 @@ sc_greedy_kernel(const ScChain* __restrict__ gch, const int* __restrict__ glay,
   const size_t Bz = (size_t)B;
 
   float stock[SC_MAX_NP], ring[SC_MAX_RING * SC_MAX_NP];
+  float upd[SC_MAX_RING * SC_MAX_NP];
   float a[SC_MAX_A], dem[SC_MAX_RP];
   int lt_row[SC_MAX_K];
 
@@ -749,7 +477,7 @@ sc_greedy_kernel(const ScChain* __restrict__ gch, const int* __restrict__ glay,
     if (env) {
       for (int i = 0; i < A; ++i)
         a[i] = (tanhf(mu_s[i * PK_ENVS + lane]) + 1.0f) * 0.5f;
-      rew[(size_t)s * Bz + b] = sc_step(ch, stock, ring, a, lt_row, dem, s + 1);
+      rew[(size_t)s * Bz + b] = sc_step_local(ch, stock, ring, upd, a, lt_row, dem, s + 1);
     }
     // the next step's obs tile is written after every warp read this one
     __syncthreads();
@@ -828,9 +556,10 @@ extern "C" int sc_chain_bytes() { return (int)sizeof(ScChain); }
 extern "C" int mlp_layout_ints() { return MLP_LAYOUT_INTS; }
 
 extern "C" const char* gst_error_string(int code) {
-  if (code == -1) return "chain descriptor size differs from ScChain";
+  if (code == -1) return "chain descriptor size differs from the kernel's";
   if (code == -2) return "beer game levels or ring exceed the kernel limits";
   if (code == -3) return "unknown collect mode";
   if (code == -4) return "MLP layout differs from the kernel's";
+  if (code == -5) return "envs per block outside 1..32";
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -1,11 +1,14 @@
-"""Configurations of the rollout slice, as compiled chains.
+"""Configurations of the ported slices, as compiled chains.
 
 The topology builders of the JAX package's ``SupplyChainLinearEnv``,
-``SupplyChainNtoMEnv`` and ``SupplyChain2perStageEnv``
-(``gym_supplychain_tpu/envs/presets.py``), returning a ``CompiledChain``
-instead of a single-env object, plus the classic beer game's defaults.
-Values are those of the JAX presets, which mirror the reference's README
-topologies, its ``__main__`` demo and its ``SupplyChain2perStageEnv``.
+``SupplyChainNtoMEnv``, ``SupplyChain2perStageEnv``,
+``SupplyChainMultiProduct`` (and its ``_IncreasingCosts`` variant) and
+``SupplyChainNPerStage`` (``gym_supplychain_tpu/envs/presets.py``),
+returning a ``CompiledChain`` instead of a single-env object, plus the
+classic beer game's defaults.  Values are those of the JAX presets, which
+mirror the reference's README topologies, its ``__main__`` demo, its
+``SupplyChain2perStageEnv``, its multi-product environments and its
+N-per-stage environment.
 """
 from __future__ import annotations
 
@@ -14,8 +17,9 @@ from typing import Tuple
 
 from ..core.compile import CompiledChain, compile_chain
 
-__all__ = ["linear_chain", "ntom_chain", "twoperstage_chain", "BeerGameSpec",
-           "beergame_v0"]
+__all__ = ["linear_chain", "ntom_chain", "twoperstage_chain",
+           "multiproduct_chain", "multiproduct_inccosts_chain",
+           "nperstage_chain", "BeerGameSpec", "beergame_v0"]
 
 
 def _linear_nodes(num_products=1, initial_stock=10, stock_capacity=100,
@@ -160,6 +164,203 @@ def twoperstage_chain(num_products=1, initial_stocks=(0,) * 8,
     return compile_chain(
         nodes_info, num_products=num_products,
         unmet_demand_cost=unmet_demand_cost,
+        exceeded_stock_capacity_cost=exceeded_stock_capacity_cost,
+        exceeded_process_capacity_cost=exceeded_process_capacity_cost,
+        exceeded_ship_capacity_cost=exceeded_ship_capacity_cost,
+        processing_ratio=processing_ratio, demand_range=demand_range,
+        stochastic_leadtimes=stochastic_leadtimes, avg_leadtime=avg_leadtime,
+        max_leadtime=max_leadtime, total_time_steps=total_time_steps, **kw)
+
+
+def _multiproduct_nodes(initial_stocks, stock_capacities, stock_costs,
+                        initial_supply, supply_capacities, supply_costs,
+                        dest_cost, ship_capacity, initial_shipments,
+                        processing_capacities, processing_costs):
+    """8-node multi-product chain: 2 suppliers -> 2 factories -> 2
+    wholesalers -> 2 retailers, full bipartite between stages."""
+    nodes_info = {}
+    stages = (("Supplier", ["Factory1", "Factory2"]),
+              ("Factory", ["Wholesal1", "Wholesal2"]),
+              ("Wholesal", ["Retailer1", "Retailer2"]),
+              ("Retailer", None))
+    for s, (stage, dests) in enumerate(stages):
+        for i in range(2):
+            n = 2 * s + i
+            node = {'initial_stock': initial_stocks[n],
+                    'stock_capacity': stock_capacities[n],
+                    'stock_cost': stock_costs}
+            if s == 0:
+                node.update({'initial_supply': initial_supply[i],
+                             'supply_capacity': supply_capacities[i],
+                             'supply_cost': supply_costs[i]})
+            else:
+                node['initial_shipments'] = initial_shipments[n - 2]
+            if s == 1:
+                node.update({'processing_capacity': processing_capacities[i],
+                             'processing_cost': processing_costs[i]})
+            if dests is None:
+                node['last_level'] = True
+            else:
+                node.update({'destinations': dests, 'dest_costs': dest_cost,
+                             'ship_capacity': ship_capacity})
+            nodes_info[f"{stage}{i + 1}"] = node
+    return nodes_info
+
+
+def multiproduct_chain(num_products=2, initial_stocks=None,
+                       stock_capacities=None, stock_costs=1,
+                       initial_supply=None, supply_capacities=None,
+                       supply_costs=None, dest_cost=None, ship_capacity=None,
+                       initial_shipments=None, processing_capacities=None,
+                       processing_costs=None, processing_ratio=3,
+                       unmet_demand_cost=216, exceeded_stock_capacity_cost=10,
+                       exceeded_process_capacity_cost=10,
+                       exceeded_ship_capacity_cost=10, demand_range=(0, 400),
+                       stochastic_leadtimes=False, avg_leadtime=2,
+                       max_leadtime=2, total_time_steps=360,
+                       **kw) -> CompiledChain:
+    """``sc-2perstage-multiproduct-v0``: the 8-node chain with
+    ``num_products`` products and capacities scaled by it."""
+    P, L = num_products, avg_leadtime
+    if not stock_capacities:
+        stock_capacities = [[c] * P for c in (1600, 1800, 6400, 7200,
+                                              1600, 1800, 1600, 1800)]
+    if not initial_stocks:
+        initial_stocks = [[800] * P] * 8
+    if not initial_supply:
+        initial_supply = [[[600] * L] * P, [[840] * L] * P]
+    if not supply_capacities:
+        supply_capacities = [[600] * P, [840] * P]
+    if not supply_costs:
+        supply_costs = [[6] * P, [4] * P]
+    if not dest_cost:
+        dest_cost = [[2] * 2] * P
+    if not ship_capacity:
+        ship_capacity = [500 * P, 500 * P]
+    if not initial_shipments:
+        initial_shipments = ([[[600] * L] * P, [[840] * L] * P]
+                             + [[[240] * L] * P] * 4)
+    if not processing_capacities:
+        processing_capacities = [840 * P, 960 * P]
+    if not processing_costs:
+        processing_costs = [[12] * P, [10] * P]
+    nodes_info = _multiproduct_nodes(
+        initial_stocks, stock_capacities, stock_costs, initial_supply,
+        supply_capacities, supply_costs, dest_cost, ship_capacity,
+        initial_shipments, processing_capacities, processing_costs)
+    return compile_chain(
+        nodes_info, num_products=P, unmet_demand_cost=unmet_demand_cost,
+        exceeded_stock_capacity_cost=exceeded_stock_capacity_cost,
+        exceeded_process_capacity_cost=exceeded_process_capacity_cost,
+        exceeded_ship_capacity_cost=exceeded_ship_capacity_cost,
+        processing_ratio=processing_ratio, demand_range=demand_range,
+        stochastic_leadtimes=stochastic_leadtimes, avg_leadtime=avg_leadtime,
+        max_leadtime=max_leadtime, total_time_steps=total_time_steps, **kw)
+
+
+def multiproduct_inccosts_chain(num_products=2, **kw) -> CompiledChain:
+    """``sc-2perstage-multiproduct-inccosts-v0``: the multi-product chain
+    with every cost scaled by (product index + 1)."""
+    P = num_products
+    return multiproduct_chain(
+        num_products=P,
+        supply_costs=[[6 * (i + 1) for i in range(P)],
+                      [4 * (i + 1) for i in range(P)]],
+        dest_cost=[[2 * (i + 1)] * 2 for i in range(P)],
+        processing_costs=[[12 * (i + 1) for i in range(P)],
+                          [10 * (i + 1) for i in range(P)]],
+        stock_costs=[i + 1 for i in range(P)], **kw)
+
+
+def nperstage_chain(nodes_per_echelon=3, num_products=2, initial_stocks=None,
+                    stock_capacities=None, stock_costs=1, initial_supply=None,
+                    supply_capacities=None, supply_costs=None, dest_cost=None,
+                    ship_capacity=None, initial_shipments=None,
+                    processing_capacities=None, processing_costs=None,
+                    processing_ratio=3, unmet_demand_cost=216,
+                    exceeded_stock_capacity_cost=10,
+                    exceeded_process_capacity_cost=10,
+                    exceeded_ship_capacity_cost=10, demand_range=(0, 400),
+                    stochastic_leadtimes=False, avg_leadtime=2,
+                    max_leadtime=2, total_time_steps=360,
+                    **kw) -> CompiledChain:
+    """``sc-Nperstage-multiproduct-v0``: 4 echelons (suppliers, factories,
+    wholesalers, retailers) of ``nodes_per_echelon`` nodes (an int, or one
+    count per echelon), full bipartite between echelons."""
+    P, L = num_products, avg_leadtime
+    if isinstance(nodes_per_echelon, int):
+        nodes_per_echelon = [nodes_per_echelon] * 4
+    ns, nf, nw, nr = nodes_per_echelon
+    ne = {'suppliers': ns, 'factories': nf, 'wholesalers': nw,
+          'retailers': nr}
+    if not stock_capacities:
+        stock_capacities = {k: [[6400 if k == 'factories' else 1600] * P]
+                            * ne[k] for k in ne}
+    if not initial_stocks:
+        initial_stocks = {k: [[800] * P] * ne[k] for k in ne}
+    if not initial_supply:
+        initial_supply = [[[600] * L] * P] * ns
+    if not supply_capacities:
+        supply_capacities = [[600] * P] * ns
+    if not supply_costs:
+        supply_costs = [[6] * P] * ns
+    if not dest_cost:
+        dest_cost = {'suppliers': [[2] * nf] * P,
+                     'factories': [[2] * nw] * P,
+                     'wholesalers': [[2] * nr] * P}
+    if not ship_capacity:
+        ship_capacity = {'suppliers': [500 * P] * nf,
+                         'factories': [500 * P] * nw,
+                         'wholesalers': [500 * P] * nr}
+    if not initial_shipments:
+        initial_shipments = {'factories': [[[600] * L] * P] * nf,
+                             'wholesalers': [[[240] * L] * P] * nw,
+                             'retailers': [[[240] * L] * P] * nr}
+    if not processing_capacities:
+        processing_capacities = [840 * P] * nf
+    if not processing_costs:
+        processing_costs = [[12] * P] * nf
+
+    nodes_info = {}
+    for i in range(ns):
+        nodes_info[f'Supplier{i}'] = {
+            'initial_stock': initial_stocks['suppliers'][i],
+            'stock_capacity': stock_capacities['suppliers'][i],
+            'stock_cost': stock_costs, 'initial_supply': initial_supply[i],
+            'supply_capacity': supply_capacities[i],
+            'supply_cost': supply_costs[i],
+            'destinations': [f'Factory{j}' for j in range(nf)],
+            'dest_costs': dest_cost['suppliers'],
+            'ship_capacity': ship_capacity['suppliers']}
+    for i in range(nf):
+        nodes_info[f'Factory{i}'] = {
+            'initial_stock': initial_stocks['factories'][i],
+            'stock_capacity': stock_capacities['factories'][i],
+            'stock_cost': stock_costs,
+            'initial_shipments': initial_shipments['factories'][i],
+            'processing_capacity': processing_capacities[i],
+            'processing_cost': processing_costs[i],
+            'destinations': [f'Wholesal{j}' for j in range(nw)],
+            'dest_costs': dest_cost['factories'],
+            'ship_capacity': ship_capacity['factories']}
+    for i in range(nw):
+        nodes_info[f'Wholesal{i}'] = {
+            'initial_stock': initial_stocks['wholesalers'][i],
+            'stock_capacity': stock_capacities['wholesalers'][i],
+            'stock_cost': stock_costs,
+            'initial_shipments': initial_shipments['wholesalers'][i],
+            'destinations': [f'Retailer{j}' for j in range(nr)],
+            'dest_costs': dest_cost['wholesalers'],
+            'ship_capacity': ship_capacity['wholesalers']}
+    for i in range(nr):
+        nodes_info[f'Retailer{i}'] = {
+            'initial_stock': initial_stocks['retailers'][i],
+            'stock_capacity': stock_capacities['retailers'][i],
+            'stock_cost': stock_costs,
+            'initial_shipments': initial_shipments['retailers'][i],
+            'last_level': True}
+    return compile_chain(
+        nodes_info, num_products=P, unmet_demand_cost=unmet_demand_cost,
         exceeded_stock_capacity_cost=exceeded_stock_capacity_cost,
         exceeded_process_capacity_cost=exceeded_process_capacity_cost,
         exceeded_ship_capacity_cost=exceeded_ship_capacity_cost,

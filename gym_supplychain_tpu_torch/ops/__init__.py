@@ -8,7 +8,11 @@
   ``make_ppo_update_grads``);
 * ``supplychain_episode``: one rewards-only episode, greedy policy,
   Philox or table actions (replaces ``make_supplychain_episode_pallas``
-  and ``make_supplychain_policy_rollout_pallas``).
+  and ``make_supplychain_policy_rollout_pallas``);
+* ``supplychain_dense``: trajectory collection for large chains (replaces
+  ``make_supplychain_dense_collect_pallas``);
+* ``beergame_episode``: one rewards-only beer-game episode (replaces
+  ``beergame_episode_pallas``).
 
 The CUDA sources build with nvcc at first use (``_build``), never at import.
 """

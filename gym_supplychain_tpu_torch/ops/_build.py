@@ -40,10 +40,14 @@ _SIGNATURES = {
                          _I, _P, _P, _P, _P, _P, _P, _P],
     "sc_episode_launch": [_P, _I, _I, _I, _P, _P, _P, _U, _U, _P, _P, _P],
     "sc_greedy_launch": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    "sc_dense_launch": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _U, _U, _P,
+                        _P, _P, _P],
     "bg_collect_launch": [_I] * 19 + [_P, _P, _P, _U, _U, _P, _P, _P],
+    "bg_episode_launch": [_I] * 10 + [_P] * 5,
     "ppo_update_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F,
                           _F, _F, _F, _P, _P, _I, _P],
     "sc_chain_bytes": [],
+    "dn_chain_bytes": [],
     "mlp_layout_ints": [],
     "ppo_layout_ints": [],
 }

@@ -30,10 +30,13 @@ auto-reset at every boundary; every step emits its pre-action observation
 The kernels (``csrc/supplychain_collect.cu``) run one thread per env with
 its state in per-thread arrays and the chain in a shared-memory descriptor;
 the policy kernel runs the MLP cooperatively per block of 32 envs with the
-weights in shared memory.  What bounds them on the card, and the float
-rules they and the plain version share (no FMA contraction, the pipeline
-add association, ordered sums, the stable sorted cut, the MLP's ordered
-accumulation), are set out at the top of that file.  The plain version is
+weights in shared memory.  What bounds them on the card, and the MLP's
+ordered accumulation, are set out at the top of that file; the step they
+share with the dense kernel, and the float rules it and the plain version
+follow (no FMA contraction, the pipeline add association, ordered sums,
+the stable sorted cut), at the top of ``csrc/supplychain_step.cuh``.  The
+descriptor ``chain_descriptor`` gives the kernels is that header's
+``ChainT`` at the limits ``_MAX``.  The plain version is
 an eager loop over ``core/step.py``; the wrapper takes it only for a tensor
 on the CPU, and launches the kernel or raises for a CUDA one.
 """
@@ -54,6 +57,7 @@ from ._mlp import LAYOUT_INTS, SMEM_MAX, MlpLayout
 __all__ = ["make_supplychain_collect", "launch_supplychain_collect",
            "launch_supplychain_policy", "supplychain_collect_plain",
            "philox_tables", "chain_descriptor", "check_uniform_demand",
+           "check_kernel_support", "descriptor_words",
            "policy_smem_bytes", "resolve_device", "seed_key"]
 
 _MODES = {"random": 0, "actions": 1, "policy": 2, "policy_eps": 3}
@@ -63,9 +67,9 @@ _MAX = dict(N=32, P=8, NP=32, D=8, ND=256, NPD=256, RING=8, K=64, A=64,
             RP=16, CDF=8)
 
 
-def _desc_fields():
-    """(name, 'i'|'f', count) in the order of ``struct ScChain``."""
-    m = _MAX
+def _desc_fields(m=_MAX):
+    """(name, 'i'|'f', count) in the order of ``struct ChainT``
+    (``csrc/supplychain_step.cuh``) at the size limits ``m``."""
     NP, N, ND, NPD = m["NP"], m["N"], m["ND"], m["NPD"]
     ints = ("N", "P", "R", "A", "K", "T", "Lavg", "Lmax", "H", "ring", "dmax",
             "obs_dim", "stochastic", "n_cdf", "any_factory", "pad0")
@@ -78,7 +82,8 @@ def _desc_fields():
     fields += [(k, "i", NP) for k in ("has_supply", "has_ship", "sup_act_idx",
                                       "ms_ok", "cap_finite")]
     fields += [("proc_cap", "f", N)]
-    fields += [(k, "i", N) for k in ("is_factory", "lt_base", "node_ships")]
+    fields += [(k, "i", N) for k in ("is_factory", "lt_base", "node_ships",
+                                     "node_deg")]
     fields += [("edge_dst", "i", ND), ("edge_mask", "i", ND),
                ("ship_cap_edge", "f", ND), ("ship_cost", "f", NPD),
                ("ship_act_idx", "i", NPD), ("init_pipe", "f", m["RING"] * NP),
@@ -103,27 +108,37 @@ def check_uniform_demand(cc: CompiledChain) -> None:
                 "seasonal demand are not ported yet")
 
 
-def _check_kernel_support(cc: CompiledChain) -> None:
-    """Raise for a chain the kernel does not take."""
-    m = _MAX
+def check_kernel_support(cc: CompiledChain, m=_MAX,
+                         kernel: str = "the collect kernel") -> None:
+    """Raise for a chain beyond the size limits ``m`` of ``kernel``, or
+    with a negative capacity."""
     sizes = dict(N=cc.N, P=cc.P, NP=cc.N * cc.P, D=cc.Dmax,
                  ND=cc.N * cc.Dmax, NPD=cc.N * cc.P * cc.Dmax, RING=cc.H + 1,
                  K=cc.K, A=cc.A, RP=cc.R * cc.P, CDF=max(cc.Lmax - 1, 0))
     over = {k: v for k, v in sizes.items() if v > m[k]}
     if over:
-        raise NotImplementedError(f"chain too large for the collect kernel: "
-                                  f"{over} (limits {m})")
-    # the kernel's capacity gates assume capacities >= 0
+        raise NotImplementedError(f"chain too large for {kernel}: {over} "
+                                  f"(limits {m})")
+    # the kernels' capacity gates assume capacities >= 0
     for name in ("stock_cap", "supply_cap", "proc_cap", "ship_cap_edge"):
         if (np.asarray(getattr(cc, name)) < 0).any():
             raise ValueError(f"negative {name} in the chain")
 
 
 def chain_descriptor(cc: CompiledChain) -> np.ndarray:
-    """The chain as the bytes of ``struct ScChain`` (uint8 array)."""
-    _check_kernel_support(cc)
+    """The chain as the bytes of ``ScChain`` (uint8 array)."""
+    check_kernel_support(cc)
+    return descriptor_words(cc, _DESC_FIELDS)
+
+
+def descriptor_words(cc: CompiledChain, fields) -> np.ndarray:
+    """The chain as the bytes of ``struct ChainT`` laid out by ``fields``
+    (uint8 array); the caller has checked it against the size limits."""
     N, P, D = cc.N, cc.P, cc.Dmax
-    NP = N * P
+    em = np.asarray(cc.edge_mask, bool)
+    deg = em.sum(axis=1)
+    # a node's degree where its edge slots are a prefix, else all D slots
+    prefix = np.array([em[n, :deg[n]].all() for n in range(N)], bool)
     has_ship = np.asarray(cc.has_ship) & ~np.asarray(cc.is_retailer)[:, None]
     ms = np.where(cc.max_ship > 0, cc.max_ship, 1.0).astype(np.float32)
     ms_tail = ms * np.float32(cc.Lmax - (cc.Lavg - 1))
@@ -146,16 +161,16 @@ def chain_descriptor(cc: CompiledChain) -> np.ndarray:
         ms_ok=np.asarray(cc.max_ship) > 0,
         cap_finite=np.isfinite(cc.stock_cap),
         proc_cap=cc.proc_cap, is_factory=cc.is_factory, lt_base=cc.lt_base,
-        node_ships=has_ship.any(axis=1), edge_dst=cc.edge_dst,
-        edge_mask=cc.edge_mask, ship_cap_edge=cc.ship_cap_edge,
-        ship_cost=cc.ship_cost, ship_act_idx=np.maximum(cc.ship_act_idx, 0),
-        init_pipe=cc.init_pipe, retailer_idx=cc.retailer_idx,
-        dem_min=cc.dem_min, dem_range=cc.dem_range,
-        dem_n=[c.maxv - c.minv + 1 for c in cfgs],
+        node_ships=has_ship.any(axis=1), node_deg=np.where(prefix, deg, D),
+        edge_dst=cc.edge_dst, edge_mask=cc.edge_mask,
+        ship_cap_edge=cc.ship_cap_edge, ship_cost=cc.ship_cost,
+        ship_act_idx=np.maximum(cc.ship_act_idx, 0), init_pipe=cc.init_pipe,
+        retailer_idx=cc.retailer_idx, dem_min=cc.dem_min,
+        dem_range=cc.dem_range, dem_n=[c.maxv - c.minv + 1 for c in cfgs],
         dem_lo=[c.minv for c in cfgs], cdf=cdf)
-    words = np.zeros(DESC_BYTES // 4, np.int32)
+    words = np.zeros(sum(c for _, _, c in fields), np.int32)
     off = 0
-    for name, kind, count in _DESC_FIELDS:
+    for name, kind, count in fields:
         v = np.ravel(np.asarray(vals[name]))
         assert v.size <= count, (name, v.size, count)
         if kind == "f":

@@ -95,24 +95,38 @@ def test_random_equals_actions_on_philox_tables(env_id):
     assert not torch.equal(obs[:T], obs[T:])
 
 
-def test_descriptor_layout_matches_kernel_struct():
-    """``_DESC_FIELDS`` mirrors ``struct ScChain`` of the CUDA source field
-    for field (the kernel also checks the byte count at launch)."""
-    src = (Path(scc.__file__).parents[1] / "csrc"
-           / "supplychain_collect.cu").read_text()
-    macros = {k: int(v) for k, v in re.findall(r"#define (SC_\w+) (\d+)", src)}
-    body = re.search(r"struct ScChain \{(.*?)\n\};", src, re.S).group(1)
+def _struct_fields(source, alias):
+    """(fields, macros) of ``using <alias> = ChainT<...>`` in the CUDA file
+    ``source``: ``struct ChainT`` of ``csrc/supplychain_step.cuh`` at that
+    file's ``#define`` limits, as (name, 'i'|'f', count)."""
+    csrc = Path(scc.__file__).parents[1] / "csrc"
+    head = (csrc / "supplychain_step.cuh").read_text()
+    src = (csrc / source).read_text()
+    macros = {k: int(v) for k, v in re.findall(r"#define (\w+) (\d+)\n", src)}
+    params, body = re.search(r"template <([^>]*)>\s*struct ChainT \{(.*?)\n\};",
+                             head, re.S).groups()
+    names = [p.split()[-1] for p in params.split(",")]
+    args = re.search(rf"using {alias} = ChainT<([^>]*)>;", src).group(1)
+    env = {n: macros[a.strip()] for n, a in zip(names, args.split(","))}
     fields = []
     for line in body.splitlines():
         line = line.split("//")[0].strip().rstrip(";")
-        if not line:
+        if not line or line.startswith("static constexpr"):
             continue
-        ctype, names = line.split(None, 1)
-        for name in names.split(","):
+        ctype, decls = line.split(None, 1)
+        for name in decls.split(","):
             m = re.fullmatch(r"\s*(\w+)(?:\[(.+)\])?\s*", name)
-            count = eval(m.group(2), {}, macros) if m.group(2) else 1
+            count = eval(m.group(2), {}, env) if m.group(2) else 1
             fields.append((m.group(1), "f" if ctype == "float" else "i",
                            count))
+    return fields, macros
+
+
+def test_descriptor_layout_matches_kernel_struct():
+    """``_DESC_FIELDS`` mirrors ``ScChain`` (``struct ChainT`` at the
+    ``SC_MAX_*`` limits) of the CUDA source field for field (the kernel
+    also checks the byte count at launch)."""
+    fields, _ = _struct_fields("supplychain_collect.cu", "ScChain")
     assert fields == scc._DESC_FIELDS
     words = scc.chain_descriptor(make_chain("supplychain-ntom-v0"))
     assert words.nbytes == scc.DESC_BYTES == 4 * sum(c for *_, c in fields)

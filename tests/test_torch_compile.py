@@ -39,7 +39,10 @@ def _assert_chains_equal(got, want):
 @pytest.mark.parametrize("env_id", ["supplychain-linear-v0",
                                     "supplychain-ntom-v0",
                                     "supplychain-2perstage-v0",
-                                    "sc-2perstage-v0"])
+                                    "sc-2perstage-v0",
+                                    "sc-2perstage-multiproduct-v0",
+                                    "sc-Nperstage-multiproduct-v0",
+                                    "sc-2perstage-multiproduct-inccosts-v0"])
 @pytest.mark.parametrize("T", [360, 20])
 def test_slice_presets_match_jax(env_id, T):
     _assert_chains_equal(make_chain(env_id, total_time_steps=T),
@@ -66,6 +69,9 @@ def test_vendored_compile_matches_jax_on_fixture_chains(name, monkeypatch):
 def test_registry_and_beergame_spec():
     assert registry() == ("supplychain-linear-v0", "supplychain-ntom-v0",
                           "supplychain-2perstage-v0", "sc-2perstage-v0",
+                          "sc-2perstage-multiproduct-v0",
+                          "sc-Nperstage-multiproduct-v0",
+                          "sc-2perstage-multiproduct-inccosts-v0",
                           "beergame-v0")
     spec = make_chain("beergame-v0")
     assert (spec.levels, spec.weeks, spec.delay) == (4, 35, 2)

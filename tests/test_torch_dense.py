@@ -1,0 +1,228 @@
+"""Large-topology collection (K5): presets and the plain version against JAX.
+
+* The port's ``nperstage_chain``, ``multiproduct_chain`` and
+  ``multiproduct_inccosts_chain`` compile to the JAX presets' chains, field
+  by field, at the benchmark's three configurations and at the defaults.
+* ``make_supplychain_dense_collect(..., device="cpu")`` (the plain version,
+  what the wrapper runs for CPU tensors) reproduces the JAX dense kernel
+  ``make_supplychain_dense_collect_pallas(..., mode="actions",
+  interpret=True)`` on the shapes of ``tests/test_pallas_dense.py`` and on
+  the ``[5, 4, 7, 10]`` x 4 chain over two episodes, at that file's
+  tolerances: obs atol 1e-5, rewards atol 1e-5 * max|r|.  XLA:CPU rewrites
+  ``x / c`` into a reciprocal product and contracts FMAs, the port does
+  neither, and they sum the costs in other orders, so the two differ by a
+  few float32 ulps; observed: obs at most 2.4e-7, rewards at most 1.5e-7
+  of max|r|.
+* The wrapper refuses a bad mode, ``T != cc.T``, a chain beyond the
+  kernel's limits and negative capacities, and never runs a CPU tensor
+  through the kernel.
+
+The CUDA kernel is compared with the plain version on the card
+(``tests/test_torch_kernels.py``, ``chip_smoke.py`` phase 11).
+"""
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import gym_supplychain_tpu as jsct  # noqa: E402
+from gym_supplychain_tpu.envs.presets import (  # noqa: E402
+    SupplyChainMultiProduct, SupplyChainMultiProduct_IncreasingCosts,
+    SupplyChainNPerStage)
+from gym_supplychain_tpu.ops.supplychain_pallas_dense import (  # noqa: E402
+    make_supplychain_dense_collect_pallas)
+
+from gym_supplychain_tpu_torch import make_chain  # noqa: E402
+from gym_supplychain_tpu_torch.ops import supplychain_collect as scc  # noqa: E402
+from gym_supplychain_tpu_torch.ops import supplychain_dense as scd  # noqa: E402
+
+from .test_torch_collect import _struct_fields  # noqa: E402
+from .test_torch_compile import _assert_chains_equal  # noqa: E402
+
+_PRESETS = [
+    ("sc-Nperstage-multiproduct-v0", SupplyChainNPerStage,
+     dict(nodes_per_echelon=[5, 4, 7, 10], num_products=4,
+          stochastic_leadtimes=True)),
+    ("sc-Nperstage-multiproduct-v0", SupplyChainNPerStage,
+     dict(nodes_per_echelon=10, num_products=2, stochastic_leadtimes=True)),
+    ("sc-2perstage-multiproduct-v0", SupplyChainMultiProduct,
+     dict(num_products=10, stochastic_leadtimes=True)),
+    ("sc-Nperstage-multiproduct-v0", SupplyChainNPerStage, {}),
+    ("sc-2perstage-multiproduct-v0", SupplyChainMultiProduct, {}),
+    ("sc-2perstage-multiproduct-inccosts-v0",
+     SupplyChainMultiProduct_IncreasingCosts, {}),
+    ("sc-2perstage-multiproduct-inccosts-v0",
+     SupplyChainMultiProduct_IncreasingCosts,
+     dict(num_products=3, total_time_steps=20)),
+]
+
+
+@pytest.mark.parametrize("env_id,cls,kw", _PRESETS,
+                         ids=[f"{e}-{i}" for i, (e, _, _) in
+                              enumerate(_PRESETS)])
+def test_presets_match_jax(env_id, cls, kw):
+    cc = make_chain(env_id, **kw)
+    _assert_chains_equal(cc, cls(**kw).cc)
+    _assert_chains_equal(cc, jsct.make(env_id, **kw).cc)
+
+
+def test_benchmark_configs_shapes():
+    """The three configurations of the large-topology benchmark, with the
+    sizes the kernel is laid out for."""
+    got = []
+    for kw in ({"nodes_per_echelon": [5, 4, 7, 10], "num_products": 4},
+               {"nodes_per_echelon": 10, "num_products": 2}):
+        got.append(make_chain("sc-Nperstage-multiproduct-v0",
+                              stochastic_leadtimes=True, **kw))
+    got.append(make_chain("sc-2perstage-multiproduct-v0", num_products=10,
+                          stochastic_leadtimes=True))
+    shapes = [(c.N, c.P, c.Dmax, c.A, c.K, c.R, c.obs_dim, c.H + 1)
+              for c in got]
+    assert shapes == [(26, 4, 10, 492, 138, 10, 353, 3),
+                      (40, 2, 10, 620, 320, 10, 261, 3),
+                      (8, 10, 2, 140, 32, 2, 261, 3)]
+    # 32 envs a block: 96, 72.5 and 72.5 KB of shared memory
+    assert [scd.dense_block(c) for c in got] == [
+        (32, 98304), (32, 74240), (32, 74240)]
+    for c in got:
+        with pytest.raises(NotImplementedError):
+            scc.chain_descriptor(c)              # beyond the collect kernel
+        assert scd.dense_descriptor(c).nbytes == scd.DN_DESC_BYTES
+
+
+def _tables(cc, S, B, seed):
+    rs = np.random.RandomState(seed)
+    act = (2 * rs.rand(S, cc.A, B) - 1).astype(np.float32)
+    act[act < -0.5] = -1.0              # some supplies must not fire
+    dem = rs.randint(0, 25, size=(S, cc.R, cc.P, B)).astype(np.float32)
+    args = [dem]
+    if cc.stochastic_leadtimes:
+        args.append(rs.randint(1, cc.Lmax + 1, size=(S, cc.K, B))
+                    .astype(np.int32))
+    return args + [act]
+
+
+def _chain(name):
+    if name == "nperstage [3,2,2,3]x1":
+        return SupplyChainNPerStage(nodes_per_echelon=[3, 2, 2, 3],
+                                    num_products=1, total_time_steps=10,
+                                    stochastic_leadtimes=True).cc
+    if name == "nperstage [2,3,2,2]x2":
+        return SupplyChainNPerStage(nodes_per_echelon=[2, 3, 2, 2],
+                                    num_products=2, total_time_steps=8,
+                                    stochastic_leadtimes=True).cc
+    if name == "2perstage constant lead-time":
+        return jsct.make("supplychain-2perstage-v0", total_time_steps=10,
+                         stochastic_leadtimes=False).cc
+    if name == "linear":
+        return jsct.make("supplychain-linear-v0", total_time_steps=6).cc
+    return SupplyChainNPerStage(nodes_per_echelon=[5, 4, 7, 10],
+                                num_products=4, total_time_steps=4,
+                                stochastic_leadtimes=True).cc
+
+
+# (chain, B, lane tile of the JAX kernel, episodes, seed)
+@pytest.mark.parametrize("name,B,lane_tile,episodes,seed", [
+    ("nperstage [3,2,2,3]x1", 4, 4, 1, 0),
+    ("nperstage [2,3,2,2]x2", 8, 4, 1, 1),
+    ("2perstage constant lead-time", 4, 4, 1, 2),
+    ("linear", 4, 4, 2, 3),
+    ("nperstage [5,4,7,10]x4", 4, 4, 2, 4),
+])
+def test_plain_matches_jax_dense_kernel(name, B, lane_tile, episodes, seed):
+    cc = _chain(name)
+    T, S = cc.T, episodes * cc.T
+    args = _tables(cc, S, B, seed)
+    jax_run = make_supplychain_dense_collect_pallas(
+        cc, T, B, mode="actions", episodes=episodes, lane_tile=lane_tile,
+        interpret=True)
+    want_obs, want_rew = [np.asarray(x) for x in jax_run(*args)]
+    run = scd.make_supplychain_dense_collect(cc, T, B, mode="actions",
+                                             episodes=episodes, device="cpu")
+    obs, rew = run(*args)
+    assert obs.shape == (S, cc.obs_dim, B) and rew.shape == (S, B)
+    np.testing.assert_allclose(obs.numpy(), want_obs, rtol=0, atol=1e-5)
+    np.testing.assert_allclose(rew.numpy(), want_rew, rtol=0,
+                               atol=1e-5 * np.abs(want_rew).max())
+
+
+def test_random_equals_actions_on_philox_tables():
+    cc = make_chain("sc-Nperstage-multiproduct-v0",
+                    nodes_per_echelon=[2, 3, 2, 2], num_products=2,
+                    stochastic_leadtimes=True, total_time_steps=5)
+    B, E, seed = 3, 2, 11
+    obs, rew = scd.make_supplychain_dense_collect(
+        cc, cc.T, B, mode="random", episodes=E, device="cpu")(seed)
+    dem, lt, act = scc.philox_tables(cc, seed, range(E * cc.T), B, "cpu")
+    obs2, rew2 = scd.make_supplychain_dense_collect(
+        cc, cc.T, B, mode="actions", episodes=E, device="cpu")(dem, lt, act)
+    assert torch.equal(obs, obs2) and torch.equal(rew, rew2)
+    assert bool(torch.isfinite(obs).all()) and bool((obs.abs() <= 1).all())
+
+
+def test_descriptor_layout_matches_kernel_struct():
+    """``DnChain`` of ``csrc/supplychain_dense.cu`` is ``ChainT`` at the
+    ``DN_MAX_*`` limits, which equal ``DENSE_MAX``; the descriptor's fields
+    mirror it (the kernel also checks the byte count at launch)."""
+    fields, macros = _struct_fields("supplychain_dense.cu", "DnChain")
+    assert fields == scd._DN_FIELDS
+    assert {k: macros[f"DN_MAX_{k}"] for k in ("N", "P", "NP", "D", "ND",
+                                               "NPD", "RING", "RP", "CDF")} \
+        == {k: v for k, v in scd.DENSE_MAX.items() if k not in ("K", "A")}
+    cc = make_chain("sc-Nperstage-multiproduct-v0",
+                    nodes_per_echelon=[5, 4, 7, 10], num_products=4)
+    words = scd.dense_descriptor(cc).view(np.int32)
+    off = sum(c for name, _, c in fields[:[f[0] for f in fields]
+                                         .index("node_deg")])
+    # suppliers ship to 4 factories, factories to 7, wholesalers to 10
+    assert words[off:off + 64].tolist() == \
+        [4] * 5 + [7] * 4 + [10] * 7 + [0] * (64 - 16)
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take():
+    cc = make_chain("sc-Nperstage-multiproduct-v0", total_time_steps=4)
+    with pytest.raises(ValueError, match="mode"):
+        scd.make_supplychain_dense_collect(cc, 4, 2, mode="policy",
+                                           device="cpu")
+    with pytest.raises(ValueError, match="horizon"):
+        scd.make_supplychain_dense_collect(cc, 5, 2, device="cpu")
+    big = make_chain("sc-Nperstage-multiproduct-v0", nodes_per_echelon=17,
+                     num_products=2, total_time_steps=4)      # N = 68
+    with pytest.raises(NotImplementedError, match="dense collect kernel"):
+        scd.make_supplychain_dense_collect(big, 4, 2, device="cpu")
+    bad = dataclasses.replace(cc, ship_cap_edge=-np.asarray(cc.ship_cap_edge))
+    with pytest.raises(ValueError, match="negative ship_cap_edge"):
+        scd.make_supplychain_dense_collect(bad, 4, 2, device="cpu")
+    desc = torch.as_tensor(scd.dense_descriptor(cc))
+    with pytest.raises(ValueError, match="CUDA"):
+        scd.launch_supplychain_dense(desc, cc, 4, 2, "random", seed=0)
+    run = scd.make_supplychain_dense_collect(cc, 4, 2, mode="actions",
+                                             device="cpu")
+    dem = torch.zeros((4, cc.R, cc.P, 2), device="meta")
+    with pytest.raises(ValueError, match="collector on cpu"):
+        run(dem, np.zeros((4, cc.A, 2), np.float32))
+
+
+def test_large_topologies_benchmark_runs_on_the_cpu(capsys):
+    """``python -m gym_supplychain_tpu_torch.benchmarks.large_topologies``
+    at a tiny size on the CPU: one JSON object with each configuration's
+    parity block, eager and dense timings (the plain version throughout)."""
+    import json
+
+    from gym_supplychain_tpu_torch.benchmarks import large_topologies as lt
+
+    out = lt.main(["--device", "cpu", "--envs", "2", "--horizon", "3",
+                   "--reps", "1", "--eager-steps", "1", "--configs",
+                   "multiproduct-x10", "nperstage-5-4-7-10-x4"])
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed == json.loads(json.dumps(out))
+    assert out["device"] == "cpu" and (out["B"], out["T"]) == (2, 3)
+    for name in ("multiproduct-x10", "nperstage-5-4-7-10-x4"):
+        res = out[name]
+        assert res["parity"]["ok"] and res["parity"]["episodes"] == 2
+        assert res["dense"]["launches"] == 0         # no kernel on the CPU
+        assert res["dense"]["ms_1_episode"] > 0
+    assert "nperstage-10-x2" not in out

@@ -11,7 +11,8 @@ the same op sequence with no FMA); beer game bit-exact (integers); the
 policy modes' pre, logp and value at the JAX collect tests' tolerances; the
 update kernel's gradients within 4x the plain float32 error against float64;
 the episode kernel's rewards atol 1e-5 * max|r| with its final stock
-bit-equal.
+bit-equal; the dense collect kernel (K5) as the collect kernel; the
+beer-game episode sweep (K6b) bit-exact.
 """
 import numpy as np
 import pytest
@@ -276,3 +277,83 @@ def test_supplychain_episode_kernel_matches_plain(env_id, mode):
     assert torch.equal(k[0], rew)
     assert float((k[0] - p[0]).abs().max()) <= 1e-5 * float(p[0].abs().max())
     assert torch.equal(k[1], p[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["actions", "random"])
+@pytest.mark.parametrize("chain", ["nperstage [5,4,7,10]x4",
+                                   "nperstage [2,3,2,2]x2 constant",
+                                   "multiproduct x10", "linear"])
+def test_supplychain_dense_kernel_matches_plain(chain, mode):
+    """K5: obs atol 1e-6, rewards atol 1e-5 * max|r| (costs summed in
+    another order), final stock bit-equal, over 2 episodes; the collector
+    built with a bare "cuda" launches the kernel once a call."""
+    from gym_supplychain_tpu_torch.ops import supplychain_dense as scd
+
+    dev = _device()
+    T, B, E = 12, 96, 2
+    if chain == "nperstage [5,4,7,10]x4":
+        cc = make_chain("sc-Nperstage-multiproduct-v0",
+                        nodes_per_echelon=[5, 4, 7, 10], num_products=4,
+                        stochastic_leadtimes=True, total_time_steps=T)
+    elif chain == "nperstage [2,3,2,2]x2 constant":
+        cc = make_chain("sc-Nperstage-multiproduct-v0",
+                        nodes_per_echelon=[2, 3, 2, 2], num_products=2,
+                        total_time_steps=T)
+    elif chain == "multiproduct x10":
+        cc = make_chain("sc-2perstage-multiproduct-v0", num_products=10,
+                        stochastic_leadtimes=True, total_time_steps=T)
+    else:
+        cc = make_chain("supplychain-linear-v0", total_time_steps=T)
+    S = E * T
+    kw = dict(seed=5)
+    if mode == "actions":
+        rs = np.random.RandomState(1)
+        act = (2 * rs.rand(S, cc.A, B) - 1).astype(np.float32)
+        act[act < -0.5] = -1.0
+        hi = max(c.maxv for c in cc.demand) + 1
+        kw = dict(
+            demands=torch.as_tensor(rs.randint(0, hi, size=(S, cc.R, cc.P, B))
+                                    .astype(np.float32), device=dev),
+            leadtimes=(torch.as_tensor(rs.randint(1, cc.Lmax + 1,
+                                                  size=(S, cc.K, B))
+                                       .astype(np.int32), device=dev)
+                       if cc.stochastic_leadtimes else None),
+            actions=torch.as_tensor(act, device=dev))
+    desc = torch.as_tensor(scd.dense_descriptor(cc), device=dev)
+    k = scd.launch_supplychain_dense(desc, cc, S, B, mode, **kw)
+    p = scd.supplychain_dense_collect_plain(cc, E, B, mode, device=dev, **kw)
+    assert float((k[0] - p[0]).abs().max()) <= 1e-6
+    assert float((k[1] - p[1]).abs().max()) <= 1e-5 * float(p[1].abs().max())
+    assert torch.equal(k[2], p[2])
+    run = scd.make_supplychain_dense_collect(cc, T, B, mode=mode, episodes=E,
+                                             device="cuda")
+    before = scd.launch_supplychain_dense.launches
+    args = ((5,) if mode == "random" else
+            tuple(x for x in (kw["demands"], kw["leadtimes"], kw["actions"])
+                  if x is not None))
+    obs, rew = run(*args)
+    assert scd.launch_supplychain_dense.launches == before + 1
+    assert torch.equal(obs, k[0]) and torch.equal(rew, k[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delay,init_delay", [(2, None), (0, 2), (3, 1)])
+def test_beergame_episode_kernel_matches_plain(delay, init_delay):
+    """K6b: bit-exact (integers), per-lane demand and initial inventory."""
+    from gym_supplychain_tpu_torch.ops import beergame_episode as bge
+
+    dev = _device()
+    W, L, B = 35, 4, 300
+    rs = np.random.RandomState(4)
+    put = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    args = (put(rs.randint(0, 12, size=(W, B)).astype(np.int32)),
+            put(rs.randint(0, 16, size=(W, L, B)).astype(np.int32)),
+            put(rs.randint(0, 25, size=(L, B)).astype(np.int32)))
+    kw = dict(delay=delay, init_delay=init_delay, init_ship=5, inv_cost=2,
+              backlog_cost=3)
+    before = bge.launch_beergame_episode.launches
+    k = bge.beergame_episode(*args, device="cuda", **kw)
+    assert bge.launch_beergame_episode.launches == before + 1
+    p = bge.beergame_episode_plain(*args, **kw)
+    assert k.device == args[0].device and torch.equal(k, p)

@@ -1,6 +1,6 @@
 """The port imports no jax: every module of ``gym_supplychain_tpu_torch``
-(the evaluation slice's among them) and ``chip_smoke.py`` load in a fresh
-interpreter without it."""
+(the evaluation and large-topology slices' among them) and ``chip_smoke.py``
+load in a fresh interpreter without it."""
 import os
 import subprocess
 import sys
@@ -33,9 +33,10 @@ def test_port_imports_no_jax():
                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 27, res.stdout
+    assert n_modules >= 31, res.stdout
     loaded = set(res.stdout.splitlines()[1].split())
     for name in ("ops.supplychain_episode", "learn.evaluate",
                  "learn.heuristics", "learn.compare_baseline",
-                 "utils.checkpoint"):
+                 "utils.checkpoint", "ops.supplychain_dense",
+                 "ops.beergame_episode", "benchmarks.large_topologies"):
         assert "gym_supplychain_tpu_torch." + name in loaded, name
