@@ -15,7 +15,8 @@ beer-game episode sweep at 4096 envs.
     python3 chip_smoke.py [--seed 0]
 
 Phases, in order; any failure exits nonzero:
-  1. device, power limit, torch/CUDA/nvcc versions; kernel build time
+  1. device, power limit, torch/CUDA/nvcc versions; kernel build time;
+     ptxas's registers and spills of the update and dense collect kernels
   2. supply-chain kernel, ``actions`` mode, against plain (linear, ntom)
   3. supply-chain kernel, ``random`` mode, against plain; marginals
   4. beer-game kernel: v0 random and actions, v2 per-lane actions
@@ -24,7 +25,8 @@ Phases, in order; any failure exits nonzero:
      ``policy_eps`` on Philox tables, ``policy`` against ``policy_eps``,
      the ``sample_major`` layout against the default one
   7. the PPO update kernel against plain, both against float64 autograd,
-     at M = 60 * 4096 samples; two launches must give the same bits
+     at M = 60 * 4096 samples; two launches must give the same bits; its
+     time a call alone and back to back (card and host apart)
   8. the trainer's path: the train CLI, then ``make_ppo_fused`` timed per
      phase (collect / gae / update) against the plain trainer, whose first
      iteration must match the kernel trainer's
@@ -70,6 +72,7 @@ ENVS = 4096                # the batch the JAX package's benchmark uses
 CHECK_EPISODES = 2         # phases 2-4: two episodes cover the auto-reset
 MAIN_EPISODES = 8          # phase 5: episodes per main-path call
 REPS = 5                   # phase 5: timed calls after a warm-up (median)
+BACK_TO_BACK = 20          # phase 7: update calls enqueued without a sync
 OBS_ATOL = 1e-6            # obs, kernel vs plain (the JAX collect tests')
 REW_RTOL = 1e-5            # reward error / max|reward|
 TRAIN_T = 60               # phases 6-8: the trainer's horizon (one episode)
@@ -459,6 +462,18 @@ def phase_ppo_update(seed, errs):
                                               for x in gk)
     ms, _ = _timed(lambda: gf(model, *data), REPS)
     plain_ms, _ = _timed(lambda: pu.ppo_update_plain(model, *data), REPS)
+    # back to back, the host runs ahead: the card's time a call, apart from
+    # the host's cost to enqueue one (a call timed alone holds some of both)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(BACK_TO_BACK):
+        gf(model, *data)
+    host_ms = (time.perf_counter() - t0) * 1e3 / BACK_TO_BACK
+    end.record()
+    torch.cuda.synchronize()
+    card_ms = start.elapsed_time(end) / BACK_TO_BACK
     print(f"phase 7: ppo_update, M={M}, O={O}, A={A}, hidden {HIDDEN}, "
           f"against float64 autograd")
     print(f"  gradients: max abs err kernel {err_k:.3e}, plain float32 "
@@ -468,6 +483,8 @@ def phase_ppo_update(seed, errs):
           f"{lerr_p:.3e}; two launches bit-identical {same}; finite {finite}")
     print(f"  kernel {ms:.3f} ms, plain autograd {plain_ms:.3f} ms per call "
           f"(median of {REPS}, CUDA events)")
+    print(f"  kernel, {BACK_TO_BACK} calls back to back: {card_ms:.3f} ms a "
+          f"call on the card, {host_ms:.3f} ms a call to enqueue on the host")
     errs.append(err_k)
     if not (err_k <= 4 * err_p + 1e-7 * scale
             and lerr_k <= 4 * lerr_p + 1e-7 * abs(float(l64))
@@ -1000,6 +1017,14 @@ def main(argv=None) -> int:
     _build.library()
     print(f"kernel build {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+    for kernel in ("ppo_grad_kernel", "sc_dense_kernel"):
+        rows = _build.ptxas_report(kernel)
+        if not rows:
+            raise RuntimeError(f"no ptxas report for {kernel}")
+        for r in rows:
+            print(f"  ptxas {r['function']}: {r['registers']} registers, "
+                  f"spill stores {r['spill_stores']} B, spill loads "
+                  f"{r['spill_loads']} B, stack {r['stack']} B a thread")
 
     B = ENVS
     chains = {env_id: sct.make_chain(env_id)

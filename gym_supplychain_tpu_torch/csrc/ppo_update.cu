@@ -6,37 +6,52 @@
 // The loss is learn/ppo.py's _make_cont_loss: clipped surrogate + value
 // MSE + entropy bonus estimated as -E[logp] + pre-tanh L2 on mu.
 //
-// Shape of the work: grid (G, 2).  Blocks with blockIdx.y = 0 take the
-// actor (trunk, mu head, log_std), blocks with y = 1 the critic (trunk, v
-// head): the two nets share no parameter, and the loss splits into an
-// actor part and a critic part.  Block g walks its share of the 32-sample
-// tiles; its net's packed weights and its gradient accumulators sit in
-// dynamic shared memory (about 88 KB each for ntom at hidden (128, 128)),
-// beside the tile's activations [rows][33] (stride 33 keeps the
-// sample-major and the feature-major reads free of bank conflicts).  Per
-// tile: forward (8 warps, 8 output rows a thread, one sample a lane), the
-// per-sample loss terms (warp 0), then per layer from the head down the
-// weight-gradient accumulation (one (j, k) entry set a thread, summed over
-// the tile's samples in order) and the input gradient, written in place
-// over the activation it replaces.  Each block writes its partial
-// gradients and loss to row g of a [G, P] buffer, and ppo_reduce_kernel
-// sums the G rows in order: no float atomics, so two launches on the same
-// inputs give the same bits.
+// Shape of the work: grid (G, 2) of 512-thread blocks.  Blocks with
+// blockIdx.y = 0 take the actor (trunk, mu head, log_std), blocks with
+// y = 1 the critic (trunk, v head): the two nets share no parameter, and
+// the loss splits into an actor part and a critic part.  Block g walks its
+// share of the 64-sample tiles.  Shared memory holds its net's packed
+// weights (W transposed, [K][Jp]), the tile's activations feature-major
+// [rows][68] (row stride 68 floats = 16 bytes past a multiple of 128, so
+// consecutive rows fall in distinct bank quads), and two input slots
+// (obs, pre, old_logp, adv, ret) filled by cp.async one tile ahead.
 //
-// Bounds on the card: issue-bound FMAs from shared memory (operands are
-// broadcast weights and conflict-free activations); device-memory traffic
-// is the obs/pre tiles read once (M * (O + A + 3) * 4 bytes) and the
-// partial rows.  One block fits an SM (shared memory), so G = 66 fills 132
-// SMs in one wave.  Products accumulate with fmaf (this kernel matches its
+// Every product runs on register micro-tiles whose operands are float4
+// loads from shared memory:
+// * forward y = W x: a thread owns 4 outputs x 4 samples, one float4 of
+//   W^T and one of x per k for 16 FMAs (the narrow head: 1 output x 4);
+// * input gradient dX = (W^T dY) (1 - x^2): 4 inputs x 4 samples, four
+//   float4 of W^T and four of dY per 4 outputs, 64 FMAs;
+// * weight gradient dW += dY X^T: a thread owns fixed 4 x 4 blocks of dW
+//   (rows jb + r*ceil(J/4), columns kb + c*ceil(K/4), so the warp's dY
+//   rows are consecutive; the blocks of all layers dealt round-robin over
+//   the threads) for the whole walk, summed over samples in
+//   order in registers, and writes them once to the block's partial row;
+//   bias gradients likewise, one register slot per bias.
+// The per-sample loss runs on all threads, one (action, sample) pair or
+// one sample a thread; the tile's loss is summed by a fixed warp-shuffle
+// tree.  Each block writes its partial gradients and loss to row g of a
+// [G, P] buffer and ppo_reduce_kernel sums the G rows in order: no float
+// atomics, so two launches on the same inputs give the same bits.
+//
+// Bounds on the card: float32 FMAs on CUDA cores (57.9 GFLOP at ntom,
+// hidden (128, 128), M = 245,760; plain TF32 tensor cores would lose the
+// gradient gate's precision, and a first 3xTF32 mma.sync form of the three
+// products ran slower than this one); device-memory traffic is the inputs
+// read once.  ~194 KB of shared memory at ntom (128, 128), so one block an SM:
+// G = 66 fills the 132 SMs with 16 warps each.  Products accumulate with
+// fmaf (the library is built with --fmad=false; this kernel matches its
 // plain version to a tolerance, not bit for bit).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-#define PU_THREADS 256
-#define PU_WARPS 8
-#define PU_TS 32   // samples a tile, one a lane
-#define PU_LD 33   // row stride of the tile buffers
+#define PU_THREADS 512
+#define PU_MAXQ 3  // 4x4 weight-gradient blocks a thread holds in registers
+#define PU_MAXB 2  // bias-gradient registers a thread holds
+#define PU_TS 64   // samples a tile
+#define PU_TQ (PU_TS / 4)
+#define PU_LD 68   // row stride of the tile buffers
 #define PU_MAX_L 4
 #define PU_HEADER 10
 #define PU_PER_LAYER 7
@@ -56,88 +71,173 @@ __device__ __forceinline__ PuLayer pu_layer(const int* lay, int net, int l) {
   return PuLayer{r[0], r[1], r[2], r[3], r[4], r[5], r[6]};
 }
 
-// y[j][t] = act(sum_k w[j][k] x[k][t] + b[j]); Wt is w transposed [K][Jp]
-__device__ __forceinline__ void pu_forward(const float* Wt, const float* bias,
-                                           const PuLayer& L, const float* x,
-                                           float* y, bool tanh_act) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int j0 = warp * 8; j0 < L.J; j0 += PU_WARPS * 8) {
-    float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+__device__ __forceinline__ int pu_pad8(int n) { return (n + 7) & ~7; }
+
+// The 4x4 weight-gradient blocks of all layers, block (jb, kb) of layer l
+// numbered jb + kb * ceil(J/4) after the blocks of the layers before it,
+// go round-robin over the threads: thread tid holds blocks tid + q *
+// PU_THREADS in its register slots q.  Layer l's blocks start at `off`,
+// its biases (numbered likewise) at `boff`.
+__device__ __forceinline__ void pu_offsets(const int* lay, int net, int l,
+                                           int& off, int& boff) {
+  off = 0;
+  boff = 0;
+  for (int i = 0; i < l; ++i) {
+    const PuLayer L = pu_layer(lay, net, i);
+    off += ((L.J + 3) >> 2) * ((L.K + 3) >> 2);
+    boff += L.J;
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float f4(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// y[j][t] = act(sum_k w[j][k] x[k][t] + b[j]), 4 outputs x 4 samples a
+// thread; Wt is w transposed [K][Jp]
+__device__ __forceinline__ void pu_forward4(const float* Wt, const float* bias,
+                                            const PuLayer& L, const float* x,
+                                            float* y, bool tanh_act) {
+  const int nJb = (L.J + 3) >> 2;
+  for (int id = threadIdx.x; id < nJb * PU_TQ; id += PU_THREADS) {
+    const int t0 = (id % PU_TQ) * 4, j0 = (id / PU_TQ) * 4;
+    float a[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int s = 0; s < 4; ++s) a[r][s] = 0.0f;
+    const float* wp = Wt + j0;
+    const float* xp = x + t0;
+#pragma unroll 4
     for (int k = 0; k < L.K; ++k) {
-      const float xv = x[k * PU_LD + lane];
-      const float* wr = Wt + (size_t)k * L.Jp + j0;
-      const float4 w0 = *reinterpret_cast<const float4*>(wr);
-      const float4 w1 = *reinterpret_cast<const float4*>(wr + 4);
-      acc[0] = fmaf(w0.x, xv, acc[0]); acc[1] = fmaf(w0.y, xv, acc[1]);
-      acc[2] = fmaf(w0.z, xv, acc[2]); acc[3] = fmaf(w0.w, xv, acc[3]);
-      acc[4] = fmaf(w1.x, xv, acc[4]); acc[5] = fmaf(w1.y, xv, acc[5]);
-      acc[6] = fmaf(w1.z, xv, acc[6]); acc[7] = fmaf(w1.w, xv, acc[7]);
+      const float4 w = ld4(wp + k * L.Jp);
+      const float4 xv = ld4(xp + k * PU_LD);
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int s = 0; s < 4; ++s) a[r][s] = fmaf(f4(w, r), f4(xv, s), a[r][s]);
     }
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
+    for (int r = 0; r < 4; ++r) {
       if (j0 + r < L.J) {
-        const float h = acc[r] + bias[j0 + r];
-        y[(j0 + r) * PU_LD + lane] = tanh_act ? tanhf(h) : h;
+        const float b = bias[j0 + r];
+        float4 o;
+        o.x = a[r][0] + b; o.y = a[r][1] + b;
+        o.z = a[r][2] + b; o.w = a[r][3] + b;
+        if (tanh_act) {
+          o.x = tanhf(o.x); o.y = tanhf(o.y);
+          o.z = tanhf(o.z); o.w = tanhf(o.w);
+        }
+        *reinterpret_cast<float4*>(y + (j0 + r) * PU_LD + t0) = o;
       }
     }
   }
 }
 
-// Gw[j*K + k] += sum_t dY[j][t] X[k][t];  Gb[j] += sum_t dY[j][t]
-__device__ __forceinline__ void pu_grad_accum(const float* dY, const float* X,
-                                              const PuLayer& L, float* Gw,
-                                              float* Gb) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nkc = (L.K + 31) / 32, njg = (L.J + 3) / 4;
-  for (int p = warp; p < nkc * njg; p += PU_WARPS) {
-    const int j0 = (p / nkc) * 4, k = (p % nkc) * 32 + lane;
-    if (k >= L.K) continue;
-    const float* d0 = dY + min(j0, L.J - 1) * PU_LD;
-    const float* d1 = dY + min(j0 + 1, L.J - 1) * PU_LD;
-    const float* d2 = dY + min(j0 + 2, L.J - 1) * PU_LD;
-    const float* d3 = dY + min(j0 + 3, L.J - 1) * PU_LD;
+// the head, narrow: one output x 4 samples a thread, no activation
+__device__ __forceinline__ void pu_forward1(const float* Wt, const float* bias,
+                                            const PuLayer& L, const float* x,
+                                            float* y) {
+  for (int id = threadIdx.x; id < L.J * PU_TQ; id += PU_THREADS) {
+    const int t0 = (id % PU_TQ) * 4, j = id / PU_TQ;
     float a0 = 0.0f, a1 = 0.0f, a2 = 0.0f, a3 = 0.0f;
-    for (int t = 0; t < PU_TS; ++t) {
-      const float xv = X[k * PU_LD + t];
-      a0 = fmaf(d0[t], xv, a0);
-      a1 = fmaf(d1[t], xv, a1);
-      a2 = fmaf(d2[t], xv, a2);
-      a3 = fmaf(d3[t], xv, a3);
+#pragma unroll 4
+    for (int k = 0; k < L.K; ++k) {
+      const float w = Wt[k * L.Jp + j];
+      const float4 xv = ld4(x + k * PU_LD + t0);
+      a0 = fmaf(w, xv.x, a0); a1 = fmaf(w, xv.y, a1);
+      a2 = fmaf(w, xv.z, a2); a3 = fmaf(w, xv.w, a3);
     }
-    Gw[j0 * L.K + k] += a0;
-    if (j0 + 1 < L.J) Gw[(j0 + 1) * L.K + k] += a1;
-    if (j0 + 2 < L.J) Gw[(j0 + 2) * L.K + k] += a2;
-    if (j0 + 3 < L.J) Gw[(j0 + 3) * L.K + k] += a3;
-  }
-  for (int j = threadIdx.x; j < L.J; j += PU_THREADS) {
-    float s = 0.0f;
-    for (int t = 0; t < PU_TS; ++t) s += dY[j * PU_LD + t];
-    Gb[j] += s;
+    const float b = bias[j];
+    *reinterpret_cast<float4*>(y + j * PU_LD + t0) =
+        make_float4(a0 + b, a1 + b, a2 + b, a3 + b);
   }
 }
 
 // X[k][t] <- (sum_j w[j][k] dY[j][t]) * (1 - X[k][t]^2): the gradient at the
-// layer's tanh input, in place over the activation X it is taken from
+// layer's tanh input, in place over the activation X it is taken from.
+// dY's rows J..pad4(J) are finite and W^T's padding is zero.
 __device__ __forceinline__ void pu_backward_input(const float* Wt,
                                                   const PuLayer& L,
                                                   const float* dY, float* X) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int k0 = warp * 8; k0 < L.K; k0 += PU_WARPS * 8) {
-    float acc[8] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    const float* wr[8];
+  const int nKb = (L.K + 3) >> 2, J4 = (L.J + 3) & ~3;
+  for (int id = threadIdx.x; id < nKb * PU_TQ; id += PU_THREADS) {
+    const int t0 = (id % PU_TQ) * 4, k0 = (id / PU_TQ) * 4;
+    float a[4][4];
 #pragma unroll
-    for (int r = 0; r < 8; ++r) wr[r] = Wt + (size_t)min(k0 + r, L.K - 1) * L.Jp;
-    for (int j = 0; j < L.J; ++j) {
-      const float d = dY[j * PU_LD + lane];
+    for (int c = 0; c < 4; ++c)
 #pragma unroll
-      for (int r = 0; r < 8; ++r) acc[r] = fmaf(wr[r][j], d, acc[r]);
+      for (int s = 0; s < 4; ++s) a[c][s] = 0.0f;
+    const float* wr[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) wr[c] = Wt + min(k0 + c, L.K - 1) * L.Jp;
+    for (int j = 0; j < J4; j += 4) {
+      float4 w[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) w[c] = ld4(wr[c] + j);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float4 d = ld4(dY + (j + r) * PU_LD + t0);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float wv = f4(w[c], r);
+          a[c][0] = fmaf(wv, d.x, a[c][0]);
+          a[c][1] = fmaf(wv, d.y, a[c][1]);
+          a[c][2] = fmaf(wv, d.z, a[c][2]);
+          a[c][3] = fmaf(wv, d.w, a[c][3]);
+        }
+      }
     }
 #pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      if (k0 + r < L.K) {
-        float* xp = X + (k0 + r) * PU_LD + lane;
-        const float x = *xp;
-        *xp = acc[r] * (1.0f - x * x);
+    for (int c = 0; c < 4; ++c) {
+      if (k0 + c < L.K) {
+        float* xp = X + (k0 + c) * PU_LD + t0;
+        const float4 x = ld4(xp);
+        float4 o;
+        o.x = a[c][0] * (1.0f - x.x * x.x);
+        o.y = a[c][1] * (1.0f - x.y * x.y);
+        o.z = a[c][2] * (1.0f - x.z * x.z);
+        o.w = a[c][3] * (1.0f - x.w * x.w);
+        *reinterpret_cast<float4*>(xp) = o;
+      }
+    }
+  }
+}
+
+// g[q] += dY X^T over the tile's samples, for the slots q of this layer
+__device__ __forceinline__ void pu_grad_accum(float (&g)[PU_MAXQ][16],
+                                              const float* dY, const float* X,
+                                              const PuLayer& L, int off) {
+  const int Jq = (L.J + 3) >> 2, Kq = (L.K + 3) >> 2, n = Jq * Kq;
+#pragma unroll
+  for (int q = 0; q < PU_MAXQ; ++q) {
+    const int lid = threadIdx.x + q * PU_THREADS - off;
+    if (lid < 0 || lid >= n) continue;
+    const int jb = lid % Jq, kb = lid / Jq;
+    const float* dr = dY + jb * PU_LD;
+    const float* xr = X + kb * PU_LD;
+    const int dstep = Jq * PU_LD, xstep = Kq * PU_LD;
+#pragma unroll 2
+    for (int t = 0; t < PU_TS; t += 4) {
+      float4 xv[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) xv[c] = ld4(xr + c * xstep + t);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float4 d = ld4(dr + r * dstep + t);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          float acc = g[q][r * 4 + c];
+          acc = fmaf(d.x, xv[c].x, acc);
+          acc = fmaf(d.y, xv[c].y, acc);
+          acc = fmaf(d.z, xv[c].z, acc);
+          acc = fmaf(d.w, xv[c].w, acc);
+          g[q][r * 4 + c] = acc;
+        }
       }
     }
   }
@@ -147,7 +247,53 @@ __device__ __forceinline__ float pu_softplus(float x) {
   return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
 }
 
-__global__ void __launch_bounds__(PU_THREADS)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// Input slot of a tile: obs rows [0, O), pre rows [R0, R0 + A), then
+// old_logp, adv, ret rows; ragged samples (m >= M) are zero-filled.
+__device__ __forceinline__ void pu_fetch(float* slot, int net, int O, int A,
+                                         int R0, int m0, int M,
+                                         const float* obs, const float* pre,
+                                         const float* old_logp,
+                                         const float* adv, const float* ret) {
+  const int rows = net ? O + 1 : O + A + 2;
+  for (int e = threadIdx.x; e < rows * PU_TS; e += PU_THREADS) {
+    const int r = e / PU_TS, t = e % PU_TS, m = m0 + t;
+    const bool valid = m < M;
+    const size_t mm = valid ? (size_t)m : 0;
+    const float* src;
+    int dr;
+    if (r < O) {
+      src = obs + (size_t)r * M + mm;
+      dr = r;
+    } else if (net) {
+      src = ret + mm;
+      dr = R0 + A + 2;
+    } else if (r < O + A) {
+      src = pre + (size_t)(r - O) * M + mm;
+      dr = R0 + r - O;
+    } else {
+      src = (r == O + A ? old_logp : adv) + mm;
+      dr = R0 + A + (r - O - A);
+    }
+    cp_async4(slot + dr * PU_LD + t, src, valid);
+  }
+}
+
+__global__ void __launch_bounds__(PU_THREADS, 1)
 ppo_grad_kernel(const int* __restrict__ glay, const float* __restrict__ gw,
                 const float* __restrict__ obs, const float* __restrict__ pre,
                 const float* __restrict__ old_logp,
@@ -155,126 +301,177 @@ ppo_grad_kernel(const int* __restrict__ glay, const float* __restrict__ gw,
                 int M, float clip, float inv_m, float c_vf, float ent_coef,
                 float c_reg, float c_dreg, float* __restrict__ part) {
   __shared__ int lay[PU_LAYOUT_INTS];
+  __shared__ float dl[PU_TS];
   __shared__ float lossbuf[PU_TS];
   extern __shared__ float4 dyn[];
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   for (int i = tid; i < PU_LAYOUT_INTS; i += PU_THREADS) lay[i] = glay[i];
   __syncthreads();
   const int net = blockIdx.y, g = blockIdx.x, G = gridDim.x;
   const int nL = lay[0], O = lay[1], A = lay[2], ls_woff = lay[5];
   const int La = lay[6], Lc = lay[7], P = lay[8];
   const int wlen = net ? lay[4] : lay[3];
-  const int glen = net ? Lc : La + A;
   const PuLayer head = pu_layer(lay, net, nL);
+  const int R0 = pu_pad8(O), Ap = pu_pad8(A);
+  const int slot_rows = R0 + A + 3;
 
+  // shared memory: weights, activations per hidden layer [Jp][LD], head
+  // [Jp][LD], z and logp terms [Ap][LD] (actor), two input slots
   float* W = reinterpret_cast<float*>(dyn);
   {
     const float4* src = reinterpret_cast<const float4*>(gw + (net ? lay[3] : 0));
     for (int i = tid; i < wlen / 4; i += PU_THREADS) dyn[i] = src[i];
   }
-  float* Gacc = W + wlen;
-  for (int i = tid; i < glen; i += PU_THREADS) Gacc[i] = 0.0f;
-  float* xs = Gacc + glen;  // obs tile [O][33]
-  float* act[PU_MAX_L];     // hidden activations [H_l][33]
-  {
-    float* p = xs + O * PU_LD;
-    for (int l = 0; l < nL; ++l) {
-      act[l] = p;
-      p += pu_layer(lay, net, l).J * PU_LD;
-    }
+  float* act[PU_MAX_L];
+  float* p = W + wlen;
+  for (int l = 0; l < nL; ++l) {
+    act[l] = p;
+    p += pu_layer(lay, net, l).Jp * PU_LD;
   }
-  float* hbuf = act[nL - 1] + pu_layer(lay, net, nL - 1).J * PU_LD;
-  float* zb = hbuf + head.Jp * PU_LD;  // actor: z, then dlogp (z^2 - 1)
+  float* hbuf = p;
+  p += head.Jp * PU_LD;
+  float* zb = p;
+  float* term = zb + Ap * PU_LD;
+  p = term + Ap * PU_LD;
+  float* slots[2] = {p, p + slot_rows * PU_LD};
+  // zero everything past the weights: padding rows stay finite (zero)
+  for (float* q = W + wlen + tid; q < p + 2 * slot_rows * PU_LD; q += PU_THREADS)
+    *q = 0.0f;
   __syncthreads();
 
   const float lo = 1.0f - clip, hi = 1.0f + clip;
   const int nT = (M + PU_TS - 1) / PU_TS;
   const int t0 = (int)((long long)g * nT / G);
   const int t1 = (int)((long long)(g + 1) * nT / G);
-  float loss_acc = 0.0f;
+  float loss_acc = 0.0f, gls = 0.0f;
+  float gacc[PU_MAXQ][16];
+  float gbias[PU_MAXB];
+#pragma unroll
+  for (int q = 0; q < PU_MAXQ; ++q)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) gacc[q][i] = 0.0f;
+#pragma unroll
+  for (int q = 0; q < PU_MAXB; ++q) gbias[q] = 0.0f;
 
+  if (t0 < t1)
+    pu_fetch(slots[0], net, O, A, R0, t0 * PU_TS, M, obs, pre, old_logp, adv,
+             ret);
+  cp_async_commit();
   for (int tile = t0; tile < t1; ++tile) {
-    const int m0 = tile * PU_TS;
-    for (int i = tid; i < O * PU_TS; i += PU_THREADS) {
-      const int k = i / PU_TS, t = i % PU_TS, m = m0 + t;
-      xs[k * PU_LD + t] = m < M ? obs[(size_t)k * M + m] : 0.0f;
-    }
+    const int cur = (tile - t0) & 1, m0 = tile * PU_TS;
+    if (tile + 1 < t1)
+      pu_fetch(slots[cur ^ 1], net, O, A, R0, m0 + PU_TS, M, obs, pre,
+               old_logp, adv, ret);
+    cp_async_commit();
+    cp_async_wait1();
     __syncthreads();
+    float* xs = slots[cur];
+    const float* pres = xs + R0 * PU_LD;
+    const float* olps = pres + A * PU_LD;
+    const float* advs = olps + PU_LD;
+    const float* rets = advs + PU_LD;
+
     // ---- forward ----------------------------------------------------------
     const float* x = xs;
     for (int l = 0; l < nL; ++l) {
       const PuLayer L = pu_layer(lay, net, l);
-      pu_forward(W + L.w_off, W + L.b_off, L, x, act[l], true);
+      pu_forward4(W + L.w_off, W + L.b_off, L, x, act[l], true);
       __syncthreads();
       x = act[l];
     }
-    pu_forward(W + head.w_off, W + head.b_off, head, x, hbuf, false);
+    pu_forward1(W + head.w_off, W + head.b_off, head, x, hbuf);
     __syncthreads();
 
     // ---- per-sample loss terms and the head's output gradient -------------
-    if (warp == 0) {
-      const int m = m0 + lane;
-      const bool valid = m < M;
-      float loss_t = 0.0f;
-      if (net == 0) {
+    if (net == 0) {
+      for (int e = tid; e < A * PU_TS; e += PU_THREADS) {
+        const int i = e / PU_TS, t = e % PU_TS;
+        const float mu = hbuf[i * PU_LD + t];
+        const float ls = fminf(fmaxf(W[ls_woff + i], PU_LOG_STD_MIN),
+                               PU_LOG_STD_MAX);
+        const float sd = expf(ls);
+        const float pr = pres[i * PU_LD + t];
+        const float z = (pr - mu) / sd;
+        const float gg = -0.5f * (z * z + 2.0f * ls + PU_LOG_2PI);
+        const float corr = 2.0f * (PU_LN2 - pr - pu_softplus(-2.0f * pr));
+        term[i * PU_LD + t] = gg - corr;
+        zb[i * PU_LD + t] = z;
+      }
+      __syncthreads();
+      if (tid < PU_TS) {
+        const int t = tid;
+        const bool valid = m0 + t < M;
         float lp = 0.0f, musq = 0.0f;
         for (int i = 0; i < A; ++i) {
-          const float mu = hbuf[i * PU_LD + lane];
-          const float ls = fminf(fmaxf(W[ls_woff + i], PU_LOG_STD_MIN),
-                                 PU_LOG_STD_MAX);
-          const float sd = expf(ls);
-          const float pr = valid ? pre[(size_t)i * M + m] : 0.0f;
-          const float z = (pr - mu) / sd;
-          const float gg = -0.5f * (z * z + 2.0f * ls + PU_LOG_2PI);
-          const float corr = 2.0f * (PU_LN2 - pr - pu_softplus(-2.0f * pr));
-          lp += gg - corr;
+          const float mu = hbuf[i * PU_LD + t];
+          lp += term[i * PU_LD + t];
           musq = fmaf(mu, mu, musq);
-          zb[i * PU_LD + lane] = z;
         }
-        const float olp = valid ? old_logp[m] : 0.0f;
-        const float ad = valid ? adv[m] : 0.0f;
+        const float olp = olps[t], ad = advs[t];
         const float ratio = expf(lp - olp);
         const float u = ratio * ad;
         const float w = fminf(fmaxf(ratio, lo), hi) * ad;
-        loss_t = -fminf(u, w) * inv_m + ent_coef * lp * inv_m + c_reg * musq;
+        const float loss_t =
+            -fminf(u, w) * inv_m + ent_coef * lp * inv_m + c_reg * musq;
         // d loss / d logp: the clipped-surrogate branch plus the entropy bonus
         const bool inside = ratio > lo && ratio < hi;
         const float sel = u <= w ? ad : (inside ? ad : 0.0f);
-        const float dlogp = (-sel * ratio + ent_coef) * inv_m;
-        for (int i = 0; i < A; ++i) {
-          const float ls = fminf(fmaxf(W[ls_woff + i], PU_LOG_STD_MIN),
-                                 PU_LOG_STD_MAX);
-          const float sd = expf(ls);
-          const float z = zb[i * PU_LD + lane];
-          const float mu = hbuf[i * PU_LD + lane];
-          hbuf[i * PU_LD + lane] = valid ? dlogp * z / sd + c_dreg * mu : 0.0f;
-          zb[i * PU_LD + lane] = valid ? dlogp * (z * z - 1.0f) : 0.0f;
-        }
-      } else {
-        const float v = hbuf[lane];
-        const float vres = v - (valid ? ret[m] : 0.0f);
-        loss_t = 0.5f * c_vf * vres * vres;
-        hbuf[lane] = valid ? c_vf * vres : 0.0f;
+        dl[t] = valid ? (-sel * ratio + ent_coef) * inv_m : 0.0f;
+        lossbuf[t] = valid ? loss_t : 0.0f;
       }
-      lossbuf[lane] = valid ? loss_t : 0.0f;
+      __syncthreads();
+      for (int e = tid; e < A * PU_TS; e += PU_THREADS) {
+        const int i = e / PU_TS, t = e % PU_TS;
+        const bool valid = m0 + t < M;
+        const float ls = fminf(fmaxf(W[ls_woff + i], PU_LOG_STD_MIN),
+                               PU_LOG_STD_MAX);
+        const float sd = expf(ls);
+        const float dlogp = dl[t];
+        const float z = zb[i * PU_LD + t];
+        const float mu = hbuf[i * PU_LD + t];
+        hbuf[i * PU_LD + t] = valid ? dlogp * z / sd + c_dreg * mu : 0.0f;
+        zb[i * PU_LD + t] = valid ? dlogp * (z * z - 1.0f) : 0.0f;
+      }
+    } else if (tid < PU_TS) {
+      const int t = tid;
+      const bool valid = m0 + t < M;
+      const float vres = hbuf[t] - rets[t];
+      lossbuf[t] = valid ? 0.5f * c_vf * vres * vres : 0.0f;
+      hbuf[t] = valid ? c_vf * vres : 0.0f;
     }
     __syncthreads();
-    if (tid == 0)
-      for (int t = 0; t < PU_TS; ++t) loss_acc += lossbuf[t];
-    if (net == 0)  // log_std, through its clip gate: d logp / d ls = z^2 - 1
-      for (int i = tid; i < A; i += PU_THREADS) {
-        const float raw = W[ls_woff + i];
-        float s = 0.0f;
-        for (int t = 0; t < PU_TS; ++t) s += zb[i * PU_LD + t];
-        if (raw > PU_LOG_STD_MIN && raw < PU_LOG_STD_MAX) Gacc[La + i] += s;
-      }
+    if (tid < 32) {  // the tile's loss, a fixed shuffle tree
+      float v = lossbuf[tid] + lossbuf[tid + 32];
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        v += __shfl_xor_sync(0xffffffffu, v, off);
+      if (tid == 0) loss_acc += v;
+    }
+    if (net == 0 && tid < A) {
+      // log_std, through its clip gate: d logp / d ls = z^2 - 1
+      const float raw = W[ls_woff + tid];
+      float s = 0.0f;
+      for (int t = 0; t < PU_TS; ++t) s += zb[tid * PU_LD + t];
+      if (raw > PU_LOG_STD_MIN && raw < PU_LOG_STD_MAX) gls += s;
+    }
 
     // ---- backward, from the head down ---------------------------------------
     const float* dY = hbuf;
     for (int l = nL; l >= 0; --l) {
       const PuLayer L = pu_layer(lay, net, l);
       float* X = l == 0 ? xs : act[l - 1];
-      pu_grad_accum(dY, X, L, Gacc + L.gw_off, Gacc + L.gb_off);
+      int off, boff;
+      pu_offsets(lay, net, l, off, boff);
+      pu_grad_accum(gacc, dY, X, L, off);
+#pragma unroll
+      for (int q = 0; q < PU_MAXB; ++q) {
+        const int j = tid + q * PU_THREADS - boff;
+        if (j >= 0 && j < L.J) {
+          float s = 0.0f;
+          for (int t = 0; t < PU_TS; ++t) s += dY[j * PU_LD + t];
+          gbias[q] += s;
+        }
+      }
       __syncthreads();
       if (l > 0) {
         pu_backward_input(W + L.w_off, L, dY, X);
@@ -284,14 +481,38 @@ ppo_grad_kernel(const int* __restrict__ glay, const float* __restrict__ gw,
     }
   }
 
-  float* row = part + (size_t)g * P;
+  // ---- the block's partial row ---------------------------------------------
+  float* row = part + (size_t)g * P + (net ? La : 0);
+  for (int l = 0; l <= nL; ++l) {
+    const PuLayer L = pu_layer(lay, net, l);
+    int off, boff;
+    pu_offsets(lay, net, l, off, boff);
+    const int Jq = (L.J + 3) >> 2, Kq = (L.K + 3) >> 2, n = Jq * Kq;
+#pragma unroll
+    for (int q = 0; q < PU_MAXQ; ++q) {
+      const int lid = tid + q * PU_THREADS - off;
+      if (lid < 0 || lid >= n) continue;
+      const int jb = lid % Jq, kb = lid / Jq;
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = jb + r * Jq, k = kb + c * Kq;
+          if (j < L.J && k < L.K) row[L.gw_off + j * L.K + k] = gacc[q][r * 4 + c];
+        }
+    }
+#pragma unroll
+    for (int q = 0; q < PU_MAXB; ++q) {
+      const int j = tid + q * PU_THREADS - boff;
+      if (j >= 0 && j < L.J) row[L.gb_off + j] = gbias[q];
+    }
+  }
+  row = part + (size_t)g * P;
   if (net == 0) {
-    for (int i = tid; i < La; i += PU_THREADS) row[i] = Gacc[i];
-    for (int i = tid; i < A; i += PU_THREADS) row[La + Lc + i] = Gacc[La + i];
+    if (tid < A) row[La + Lc + tid] = gls;
     if (tid == 0) row[P - 2] = loss_acc;
-  } else {
-    for (int i = tid; i < Lc; i += PU_THREADS) row[La + i] = Gacc[i];
-    if (tid == 0) row[P - 1] = loss_acc;
+  } else if (tid == 0) {
+    row[P - 1] = loss_acc;
   }
 }
 
@@ -306,6 +527,15 @@ __global__ void ppo_reduce_kernel(const float* __restrict__ part, int G, int P,
 }
 
 extern "C" int ppo_layout_ints() { return PU_LAYOUT_INTS; }
+
+// threads a block, samples a tile, weight-gradient slots, bias slots
+extern "C" int ppo_kernel_consts(int* out) {
+  out[0] = PU_THREADS;
+  out[1] = PU_TS;
+  out[2] = PU_MAXQ;
+  out[3] = PU_MAXB;
+  return 0;
+}
 
 extern "C" int ppo_update_launch(const int* layout, const float* weights,
                                  int smem_bytes, int G, const float* obs,

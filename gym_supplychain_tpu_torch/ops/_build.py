@@ -6,30 +6,33 @@ kernels' float rules need every product rounded before it is added; a
 kernel that wants FMA asks for it with ``fmaf``).  One nvcc process per
 source runs at once, then one links the objects.  The library lands in
 ``_build/<hash of sources and flags>/``, so a changed source builds anew and
-an unchanged one loads the library already built.  Nothing is compiled or
-loaded when this module is imported.
+an unchanged one loads the library already built, beside ptxas's resource
+report of each source (``ptxas_report``).  Nothing is compiled or loaded
+when this module is imported.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["NVCC_FLAGS", "nvcc_path", "library", "check"]
+__all__ = ["NVCC_FLAGS", "nvcc_path", "library", "check", "ptxas_report"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = _ARCH + ("-O3", "-std=c++17", "-Xcompiler", "-fPIC",
-                      "--fmad=false")
+                      "--fmad=false", "-Xptxas", "-v")
 
 _lock = threading.Lock()
 _lib = None
+_lib_dir = None
 
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _F = ctypes.c_float
@@ -40,16 +43,20 @@ _SIGNATURES = {
                          _I, _P, _P, _P, _P, _P, _P, _P],
     "sc_episode_launch": [_P, _I, _I, _I, _P, _P, _P, _U, _U, _P, _P, _P],
     "sc_greedy_launch": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
-    "sc_dense_launch": [_P, _I, _I, _I, _I, _I, _I, _P, _P, _P, _U, _U, _P,
-                        _P, _P, _P],
+    "sc_dense_launch": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _U, _U,
+                        _P, _P, _P, _P],
     "bg_collect_launch": [_I] * 19 + [_P, _P, _P, _U, _U, _P, _P, _P],
     "bg_episode_launch": [_I] * 10 + [_P] * 5,
     "ppo_update_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F,
                           _F, _F, _F, _P, _P, _I, _P],
     "sc_chain_bytes": [],
     "dn_chain_bytes": [],
+    "dn_edges_bytes": [],
+    "dn_envs": [],
+    "dn_lanes": [],
     "mlp_layout_ints": [],
     "ppo_layout_ints": [],
+    "ppo_kernel_consts": [_P],
 }
 
 
@@ -93,10 +100,11 @@ def _build() -> Path:
     outs = [p.communicate() for p in procs]
     tmp = out_dir / f"libgst_kernels.{pid}.so"
     link = [nvcc, *_ARCH, "-shared", "-o", str(tmp), *map(str, objs)]
-    for cmd, p, (out, err) in zip(cmds, procs, outs):
+    for f, cmd, p, (out, err) in zip(cu, cmds, procs, outs):
         if p.returncode != 0:
             raise RuntimeError("nvcc failed:\n" + " ".join(cmd) + "\n"
                                + out + err)
+        (out_dir / f"{f.stem}.ptxas.txt").write_text(out + err)
     res = subprocess.run(link, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError("nvcc failed:\n" + " ".join(link) + "\n"
@@ -109,10 +117,12 @@ def _build() -> Path:
 
 def library() -> ctypes.CDLL:
     """The kernel library, built on first use."""
-    global _lib
+    global _lib, _lib_dir
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(_build()))
+            path = _build()
+            lib = ctypes.CDLL(str(path))
+            _lib_dir = path.parent
             for name, argtypes in _SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
@@ -121,6 +131,55 @@ def library() -> ctypes.CDLL:
             lib.gst_error_string.restype = ctypes.c_char_p
             _lib = lib
     return _lib
+
+
+def ptxas_report(kernel: str):
+    """ptxas's resource report of the built library's entry functions named
+    ``kernel`` (template instances as ``name<args>``): a list of dicts with
+    ``function``, ``registers``, ``spill_stores``, ``spill_loads`` and
+    ``stack`` (bytes a thread)."""
+    library()
+    rows, cur = [], None
+    for path in sorted(_lib_dir.glob("*.ptxas.txt")):
+        for ln in path.read_text().splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", ln)
+            if m:
+                cur = _demangle(m.group(1))
+                if cur.split("<")[0] == kernel:
+                    rows.append(dict(function=cur, registers=None,
+                                     spill_stores=0, spill_loads=0, stack=0))
+                continue
+            m = re.search(r"Function properties for (\S+)", ln)
+            if m:
+                cur = _demangle(m.group(1))
+            if not rows or rows[-1]["function"] != cur:
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores,"
+                          r" (\d+) bytes spill loads", ln)
+            if m:
+                rows[-1].update(stack=int(m[1]), spill_stores=int(m[2]),
+                                spill_loads=int(m[3]))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                rows[-1]["registers"] = int(m[1])
+    return rows
+
+
+def _demangle(name: str) -> str:
+    """``_Z15sc_dense_kernelILi16ELi10EEv...`` -> ``sc_dense_kernel<16,10>``;
+    a plain C++ name without template arguments keeps its base name."""
+    m = re.match(r"_Z(\d+)", name)
+    if not m:
+        return name
+    n = int(m[1])
+    base = name[m.end():m.end() + n]
+    rest = name[m.end() + n:]
+    if rest.startswith("I"):
+        args = re.match(r"I((?:Li-?\d+E)+)E", rest)
+        if args:
+            return base + "<" + ",".join(
+                re.findall(r"Li(-?\d+)E", args[1])) + ">"
+    return base
 
 
 def check(code: int, what: str) -> None:

@@ -9,9 +9,11 @@ sample-trailing (``obs [O, M]``, ``pre [A, M]``, ``old_logp``, ``adv``,
 ``ret [M]``; advantages already normalized); float32 only.
 
 The kernel (``csrc/ppo_update.cu``) splits the actor and the critic over
-two rows of blocks, walks 32-sample tiles with the weights and gradient
-accumulators in shared memory, writes per-block partial gradients and
-sums them in a fixed order, so two launches on the same inputs give the
+two rows of 512-thread blocks, walks 64-sample tiles with the weights and
+the tile's activations in shared memory and the gradient accumulators in
+registers (4x4 blocks a thread, ``ppo_update_slots``), prefetches the next
+tile with cp.async, writes per-block partial gradients and sums them in a
+fixed order, so two launches on the same inputs give the
 same gradients.  Its plain version is autograd of the PyTorch loss.
 ``PPOLossFn`` wraps either as a ``torch.autograd.Function``: its forward
 computes the loss and the gradients at once and its backward hands the
@@ -19,35 +21,70 @@ gradients back, so an update loop calls ``loss.backward()`` whichever ran.
 """
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..models.policy import flat_params
 from ._mlp import LAYOUT_INTS, SMEM_MAX, MlpLayout
 
 __all__ = ["make_ppo_update_grads", "launch_ppo_update", "ppo_update_plain",
-           "ppo_update_smem_bytes", "PPOLossFn", "fused_ppo_loss"]
+           "ppo_update_smem_bytes", "ppo_update_slots",
+           "PPOLossFn", "fused_ppo_loss"]
 
-_TS, _LD = 32, 33          # samples a tile, row stride of the tile buffers
+_THREADS = 512             # threads a block (PU_THREADS)
+_TS, _LD = 64, 68          # samples a tile, row stride of the tile buffers
+_MAXQ, _MAXB = 3, 2        # gradient register slots a thread (PU_MAXQ, PU_MAXB)
+_STATIC = 4 * (LAYOUT_INTS + 2 * _TS)   # static shared memory
 _MAX_BLOCKS = 66           # blocks per net: 2 * 66 fill the H100's 132 SMs
+
+
+def _pad8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
+def ppo_update_slots(layout: MlpLayout):
+    """Register slots of the update kernel's weight-gradient blocks, per net
+    (actor, critic): the 4x4 blocks of every layer's ``dW`` (``ceil(J/4) *
+    ceil(K/4)`` a layer), numbered layer after layer, go round-robin over
+    the block's threads, so a thread holds ``ceil(blocks / threads)``.
+    Raises where a net needs more slots than a thread holds, or more biases
+    than its bias slots cover."""
+    out = []
+    for net, rows in enumerate(layout.layers):
+        blocks = sum(-(-J // 4) * -(-K // 4) for K, J, *_ in rows)
+        slots = -(-blocks // _THREADS)
+        biases = sum(J for _, J, *_ in rows)
+        if slots > _MAXQ or biases > _MAXB * _THREADS:
+            raise NotImplementedError(
+                f"actor-critic O={layout.O}, A={layout.A}, hidden="
+                f"{layout.hidden}: the {('actor', 'critic')[net]}'s gradient "
+                f"needs {slots} register slots and {biases} bias slots a "
+                f"block; the update kernel holds {_MAXQ} and "
+                f"{_MAXB * _THREADS}")
+        out.append(slots)
+    return tuple(out)
 
 
 def ppo_update_smem_bytes(layout: MlpLayout) -> int:
     """Dynamic shared memory of the update kernel's larger block: its net's
-    packed weights and gradient accumulators, and the tile's obs,
-    activations, head and head-gradient buffers.  Raises where a block
-    would exceed the card's shared memory."""
+    packed weights, then ``[rows][68]`` tile buffers: each hidden layer's
+    activations, the head, the actor's z and log-prob terms, and two input
+    slots (obs padded to 8 rows, pre, old_logp, adv, ret) for the cp.async
+    prefetch.  Raises where a block would exceed the card's shared memory
+    or a thread's gradient registers (``ppo_update_slots``)."""
+    ppo_update_slots(layout)
+    slot_rows = _pad8(layout.O) + layout.A + 3
     sizes = []
-    for net, (wlen, glen) in enumerate(((layout.wsec[0],
-                                         layout.La + layout.A),
-                                        (layout.wsec[1], layout.Lc))):
-        rows = layout.O + sum(layout.hidden) + 2 * layout.head_rows[net]
-        sizes.append(4 * (wlen + glen + rows * _LD))
+    for net in (0, 1):
+        rows = (sum(_pad8(h) for h in layout.hidden) + layout.head_rows[net]
+                + 2 * _pad8(layout.A) + 2 * slot_rows)
+        sizes.append(4 * (layout.wsec[net] + rows * _LD))
     dyn = max(sizes)
-    static = 4 * (LAYOUT_INTS + _TS)
-    if dyn + static > SMEM_MAX:
+    if dyn + _STATIC > SMEM_MAX:
         raise NotImplementedError(
             f"actor-critic O={layout.O}, A={layout.A}, hidden="
-            f"{layout.hidden} needs {dyn + static} bytes of shared memory "
+            f"{layout.hidden} needs {dyn + _STATIC} bytes of shared memory "
             f"per block; the update kernel has {SMEM_MAX}")
     return dyn
 
@@ -92,6 +129,12 @@ def launch_ppo_update(layout: MlpLayout, layout_dev: torch.Tensor,
     lib = library()
     if lib.ppo_layout_ints() != LAYOUT_INTS:
         raise RuntimeError("MLP layout differs from the kernel's")
+    consts = (ctypes.c_int * 4)()
+    lib.ppo_kernel_consts(consts)
+    if tuple(consts) != (_THREADS, _TS, _MAXQ, _MAXB):
+        raise RuntimeError(f"update kernel built with {tuple(consts)} "
+                           "(threads, tile, slots, bias slots); the wrapper "
+                           f"plans for {(_THREADS, _TS, _MAXQ, _MAXB)}")
     flat = flat_params(flat)
     weights = layout.pack(flat)
     G = min(_MAX_BLOCKS, -(-M // _TS))

@@ -22,11 +22,14 @@ reward ``reward [S, B]`` (S = episodes * T).
   kernel draws lead-times per use from the TPU's generator instead; no
   stream of the port matches the TPU's value for value anyway.
 
-The kernel (``csrc/supplychain_dense.cu``) runs one thread per env with its
-state in shared-memory tiles and reads each input where the step uses it,
-so it builds none of the JAX kernel's pre-gathered ``[S, N, P, Dmax, B]``
-tables.  Its step is the collect kernels' (``csrc/supplychain_step.cuh``),
-so it follows the same float rules and matches the plain version, an eager
+The kernel (``csrc/supplychain_dense.cu``) runs each env on a group of 16
+lanes (``dense_block``), 8 envs a block, with the env's state in
+shared memory: lanes split each phase of the step over nodes, rows or
+shipping nodes, and the lane of each destination adds its incoming edges'
+shipments in the order ``dense_edges`` lists them.  It reads each input
+where the step uses it, so it builds none of the JAX kernel's pre-gathered
+``[S, N, P, Dmax, B]`` tables.  It follows the collect kernels' float rules
+(``csrc/supplychain_step.cuh``) and matches the plain version, an eager
 loop over ``core/step.py`` (``supplychain_collect_plain``), bit for bit in
 the dynamics; rewards differ in the order of the cost sum (~1e-7 relative).
 The wrapper takes the plain version only for a tensor on the CPU, and
@@ -46,7 +49,7 @@ from .supplychain_collect import (_check, _check_tables, _desc_fields,
 
 __all__ = ["make_supplychain_dense_collect", "launch_supplychain_dense",
            "supplychain_dense_collect_plain", "dense_descriptor",
-           "dense_block", "DENSE_MAX"]
+           "dense_edges", "dense_block", "DENSE_MAX"]
 
 _MODES = {"random": 0, "actions": 1}      # the kernel's mode numbers
 # the kernel's size limits (DN_MAX_* of csrc/supplychain_dense.cu; K and A
@@ -54,28 +57,92 @@ _MODES = {"random": 0, "actions": 1}      # the kernel's mode numbers
 DENSE_MAX = dict(N=64, P=16, NP=128, D=16, ND=1024, NPD=2048, RING=8, K=512,
                  A=1024, RP=128, CDF=8)
 _DN_FIELDS = _desc_fields(DENSE_MAX)
-DN_DESC_BYTES = 4 * sum(c for _, _, c in _DN_FIELDS)
-_WARP = 32
+# struct DnEdges of csrc/supplychain_dense.cu, right after DnChain
+_DN_EDGE_FIELDS = [("n_edges", "i", 1), ("n_ship", "i", 1), ("pad0", "i", 1),
+                   ("pad1", "i", 1), ("ship_list", "i", DENSE_MAX["N"]),
+                   ("edge_id", "i", DENSE_MAX["ND"]),
+                   ("in_ptr", "i", DENSE_MAX["N"] + 1),
+                   ("in_edge", "i", DENSE_MAX["ND"])]
+DN_CHAIN_BYTES = 4 * sum(c for _, _, c in _DN_FIELDS)
+DN_DESC_BYTES = DN_CHAIN_BYTES + 4 * sum(c for _, _, c in _DN_EDGE_FIELDS)
+DN_ENVS, DN_LANES = 8, 16      # envs a block, lanes an env (the kernel's)
+_SLOT_BOUNDS = (2, 4, 10, 16)  # the kernel's compile-time degrees (DN_CASE)
+
+
+def dense_slot_bound(cc: CompiledChain) -> int:
+    """The kernel instance's compile-time slot count: the least of
+    ``_SLOT_BOUNDS`` that holds ``Dmax`` (its slot loops unroll into
+    registers)."""
+    return next(d for d in _SLOT_BOUNDS if cc.Dmax <= d)
+
+
+def dense_edges(cc: CompiledChain) -> dict:
+    """The edges as the kernel's lanes walk them (``struct DnEdges``).
+
+    Edges are the ``(node, slot)`` pairs of shipping nodes (a non-retailer
+    with a product to ship) whose ``edge_mask`` is set, numbered in
+    ``(node, slot)`` order: ``edge_id[n * Dmax + d]`` (-1 for none).
+    ``in_edge[in_ptr[m]:in_ptr[m + 1]]`` lists node m's incoming edges in
+    that order, the order ``core/step.py`` sums a destination's pushes in;
+    ``ship_list`` holds the shipping nodes."""
+    N, D = cc.N, cc.Dmax
+    em = np.asarray(cc.edge_mask, bool)
+    has_ship = (np.asarray(cc.has_ship)
+                & ~np.asarray(cc.is_retailer)[:, None]).any(axis=1)
+    edge_id = np.full(N * D, -1, np.int32)
+    src = []
+    for n in range(N):
+        for d in range(D):
+            if has_ship[n] and em[n, d]:
+                edge_id[n * D + d] = len(src)
+                src.append((n, d))
+    dst = [int(cc.edge_dst[n, d]) for n, d in src]
+    in_edge = np.array(sorted(range(len(src)), key=lambda e: (dst[e], e)),
+                       np.int32)
+    in_ptr = np.searchsorted(np.array(sorted(dst), np.int64),
+                             np.arange(N + 1)).astype(np.int32)
+    return dict(n_edges=len(src), n_ship=int(has_ship.sum()),
+                ship_list=np.nonzero(has_ship)[0].astype(np.int32),
+                edge_id=edge_id, in_ptr=in_ptr, in_edge=in_edge)
 
 
 def dense_descriptor(cc: CompiledChain) -> np.ndarray:
-    """The chain as the bytes of ``DnChain`` (uint8 array); raises for a
-    chain beyond ``DENSE_MAX`` or with a negative capacity."""
+    """The chain as the bytes of ``DnChain`` then ``DnEdges`` (uint8
+    array); raises for a chain beyond ``DENSE_MAX`` or with a negative
+    capacity."""
     check_kernel_support(cc, DENSE_MAX, "the dense collect kernel")
-    return descriptor_words(cc, _DN_FIELDS)
+    edges = dense_edges(cc)
+    words = np.zeros(DN_DESC_BYTES // 4, np.int32)
+    words[:DN_CHAIN_BYTES // 4] = descriptor_words(cc, _DN_FIELDS).view(
+        np.int32)
+    off = DN_CHAIN_BYTES // 4
+    for name, _, count in _DN_EDGE_FIELDS:
+        v = np.ravel(edges.get(name, 0))
+        words[off:off + v.size] = v
+        off += count
+    return words.view(np.uint8)
 
 
 def dense_block(cc: CompiledChain):
-    """``(E, shared bytes)``: the envs a block of the kernel holds (32, or
-    fewer where their state would not fit) and its dynamic shared memory,
-    the tiles stock ``[N*P]``, ring and delivery sums ``[RING*N*P]`` and
-    the demand row ``[R*P]`` for each env."""
-    per_env = 4 * (cc.N * cc.P * (1 + 2 * (cc.H + 1)) + cc.R * cc.P)
-    E = min(_WARP, SMEM_MAX // per_env)
-    if E < 1:
-        raise NotImplementedError(f"one env's state takes {per_env} bytes of "
-                                  f"shared memory; a block has {SMEM_MAX}")
-    return E, E * per_env
+    """``(G, E, shared bytes)``: the lanes an env's group takes (16, the
+    kernel's ``DN_LANES``), the envs a block holds, and the block's dynamic
+    shared memory.  Each env has an odd-length stretch (so the block's
+    o-major obs write-out reads the 8 envs from distinct banks) of stock
+    ``[N*P]``, the pipeline ring ``[RING*N*P]``, the demand row ``[R*P]``,
+    the shipped amount per (edge, product) and lead-time per edge, the
+    fired count per node and the observation ``[O]``.  Raises where 8 envs
+    do not fit in a block."""
+    e = dense_edges(cc)
+    NP = cc.N * cc.P
+    words = (NP * (1 + cc.H + 1) + cc.R * cc.P + e["n_edges"] * (cc.P + 1)
+             + cc.N + cc.obs_dim)
+    stride = words | 1
+    smem = 4 * DN_ENVS * stride
+    if smem > SMEM_MAX:
+        raise NotImplementedError(f"{DN_ENVS} envs of this chain take {smem} "
+                                  f"bytes of shared memory; a block has "
+                                  f"{SMEM_MAX}")
+    return DN_LANES, DN_ENVS, smem
 
 
 def supplychain_dense_collect_plain(cc: CompiledChain, episodes: int, B: int,
@@ -114,9 +181,10 @@ def launch_supplychain_dense(desc: torch.Tensor, cc: CompiledChain, S: int,
     else:
         ptrs = _check_tables(cc, S, B, device, demands, leadtimes, actions,
                              "actions")
-    E, smem = dense_block(cc)
+    G, E, smem = dense_block(cc)
     lib = library()
-    if lib.dn_chain_bytes() != DN_DESC_BYTES:
+    if (lib.dn_chain_bytes() + lib.dn_edges_bytes() != DN_DESC_BYTES
+            or (lib.dn_lanes(), lib.dn_envs()) != (G, E)):
         raise RuntimeError("chain descriptor layout differs from the kernel's")
     f32 = dict(dtype=torch.float32, device=device)
     obs = torch.empty((S, cc.obs_dim, B), **f32)
@@ -126,7 +194,8 @@ def launch_supplychain_dense(desc: torch.Tensor, cc: CompiledChain, S: int,
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.sc_dense_launch(
-            desc.data_ptr(), DN_DESC_BYTES, _MODES[mode], S, B, E, smem,
+            desc.data_ptr(), DN_DESC_BYTES, _MODES[mode], S, B,
+            dense_slot_bound(cc), smem // (4 * E), smem,
             *ptrs, k0, k1, obs.data_ptr(), rew.data_ptr(), stock.data_ptr(),
             stream)
     check(code, "supplychain dense collect")

@@ -84,13 +84,98 @@ def test_benchmark_configs_shapes():
     assert shapes == [(26, 4, 10, 492, 138, 10, 353, 3),
                       (40, 2, 10, 620, 320, 10, 261, 3),
                       (8, 10, 2, 140, 32, 2, 261, 3)]
-    # 32 envs a block: 96, 72.5 and 72.5 KB of shared memory
+    # (lanes an env, envs a block, shared bytes): 16 lanes; 8 envs of 1425,
+    # 1541 and 741 words (odd) a block
     assert [scd.dense_block(c) for c in got] == [
-        (32, 98304), (32, 74240), (32, 74240)]
+        (16, 8, 45600), (16, 8, 49312), (16, 8, 23712)]
+    # one wave at B = 4096: shared memory for 4 or more blocks of 8 envs an
+    # SM (228 KB), as the kernel's registers allow
+    assert [228 * 1024 // (smem + 1024) * 8 * 132 >= 4096
+            for _, _, smem in (scd.dense_block(c) for c in got)] == [True] * 3
     for c in got:
         with pytest.raises(NotImplementedError):
             scc.chain_descriptor(c)              # beyond the collect kernel
         assert scd.dense_descriptor(c).nbytes == scd.DN_DESC_BYTES
+
+
+def _limit_chain(P, N=None, Dmax=None, H=None, obs_dim=None):
+    """A stand-in with the fields ``dense_edges`` and ``dense_block`` read:
+    every node ships on all Dmax slots, one retailer a node."""
+    from types import SimpleNamespace
+
+    m = scd.DENSE_MAX
+    N, Dmax, H = N or m["N"], Dmax or m["D"], H or m["RING"] - 1
+    Lavg = H
+    return SimpleNamespace(
+        N=N, P=P, Dmax=Dmax, H=H, R=N,
+        obs_dim=obs_dim or N * P + N * P * (1 + Lavg) + 1,
+        edge_mask=np.ones((N, Dmax), bool),
+        edge_dst=np.arange(N * Dmax).reshape(N, Dmax) % N,
+        has_ship=np.ones((N, P), bool), is_retailer=np.zeros(N, bool))
+
+
+def test_dense_block_at_the_limits():
+    """At DENSE_MAX (64 nodes, N*P = 128, Dmax = 16, all 1024 slots used,
+    ring 8, R*P = 128) 8 envs still fit in a block: 5,569 words an env;
+    past the limits the plan refuses."""
+    cc = _limit_chain(P=2)
+    words = 128 * (1 + 8) + 128 + 1024 * 3 + 64 + cc.obs_dim
+    assert scd.dense_block(cc) == (16, 8, 4 * 8 * (words | 1))
+    assert 4 * 8 * (words | 1) == 178208
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        scd.dense_block(_limit_chain(P=16))              # N*P = 1024
+
+
+@pytest.mark.parametrize("config", ["nperstage-5-4-7-10-x4",
+                                    "nperstage-10-x2", "multiproduct-x10"])
+def test_dense_edges_sum_like_core_step(config):
+    """``dense_edges`` lists each destination's incoming edges in (source
+    node, slot) order, and summing a destination's pushes in that order,
+    per lead-time, gives ``core/step.py``'s pipeline adds bit for bit."""
+    from gym_supplychain_tpu_torch.benchmarks import large_topologies as lt
+    from gym_supplychain_tpu_torch.core.step import _in_edge_index
+
+    cc = lt.config_chain(config)
+    N, D, P = cc.N, cc.Dmax, cc.P
+    ed = scd.dense_edges(cc)
+    src = [divmod(int(k), D) for k in np.nonzero(ed["edge_id"] >= 0)[0]]
+    assert [ed["edge_id"][n * D + d] for n, d in src] == list(range(len(src)))
+    assert ed["ship_list"].tolist() == sorted({n for n, _ in src})
+    assert len(ed["ship_list"]) == ed["n_ship"]
+    for m in range(N):
+        es = ed["in_edge"][ed["in_ptr"][m]:ed["in_ptr"][m + 1]].tolist()
+        assert es == sorted(es)                          # (node, slot) order
+        assert all(cc.edge_dst[src[e]] == m for e in es)
+    assert ed["in_ptr"][N] == ed["n_edges"] == len(src)
+
+    rs = np.random.RandomState(len(src))
+    push = rs.exponential(3.0, size=(N, D, P)).astype(np.float32)
+    push[rs.rand(N, D, P) < 0.3] = 0.0
+    ship = np.zeros(N, bool)
+    ship[ed["ship_list"]] = True
+    push[~ship] = 0.0                                    # nodes that ship none
+    lead = rs.randint(1, cc.Lmax + 1, size=(N, D))
+    # core/step.py: pushes of every masked edge in np.nonzero order, summed
+    # per destination over _in_edge_index's rows (a zero row past a degree)
+    e_src, e_di = np.nonzero(cc.edge_mask)
+    idx = torch.as_tensor(_in_edge_index(cc))
+    for L in range(1, cc.Lmax + 1):
+        x = torch.as_tensor(np.where((lead[e_src, e_di] == L)[:, None],
+                                     push[e_src, e_di], 0.0))
+        xz = torch.cat([x, torch.zeros_like(x[:1])])
+        want = xz[idx[0]]
+        for k in range(1, idx.shape[0]):
+            want = want + xz[idx[k]]
+        got = np.zeros((N, P), np.float32)
+        for m in range(N):
+            for p in range(P):
+                s = np.float32(0.0)
+                for e in ed["in_edge"][ed["in_ptr"][m]:ed["in_ptr"][m + 1]]:
+                    n, d = src[e]
+                    if lead[n, d] == L:
+                        s = np.float32(s + push[n, d, p])
+                got[m, p] = s
+        assert np.array_equal(got.view(np.int32), want.numpy().view(np.int32))
 
 
 def _tables(cc, S, B, seed):

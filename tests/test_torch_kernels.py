@@ -192,6 +192,41 @@ def test_ppo_update_kernel_matches_plain_and_repeats():
     adv = torch.randn((M,), generator=g).to(dev)
     ret = torch.randn((M,), generator=g).to(dev)
     data = (obs, pre, old, adv, ret)
+    _check_ppo_update_kernel(O, A, hidden, M, model, data)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("O,A,hidden,M", [
+    (27, 14, (37,), 1000 + 37),             # one hidden layer, ragged tail
+    (13, 5, (33, 17, 9), 64 * 7 + 5),       # three odd widths
+    (27, 14, (128, 128), 64 * 40 + 63),     # the trainer's widths
+])
+def test_ppo_update_kernel_ragged_and_odd_widths(O, A, hidden, M):
+    """The update kernel at an M that is no multiple of its 64-sample tile
+    and at widths that are no multiple of its 4x4 register tiles: phase
+    7's gate against float64 autograd, two launches bit-identical."""
+    from gym_supplychain_tpu_torch.models.policy import (
+        ActorCritic, MLPConfig, actor_critic_forward, tanh_gaussian_logp)
+
+    dev = _device()
+    g = torch.Generator().manual_seed(M)
+    model = ActorCritic(MLPConfig(O, A, hidden), g, device=dev)
+    with torch.no_grad():
+        model.mu.w.mul_(10.0)           # mu beyond +-1: the clip gates matter
+    obs = (torch.rand((O, M), generator=g) * 2 - 1).to(dev)
+    with torch.no_grad():
+        mu, log_std, _ = actor_critic_forward(model, obs)
+        pre = mu + log_std.exp() * torch.randn((A, M), generator=g).to(dev)
+        old = (tanh_gaussian_logp(pre, mu, log_std)
+               + 0.3 * torch.randn((M,), generator=g).to(dev))
+    adv = torch.randn((M,), generator=g).to(dev)
+    ret = torch.randn((M,), generator=g).to(dev)
+    _check_ppo_update_kernel(O, A, hidden, M, model, (obs, pre, old, adv, ret))
+
+
+def _check_ppo_update_kernel(O, A, hidden, M, model, data):
+    from gym_supplychain_tpu_torch.ops import ppo_update as pu
+
     gf = pu.make_ppo_update_grads(O, A, hidden, M)
     before = pu.launch_ppo_update.launches
     lk, gk = gf(model, *data)
@@ -338,6 +373,43 @@ def test_supplychain_dense_kernel_matches_plain(chain, mode):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mode,B", [("actions", 100), ("random", 100),
+                                    ("actions", 8 * 12)])
+def test_supplychain_dense_kernel_negative_values_and_ragged_batch(mode, B):
+    """K5 on [5,4,7,10] x 4 (degrees 4, 7, 10 of Dmax 10) at a B that is no
+    multiple of its 8 envs a block; in ``actions`` some actions below -1
+    give negative values, so the degree elision falls back to all Dmax
+    slots there.  Gates as above."""
+    from gym_supplychain_tpu_torch.ops import supplychain_dense as scd
+
+    dev = _device()
+    T, E = 10, 2
+    cc = make_chain("sc-Nperstage-multiproduct-v0",
+                    nodes_per_echelon=[5, 4, 7, 10], num_products=4,
+                    stochastic_leadtimes=True, total_time_steps=T)
+    S = E * T
+    kw = dict(seed=3)
+    if mode == "actions":
+        rs = np.random.RandomState(B)
+        act = (3 * rs.rand(S, cc.A, B) - 2).astype(np.float32)   # [-2, 1)
+        assert (act < -1).mean() > 0.2
+        kw = dict(
+            demands=torch.as_tensor(rs.randint(0, 25, size=(S, cc.R, cc.P, B))
+                                    .astype(np.float32), device=dev),
+            leadtimes=torch.as_tensor(rs.randint(1, cc.Lmax + 1,
+                                                 size=(S, cc.K, B))
+                                      .astype(np.int32), device=dev),
+            actions=torch.as_tensor(act, device=dev))
+    desc = torch.as_tensor(scd.dense_descriptor(cc), device=dev)
+    k = scd.launch_supplychain_dense(desc, cc, S, B, mode, **kw)
+    p = scd.supplychain_dense_collect_plain(cc, E, B, mode, device=dev, **kw)
+    assert float((k[0] - p[0]).abs().max()) <= 1e-6
+    assert float((k[1] - p[1]).abs().max()) <= 1e-5 * float(p[1].abs().max())
+    assert torch.equal(k[2], p[2])
+    assert bool(torch.isfinite(k[0]).all() and torch.isfinite(k[1]).all())
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("delay,init_delay", [(2, None), (0, 2), (3, 1)])
 def test_beergame_episode_kernel_matches_plain(delay, init_delay):
     """K6b: bit-exact (integers), per-lane demand and initial inventory."""
@@ -357,3 +429,37 @@ def test_beergame_episode_kernel_matches_plain(delay, init_delay):
     assert bge.launch_beergame_episode.launches == before + 1
     p = bge.beergame_episode_plain(*args, **kw)
     assert k.device == args[0].device and torch.equal(k, p)
+
+
+_PTXAS = """\
+ptxas info    : Compiling entry function '_Z17ppo_reduce_kernelPKfiiPf' for 'sm_90a'
+ptxas info    : Function properties for _Z17ppo_reduce_kernelPKfiiPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 32 registers, used 0 barriers
+ptxas info    : Compiling entry function '_Z15ppo_grad_kernelPKiPKfS2_iffPf' for 'sm_90a'
+ptxas info    : Function properties for _Z15ppo_grad_kernelPKiPKfS2_iffPf
+    192 bytes stack frame, 232 bytes spill stores, 296 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 832 bytes smem
+ptxas info    : Compiling entry function '_Z15sc_dense_kernelILi16ELi10EEvPK6ChainTILi64EEiPf' for 'sm_90a'
+ptxas info    : Function properties for _Z15sc_dense_kernelILi16ELi10EEvPK6ChainTILi64EEiPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 165 registers, used 1 barriers
+"""
+
+
+def test_ptxas_report_reads_the_build_report(tmp_path, monkeypatch):
+    """``ptxas_report`` (printed by chip_smoke.py's phase 1) picks each
+    entry function's registers, spills and stack out of ptxas's report,
+    template instances named by their arguments."""
+    from gym_supplychain_tpu_torch.ops import _build
+
+    (tmp_path / "ppo_update.ptxas.txt").write_text(_PTXAS)
+    monkeypatch.setattr(_build, "_lib", object())
+    monkeypatch.setattr(_build, "_lib_dir", tmp_path)
+    assert _build.ptxas_report("ppo_grad_kernel") == [dict(
+        function="ppo_grad_kernel", registers=128, spill_stores=232,
+        spill_loads=296, stack=192)]
+    assert _build.ptxas_report("sc_dense_kernel") == [dict(
+        function="sc_dense_kernel<16,10>", registers=165, spill_stores=0,
+        spill_loads=0, stack=0)]
+    assert _build.ptxas_report("bg_collect_kernel") == []

@@ -128,6 +128,57 @@ def test_loss_function_hands_back_its_gradients():
         gf(model, *(d[..., :32] for d in data))
 
 
+@pytest.mark.parametrize("O,A,hidden,slots,smem", [
+    # the trainer's ntom net: 224 + 1024 + 128 actor blocks of 4x4 over 512
+    # threads; 88.7 KB of weights + 402 rows of 68 floats
+    (27, 14, (128, 128), (3, 3), 198048),
+    (27, 14, (37,), (1, 1), None),
+    (13, 5, (33, 17, 9), (1, 1), None),
+    (27, 14, (64, 64, 64, 64), (2, 2), None),
+    (7, 3, (255,), (1, 1), None),
+    (27, 14, (256,), (2, 1), None),
+])
+def test_update_kernel_plan(O, A, hidden, slots, smem):
+    """The update kernel's register slots and shared memory, at 1-4 hidden
+    layers and odd widths, against the sizes counted from its buffers."""
+    from gym_supplychain_tpu_torch.ops import ppo_update as pu
+    from gym_supplychain_tpu_torch.ops._mlp import MlpLayout
+
+    lay = MlpLayout(O, A, hidden)
+    assert pu.ppo_update_slots(lay) == slots
+    pad8 = lambda n: -(-n // 8) * 8                       # noqa: E731
+    want = []
+    for net, head in ((0, A), (1, 1)):
+        n_in, weights = O, 0
+        for J in hidden + (head,):
+            weights += (n_in + 1) * pad8(J)
+            n_in = J
+        weights += pad8(A) if net == 0 else 0             # log_std
+        rows = (sum(pad8(h) for h in hidden) + pad8(head) + 2 * pad8(A)
+                + 2 * (pad8(O) + A + 3))
+        want.append(4 * (weights + 68 * rows))
+    assert pu.ppo_update_smem_bytes(lay) == max(want)
+    if smem is not None:
+        assert max(want) == smem
+    assert max(want) + 4 * (lay.ints.size + 128) <= 232448
+
+
+@pytest.mark.parametrize("O,hidden,what", [
+    (400, (32,), "shared memory"),         # two 417-row input slots
+    (27, (256, 256), "register slots"),    # 4,800 blocks of dW: 10 slots
+    (27, (96, 96, 96, 96), "register slots"),   # 1,992 blocks: 4 slots
+])
+def test_update_kernel_plan_refuses_what_does_not_fit(O, hidden, what):
+    from gym_supplychain_tpu_torch.ops import ppo_update as pu
+    from gym_supplychain_tpu_torch.ops._mlp import MlpLayout
+
+    with pytest.raises(NotImplementedError, match=what):
+        pu.ppo_update_smem_bytes(MlpLayout(O, 14, hidden))
+    with pytest.raises(NotImplementedError):
+        make_ppo_update_grads(O, 14, hidden, 64)(
+            None, *(torch.zeros(1, 64, device="meta"),) * 5)
+
+
 def test_gae_matches_jax_with_dones_inside():
     S, B = 12, 5
     rs = np.random.RandomState(4)
