@@ -16,11 +16,13 @@ beer-game episode sweep at 4096 envs.
 
 Phases, in order; any failure exits nonzero:
   1. device, power limit, torch/CUDA/nvcc versions; kernel build time;
-     ptxas's registers and spills of the update and dense collect kernels
+     ptxas's registers and spills of the update kernel and of every
+     instance of the lane-group kernel (K1 ``random``/``actions``, K6a, K5)
   2. supply-chain kernel, ``actions`` mode, against plain (linear, ntom)
   3. supply-chain kernel, ``random`` mode, against plain; marginals
   4. beer-game kernel: v0 random and actions, v2 per-lane actions
-  5. the collection path: env-steps/s of kernel and plain, launch counts
+  5. the collection path: env-steps/s of kernel and plain, launch counts,
+     the lane-group kernel's lanes an env, envs a block and grid
   6. supply-chain kernel, policy modes, against plain (linear, ntom):
      ``policy_eps`` on Philox tables, ``policy`` against ``policy_eps``,
      the ``sample_major`` layout against the default one
@@ -33,7 +35,8 @@ Phases, in order; any failure exits nonzero:
   9. the episode kernel against plain at B = 4096, T = 360 (linear, ntom):
      ``actions`` on random tables, ``seeded`` against ``actions`` fed its
      Philox rows (bit for bit), greedy ``policy`` at hidden (128, 128);
-     then the rewards-only sweeps through ``make_supplychain_episode``
+     then the rewards-only sweeps through ``make_supplychain_episode``,
+     with the lane-group kernel's lanes, envs a block and grid
   10. the evaluation path: the train CLI writes a checkpoint, a resumed run
      must repeat the uninterrupted one bit for bit, the evaluate CLI runs
      both engines on it (B = 4096, T = 360, 4 episodes; they share their
@@ -53,7 +56,8 @@ bound: the larger of the bytes it must move over 3.35 TB/s and the float32
 operations it must do over 67 TFLOP/s (the H100 SXM data sheet at 700 W;
 the env step's scalar operations are not counted, so the bound stays a
 lower bound).  The last line is ``{"ok": true, "device": {...}}``.  Without
-CUDA it prints no result and exits nonzero.
+CUDA, or without the package beside it, it prints the reason and no result
+and exits 2.
 """
 from __future__ import annotations
 
@@ -150,6 +154,16 @@ def _check_sc(tag, k, p, errs):
         raise RuntimeError(f"{tag}: kernel disagrees with its plain version")
 
 
+def _plan(cc, kind, B):
+    """The lane-group kernel's plan for ``kind`` as printed beside a time:
+    lanes an env, envs a block and the grid (blocks x threads)."""
+    from gym_supplychain_tpu_torch.ops.supplychain_dense import lane_block
+
+    G, E, _, smem = lane_block(cc, kind)
+    return (f"G={G} lanes an env, E={E} envs a block, grid "
+            f"{-(-B // E)} x {G * E} threads, {smem} B shared a block")
+
+
 def _sc_tables(cc, S, B, seed, device):
     import numpy as np
     import torch
@@ -170,15 +184,16 @@ def phase_supplychain(chains, B, episodes, seed, errs):
     import numpy as np
     import torch
     from gym_supplychain_tpu_torch.ops.supplychain_collect import (
-        chain_descriptor, launch_supplychain_collect, philox_tables,
-        supplychain_collect_plain)
+        launch_supplychain_collect, philox_tables, supplychain_collect_plain)
+    from gym_supplychain_tpu_torch.ops.supplychain_dense import (
+        dense_descriptor)
     from gym_supplychain_tpu_torch.rng.device import poisson_clip_thresholds
 
     dev = torch.device("cuda")
     print("phase 2: supplychain_collect, mode 'actions', vs plain")
     for env_id, cc in chains.items():
         S = episodes * cc.T
-        desc = torch.as_tensor(chain_descriptor(cc), device=dev)
+        desc = torch.as_tensor(dense_descriptor(cc), device=dev)
         dem, lt, act = _sc_tables(cc, S, B, seed, dev)
         k = launch_supplychain_collect(desc, cc, S, B, "actions", demands=dem,
                                        leadtimes=lt, actions=act)
@@ -190,7 +205,7 @@ def phase_supplychain(chains, B, episodes, seed, errs):
     print("phase 3: supplychain_collect, mode 'random', vs plain")
     for env_id, cc in chains.items():
         S = episodes * cc.T
-        desc = torch.as_tensor(chain_descriptor(cc), device=dev)
+        desc = torch.as_tensor(dense_descriptor(cc), device=dev)
         k = launch_supplychain_collect(desc, cc, S, B, "random", seed=seed)
         p = supplychain_collect_plain(cc, episodes, B, "random", seed=seed,
                                       device=dev)
@@ -267,9 +282,10 @@ def phase_main_path(B, episodes, seed, reps):
     from gym_supplychain_tpu_torch.ops import supplychain_collect as scc
 
     dev = torch.device("cuda")
-    runs = {}
+    runs, plans = {}, {}
     for env_id in ("supplychain-linear-v0", "supplychain-ntom-v0"):
         cc = sct.make_chain(env_id)
+        plans[env_id] = "; " + _plan(cc, "collect", B)
         runs[env_id] = (scc.launch_supplychain_collect,
                         scc.make_supplychain_collect(
                             cc, cc.T, B, mode="random", episodes=episodes,
@@ -329,7 +345,7 @@ def phase_main_path(B, episodes, seed, reps):
               f"{steps / r['ms'] * 1e3:.4e} env-steps/s; plain "
               f"{plain_ms:.3f} ms = {steps / plain_ms * 1e3:.4e} env-steps/s;"
               f" launches {r['launches']}; output shape {tuple(k[0].shape)}; "
-              f"agrees with plain {ok}")
+              f"agrees with plain {ok}{plans.get(env_id, '')}")
         if not (ok and shape_ok and r["launches"] > 0):
             raise RuntimeError(f"main path {env_id} failed")
     print(f"  launch counts after the main path: {counts}")
@@ -639,12 +655,13 @@ def phase_episode(B, seed, errs):
     res = {}
     for env_id in ("supplychain-linear-v0", "supplychain-ntom-v0"):
         cc = sct.make_chain(env_id)
-        desc = torch.as_tensor(sce.chain_descriptor(cc), device=dev)
+        # K6a runs the lane-group kernel, K4 the one-thread step
+        desc = torch.as_tensor(sce.dense_descriptor(cc), device=dev)
         dem, lt, act = _episode_tables(cc, B, seed, dev)
         model = _policy_model(cc, seed, dev)
         layout = MlpLayout(cc.obs_dim, cc.A, HIDDEN)
-        greedy_args = (desc, cc, layout, torch.as_tensor(layout.ints,
-                                                         device=dev),
+        greedy_args = (torch.as_tensor(sce.chain_descriptor(cc), device=dev),
+                       cc, layout, torch.as_tensor(layout.ints, device=dev),
                        layout.pack(model.flat()), B, dem, lt)
         calls = {
             "actions": (lambda: sce.launch_supplychain_episode(
@@ -685,12 +702,14 @@ def phase_episode(B, seed, errs):
             res["seeded"]["bound"] = _bound(tables + out, 0)
             res["policy"]["bound"] = _bound(tables + out + 4 * layout.wsec[0],
                                             flops)
+            plan = "; " + _plan(cc, "episode", B)
             for mode, r in res.items():
                 print(f"  {tag} {mode}: kernel {r['ms']:.3f} ms (median of "
                       f"{REPS}), plain {r['plain_ms']:.1f} ms (median of "
                       f"{PLAIN_REPS}), bound {r['bound'][0]:.4f} ms "
                       f"({r['bound'][1]}): {r['bound'][0] / r['ms']:.2%} of "
-                      f"it; {cc.T * B / r['ms'] * 1e3:.4e} env-steps/s")
+                      f"it; {cc.T * B / r['ms'] * 1e3:.4e} env-steps/s"
+                      f"{plan if mode != 'policy' else ''}")
 
     # the rewards-only sweeps through the entry point: counts zeroed just
     # before each, read just after
@@ -705,7 +724,8 @@ def phase_episode(B, seed, errs):
         res[mode]["launches"] = sce.launch_supplychain_episode.launches
         print(f"  sweep through make_supplychain_episode, {mode}: {ms:.3f} ms"
               f" per episode, launches {res[mode]['launches']}, rewards "
-              f"{tuple(rew.shape)}, finite {bool(torch.isfinite(rew).all())}")
+              f"{tuple(rew.shape)}, finite {bool(torch.isfinite(rew).all())}"
+              f"; {_plan(cc, 'episode', B)}")
         if not (res[mode]["launches"] > 0 and rew.shape == (cc.T, B)
                 and bool(torch.isfinite(rew).all())):
             raise RuntimeError(f"episode sweep {mode} failed")
@@ -947,7 +967,7 @@ def _kernel_lines(res, tr, upd, ep, ev, dn, bge, sc_errs, bg_errs, pol_errs,
             cc = sct.make_chain(env_id)
             # obs [S,O,B], reward [S,B], final stock out
             bound = _bound(4 * B * (S * (cc.obs_dim + 1) + cc.N * cc.P), 0)
-            line(f"supplychain_collect[{env_id}]", "supplychain_collect.cu",
+            line(f"supplychain_collect[{env_id}]", "supplychain_lanes.cu",
                  f"{sc_pallas}:791", r["launches"],
                  max(sc_errs + [r["max_abs_err"]]), r["ms"], r["plain_ms"],
                  bound)
@@ -972,7 +992,9 @@ def _kernel_lines(res, tr, upd, ep, ev, dn, bge, sc_errs, bg_errs, pol_errs,
                 2 * macs * M))
     for mode in ("seeded", "actions", "policy"):
         r = ep[mode]
-        line(f"supplychain_episode[{mode}]", "supplychain_collect.cu",
+        line(f"supplychain_episode[{mode}]",
+             "supplychain_collect.cu" if mode == "policy"
+             else "supplychain_episode.cu",
              f"{sc_pallas}:736",
              ev["launches"] if mode == "policy" else r["launches"],
              max(ep_errs), r["ms"], r["plain_ms"], r["bound"])
@@ -986,20 +1008,25 @@ def _kernel_lines(res, tr, upd, ep, ev, dn, bge, sc_errs, bg_errs, pol_errs,
     return lines
 
 
+def _refuse(reason):
+    """Why the run stops before phase 1, on stdout and on stderr."""
+    print(reason, flush=True)
+    print(reason, file=sys.stderr)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     if not (ROOT / "gym_supplychain_tpu_torch").is_dir():
-        print("gym_supplychain_tpu_torch not found beside chip_smoke.py",
-              file=sys.stderr)
+        _refuse("gym_supplychain_tpu_torch not found beside chip_smoke.py")
         return 2
     sys.path.insert(0, str(ROOT))
     import torch
 
     if not torch.cuda.is_available():
-        print("CUDA is not available: nothing to run", file=sys.stderr)
+        _refuse("CUDA is not available: nothing to run")
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1017,7 +1044,7 @@ def main(argv=None) -> int:
     _build.library()
     print(f"kernel build {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
-    for kernel in ("ppo_grad_kernel", "sc_dense_kernel"):
+    for kernel in ("ppo_grad_kernel", "sc_lane_kernel"):
         rows = _build.ptxas_report(kernel)
         if not rows:
             raise RuntimeError(f"no ptxas report for {kernel}")

@@ -1,21 +1,20 @@
-// Supply-chain trajectory collection and whole-episode rollouts, one thread
-// per environment.
+// Supply-chain trajectory collection with the policy in the loop, and the
+// greedy whole-episode rollout, one thread stepping each environment.
 //
 // Replaces the TPU collect kernel `_collect_kernel` of
-// gym_supplychain_tpu/ops/supplychain_pallas.py in all its modes, and its
-// episode kernel `_kernel` (modes `seeded`, `actions`, `policy`).  Each
-// env runs through S = episodes * T steps with auto-reset at every episode
-// boundary, writing the pre-action observation and the reward of every
-// step.  The per-env state (stock [N*P], pipeline ring [RING*N*P]) lives in
-// per-thread arrays; the topology tables are one ScChain descriptor, copied
-// to shared memory per block and read with loops over nodes, products and
+// gym_supplychain_tpu/ops/supplychain_pallas.py in its policy modes, and its
+// episode kernel `_kernel` in mode `policy`.  Each env runs through S =
+// episodes * T steps with auto-reset at every episode boundary.  The
+// per-env state (stock [N*P], pipeline ring [RING*N*P]) lives in per-thread
+// arrays; the topology tables are one ScChain descriptor, copied to shared
+// memory per block and read with loops over nodes, products and
 // destinations at run time.  Stores of [.., B] rows are coalesced across a
-// warp.
+// warp.  (K1's modes `random` and `actions` and the rewards-only episode
+// kernel K6a run on the lane-group step instead: supplychain_lanes.cu,
+// supplychain_episode.cu.)
 //
-// * sc_collect_kernel (modes `random`, `actions`): 128 envs a block, one
-//   thread each.
-// * sc_policy_kernel (modes `policy`, `policy_eps`): the sampled
-//   tanh-Gaussian actor-critic in the loop.  A block of 4 warps holds 32
+// * sc_policy_kernel (K1 `policy`, `policy_eps`): the sampled tanh-Gaussian
+//   actor-critic in the loop.  A block of 4 warps holds 32
 //   envs: warp 0 steps them (one thread per env), then all 4 warps run the
 //   MLP together on the block's obs tile [O, 32] in shared memory, each
 //   thread computing 8 output rows of one env's column.  The packed weights
@@ -23,29 +22,26 @@
 //   dynamic shared memory once per launch, so at B = 4096 the 128 blocks
 //   spread over 128 of the 132 SMs, one block each.  It writes obs, the
 //   pre-tanh action, its log-prob, the critic's value and the reward.
-// * sc_episode_kernel (K6a: `seeded`, `actions`) and sc_greedy_kernel (K4:
-//   `policy`): one episode of T steps from demand [T+1,R,P,B] and lead-time
-//   [T,K,B] tables, writing only the reward [T,B] and the final stock.  The
-//   episode kernel is sc_collect_kernel without the obs stream, its actions
-//   from a table or from Philox at counter (lane, step, block, 0); the
-//   greedy kernel is sc_policy_kernel with the actor alone: warp 0 steps 32
-//   envs, all 4 warps run the actor trunk and the mu head on the obs tile,
-//   and the action is tanh(mu), with no noise and no critic.  Only the
-//   actor section of the packed weights (88 KB for ntom at hidden
+// * sc_greedy_kernel (K4: `policy`): one episode of T steps from demand
+//   [T+1,R,P,B] and lead-time [T,K,B] tables, writing only the reward [T,B]
+//   and the final stock: sc_policy_kernel with the actor alone: warp 0
+//   steps 32 envs, all 4 warps run the actor trunk and the mu head on the
+//   obs tile, and the action is tanh(mu), with no noise and no critic.  Only
+//   the actor section of the packed weights (88 KB for ntom at hidden
 //   (128, 128)) is copied to shared memory.
 //
 // Bounds on the card: the step is branchy scalar float work with indices
 // known only at run time, so the state sits in local memory (L1) and the
-// step is latency-bound; the only large traffic is the obs stream
-// (S * O * B * 4 bytes), and in the episode kernels the tables they read.
-// The MLP reads weights as shared-memory broadcasts and activations without
-// bank conflicts; it is issue-bound (a rounded product and an add per
-// weight per env), which makes the greedy kernel's floor its float32
-// multiply-adds (2 * 21,632 FLOP per env-step for ntom at (128, 128)).
+// step is latency-bound; the large traffic is the obs stream (S * O * B * 4
+// bytes) and the tables read.  The MLP reads weights as shared-memory
+// broadcasts and activations without bank conflicts; it is issue-bound (a
+// rounded product and an add per weight per env), which makes the greedy
+// kernel's floor its float32 multiply-adds (2 * 21,632 FLOP per env-step for
+// ntom at (128, 128)).
 //
 // The step itself (chain descriptor, episode init, observation, the six
-// phases) and its floating-point rules are in supplychain_step.cuh, shared
-// with the dense kernel.  Beyond them: MLP layers accumulate w[j][k] * x[k]
+// phases) and its floating-point rules are in supplychain_step.cuh.  Beyond
+// them: MLP layers accumulate w[j][k] * x[k]
 // over k in order, starting from the k = 0 product, then add the bias; the
 // log-prob sums its A terms in order; tanhf, expf, log1pf, cosf and sqrtf
 // are the functions PyTorch's CUDA kernels call, so policy actions match
@@ -123,20 +119,6 @@ __device__ __forceinline__ void sc_draw_inputs(const ScChain& ch, int b, int s,
   }
 }
 
-// ---- n uniforms in [0, 1) from Philox at counter (lane, step, blk, 0) ----
-__device__ __forceinline__ void sc_draw_uniforms(int b, int s, uint32_t k0,
-                                                 uint32_t k1, int n, float* u) {
-  for (int blk = 0; blk * 4 < n; ++blk) {
-    const uint4 w = philox4x32_10(
-        make_uint4((uint32_t)b, (uint32_t)s, (uint32_t)blk, 0u), k0, k1);
-    for (int q = 0; q < 4; ++q) {
-      const int i = blk * 4 + q;
-      if (i >= n) break;
-      u[i] = uniform01(philox_word(w, q));
-    }
-  }
-}
-
 // ---- one step's table rows: demands [S,R,P,B], lead-times [S,K,B] --------
 __device__ __forceinline__ void sc_read_inputs(const ScChain& ch, int s, int b,
                                                size_t Bz,
@@ -178,49 +160,6 @@ __device__ __forceinline__ float sc_step_local(const ScChain& ch, float* stock,
                                                const float* dem, int t) {
   LocalIn in{a, lt_row, dem};
   return sc_step(ch, stock, ring, upd, in, t);
-}
-
-__global__ void __launch_bounds__(128)
-sc_collect_kernel(const ScChain* __restrict__ gch, int mode, int S, int B,
-                  const float* __restrict__ dem_tab,
-                  const int* __restrict__ lt_tab,
-                  const float* __restrict__ act_tab, uint32_t k0, uint32_t k1,
-                  float* __restrict__ obs, float* __restrict__ rew,
-                  float* __restrict__ stock_out) {
-  __shared__ ScChain ch;
-  copy_chain(gch, &ch);
-  __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-
-  const int NP = ch.N * ch.P, T = ch.T, A = ch.A, O = ch.obs_dim;
-  const size_t Bz = (size_t)B;
-
-  float stock[SC_MAX_NP], ring[SC_MAX_RING * SC_MAX_NP];
-  float upd[SC_MAX_RING * SC_MAX_NP];
-  float a[SC_MAX_A], dem[SC_MAX_RP];
-  int lt_row[SC_MAX_K];
-
-  for (int s = 0; s < S; ++s) {
-    const int te = s % T;
-    if (te == 0) sc_episode_init(ch, stock, ring);
-
-    // ---- this step's inputs: actions, lead-time row, demand row --------
-    if (mode == MODE_RANDOM) {
-      sc_draw_inputs(ch, b, s, k0, k1, A, a, lt_row, dem);
-      for (int i = 0; i < A; ++i) a[i] = 2.0f * a[i] - 1.0f;
-    } else {
-      for (int i = 0; i < A; ++i) a[i] = act_tab[((size_t)s * A + i) * Bz + b];
-      sc_read_inputs(ch, s, b, Bz, dem_tab, lt_tab, lt_row, dem);
-    }
-    for (int i = 0; i < A; ++i) a[i] = (a[i] + 1.0f) * 0.5f;
-
-    sc_obs(ch, stock, ring, dem, te,
-           ObsSink{obs + (size_t)s * O * Bz + b, Bz, nullptr});
-    rew[(size_t)s * Bz + b] = sc_step_local(ch, stock, ring, upd, a, lt_row, dem, te + 1);
-  }
-  if (stock_out != nullptr)
-    for (int i = 0; i < NP; ++i) stock_out[(size_t)i * Bz + b] = stock[i];
 }
 
 // ---- the policy kernel's MLP ----------------------------------------------
@@ -390,43 +329,6 @@ sc_policy_kernel(const ScChain* __restrict__ gch, const int* __restrict__ glay,
     for (int i = 0; i < ch.N * ch.P; ++i) stock_out[(size_t)i * Bz + b] = stock[i];
 }
 
-// ---- K6a: one episode, actions from a table or from Philox ---------------
-__global__ void __launch_bounds__(128)
-sc_episode_kernel(const ScChain* __restrict__ gch, int mode, int B,
-                  const float* __restrict__ dem_tab,
-                  const int* __restrict__ lt_tab,
-                  const float* __restrict__ act_tab, uint32_t k0, uint32_t k1,
-                  float* __restrict__ rew, float* __restrict__ stock_out) {
-  __shared__ ScChain ch;
-  copy_chain(gch, &ch);
-  __syncthreads();
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-
-  const int NP = ch.N * ch.P, T = ch.T, A = ch.A;
-  const size_t Bz = (size_t)B;
-
-  float stock[SC_MAX_NP], ring[SC_MAX_RING * SC_MAX_NP];
-  float upd[SC_MAX_RING * SC_MAX_NP];
-  float a[SC_MAX_A], dem[SC_MAX_RP];
-  int lt_row[SC_MAX_K];
-
-  sc_episode_init(ch, stock, ring);
-  for (int s = 0; s < T; ++s) {
-    if (mode == MODE_SEEDED) {
-      sc_draw_uniforms(b, s, k0, k1, A, a);
-      for (int i = 0; i < A; ++i) a[i] = 2.0f * a[i] - 1.0f;
-    } else {
-      for (int i = 0; i < A; ++i) a[i] = act_tab[((size_t)s * A + i) * Bz + b];
-    }
-    sc_read_inputs(ch, s, b, Bz, dem_tab, lt_tab, lt_row, dem);
-    for (int i = 0; i < A; ++i) a[i] = (a[i] + 1.0f) * 0.5f;
-    rew[(size_t)s * Bz + b] = sc_step_local(ch, stock, ring, upd, a, lt_row, dem, s + 1);
-  }
-  if (stock_out != nullptr)
-    for (int i = 0; i < NP; ++i) stock_out[(size_t)i * Bz + b] = stock[i];
-}
-
 // ---- K4: one episode of the greedy policy tanh(mu) ------------------------
 __global__ void __launch_bounds__(PK_THREADS)
 sc_greedy_kernel(const ScChain* __restrict__ gch, const int* __restrict__ glay,
@@ -486,20 +388,6 @@ sc_greedy_kernel(const ScChain* __restrict__ gch, const int* __restrict__ glay,
     for (int i = 0; i < ch.N * ch.P; ++i) stock_out[(size_t)i * Bz + b] = stock[i];
 }
 
-extern "C" int sc_collect_launch(const void* chain, int chain_bytes, int mode,
-                                 int S, int B, const float* dem_tab,
-                                 const int* lt_tab, const float* act_tab,
-                                 unsigned int k0, unsigned int k1, float* obs,
-                                 float* rew, float* stock_out, void* stream) {
-  if (chain_bytes != (int)sizeof(ScChain)) return -1;
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  sc_collect_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const ScChain*)chain, mode, S, B, dem_tab, lt_tab, act_tab, k0, k1, obs,
-      rew, stock_out);
-  return (int)cudaGetLastError();
-}
-
 extern "C" int sc_policy_launch(const void* chain, int chain_bytes,
                                 const int* layout, const float* weights,
                                 int smem_bytes, int mode, int S, int B,
@@ -517,21 +405,6 @@ extern "C" int sc_policy_launch(const void* chain, int chain_bytes,
   sc_policy_kernel<<<blocks, PK_THREADS, smem_bytes, (cudaStream_t)stream>>>(
       (const ScChain*)chain, layout, weights, mode, S, B, dem_tab, lt_tab,
       eps_tab, k0, k1, sample_major, obs, act_pre, logp, value, rew,
-      stock_out);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int sc_episode_launch(const void* chain, int chain_bytes, int mode,
-                                 int B, const float* dem_tab, const int* lt_tab,
-                                 const float* act_tab, unsigned int k0,
-                                 unsigned int k1, float* rew, float* stock_out,
-                                 void* stream) {
-  if (chain_bytes != (int)sizeof(ScChain)) return -1;
-  if (mode != MODE_SEEDED && mode != MODE_ACTIONS) return -3;
-  const int threads = 128;
-  const int blocks = (B + threads - 1) / threads;
-  sc_episode_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const ScChain*)chain, mode, B, dem_tab, lt_tab, act_tab, k0, k1, rew,
       stock_out);
   return (int)cudaGetLastError();
 }
@@ -560,6 +433,7 @@ extern "C" const char* gst_error_string(int code) {
   if (code == -2) return "beer game levels or ring exceed the kernel limits";
   if (code == -3) return "unknown collect mode";
   if (code == -4) return "MLP layout differs from the kernel's";
-  if (code == -5) return "envs per block outside 1..32";
+  if (code == -5) return "shared memory too small for the block's envs";
+  if (code == -6) return "no lane-kernel instance for these lanes, envs and slots";
   return cudaGetErrorString((cudaError_t)code);
 }

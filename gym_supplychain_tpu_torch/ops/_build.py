@@ -37,14 +37,12 @@ _lib_dir = None
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _F = ctypes.c_float
 _SIGNATURES = {
-    "sc_collect_launch": [_P, _I, _I, _I, _I, _P, _P, _P, _U, _U, _P, _P, _P,
-                          _P],
     "sc_policy_launch": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _U, _U,
                          _I, _P, _P, _P, _P, _P, _P, _P],
-    "sc_episode_launch": [_P, _I, _I, _I, _P, _P, _P, _U, _U, _P, _P, _P],
     "sc_greedy_launch": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
-    "sc_dense_launch": [_P, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P, _U, _U,
-                        _P, _P, _P, _P],
+    # the lane-group kernel's entries (LN_ENTRY_ARGS): K5, K1, K6a
+    **{name: [_P] + [_I] * 10 + [_P, _P, _P, _U, _U, _P, _P, _P, _P]
+       for name in ("sc_dense_launch", "sc_lane_launch", "sc_episode_launch")},
     "bg_collect_launch": [_I] * 19 + [_P, _P, _P, _U, _U, _P, _P, _P],
     "bg_episode_launch": [_I] * 10 + [_P] * 5,
     "ppo_update_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F,
@@ -52,8 +50,6 @@ _SIGNATURES = {
     "sc_chain_bytes": [],
     "dn_chain_bytes": [],
     "dn_edges_bytes": [],
-    "dn_envs": [],
-    "dn_lanes": [],
     "mlp_layout_ints": [],
     "ppo_layout_ints": [],
     "ppo_kernel_consts": [_P],
@@ -166,9 +162,10 @@ def ptxas_report(kernel: str):
 
 
 def _demangle(name: str) -> str:
-    """``_Z15sc_dense_kernelILi16ELi10EEv...`` -> ``sc_dense_kernel<16,10>``;
-    a plain C++ name without template arguments keeps its base name."""
-    m = re.match(r"_Z(\d+)", name)
+    """``_Z15sc_dense_kernelILi16ELi10EEv...`` -> ``sc_dense_kernel<16,10>``
+    (``_ZL...`` for a ``static`` kernel alike); a plain C++ name without
+    template arguments keeps its base name."""
+    m = re.match(r"_ZL?(\d+)", name)
     if not m:
         return name
     n = int(m[1])

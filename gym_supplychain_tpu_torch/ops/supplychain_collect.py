@@ -27,18 +27,28 @@ auto-reset at every boundary; every step emits its pre-action observation
   ``[X, S*B]`` with time-major columns ``s*B + b``: the update phase's
   sample layout, read with no copy.
 
-The kernels (``csrc/supplychain_collect.cu``) run one thread per env with
-its state in per-thread arrays and the chain in a shared-memory descriptor;
-the policy kernel runs the MLP cooperatively per block of 32 envs with the
-weights in shared memory.  What bounds them on the card, and the MLP's
-ordered accumulation, are set out at the top of that file; the step they
-share with the dense kernel, and the float rules it and the plain version
-follow (no FMA contraction, the pipeline add association, ordered sums,
-the stable sorted cut), at the top of ``csrc/supplychain_step.cuh``.  The
-descriptor ``chain_descriptor`` gives the kernels is that header's
-``ChainT`` at the limits ``_MAX``.  The plain version is
-an eager loop over ``core/step.py``; the wrapper takes it only for a tensor
-on the CPU, and launches the kernel or raises for a CUDA one.
+Two kernels serve the modes, both within the size limits ``_MAX``:
+
+* ``random`` and ``actions`` run the lane-group kernel
+  (``csrc/supplychain_lanes.cu`` on ``csrc/supplychain_lanes.cuh``, the
+  step K5 and K6a share): each env on a group of 4, 8 or 16 lanes, 8 envs
+  a block, its state in shared memory, launched through
+  ``ops/supplychain_dense.py``'s ``launch_lanes`` on the descriptor
+  ``dense_descriptor`` makes.
+* the policy modes run ``sc_policy_kernel`` (``csrc/supplychain_collect.cu``)
+  on the one-thread step of ``csrc/supplychain_step.cuh``: one thread per
+  env with its state in per-thread arrays and the chain in a shared-memory
+  descriptor (``chain_descriptor``: that header's ``ChainT`` at ``_MAX``),
+  the MLP run cooperatively per block of 32 envs with the weights in shared
+  memory.
+
+What bounds them on the card, and the MLP's ordered accumulation, are set
+out at the top of those files; the float rules both steps and the plain
+version follow (no FMA contraction, the pipeline add association, ordered
+sums, the stable sorted cut), at the top of ``csrc/supplychain_step.cuh``.
+The plain version is an eager loop over ``core/step.py``; the wrapper takes
+it only for a tensor on the CPU, and launches the kernel or raises for a
+CUDA one.
 """
 from __future__ import annotations
 
@@ -354,13 +364,15 @@ def _check_tables(cc, S, B, device, demands, leadtimes, rows, name):
 def launch_supplychain_collect(desc: torch.Tensor, cc: CompiledChain, S: int,
                                B: int, mode: str, seed: int = 0,
                                demands=None, leadtimes=None, actions=None):
-    """Launch the CUDA collect kernel (``random``, ``actions``) on the
-    current stream.
+    """Launch the CUDA collect kernel (``random``, ``actions``: the
+    lane-group kernel) on the current stream.
 
-    ``desc`` is ``chain_descriptor(cc)`` as a uint8 tensor on the card.
-    Returns ``(obs [S,O,B], reward [S,B], final stock [N,P,B])``.
+    ``desc`` is ``dense_descriptor(cc)`` (``ops/supplychain_dense.py``) as a
+    uint8 tensor on the card.  Returns ``(obs [S,O,B], reward [S,B], final
+    stock [N,P,B])``.
     """
-    from ._build import check, library
+    # supplychain_dense imports this module
+    from .supplychain_dense import launch_lanes
 
     if mode not in ("random", "actions"):
         raise ValueError(f"mode {mode!r}: this launcher takes 'random' and "
@@ -369,28 +381,15 @@ def launch_supplychain_collect(desc: torch.Tensor, cc: CompiledChain, S: int,
     device = desc.device
     if device.type != "cuda":
         raise ValueError("the collect kernel runs on a CUDA device")
-    _check(desc, "desc", torch.uint8, (DESC_BYTES,), device)
     ptrs = (None, None, None)
     if mode == "random":
         check_uniform_demand(cc)
     else:
         ptrs = _check_tables(cc, S, B, device, demands, leadtimes, actions,
                              "actions")
-    lib = library()
-    if lib.sc_chain_bytes() != DESC_BYTES:
-        raise RuntimeError("chain descriptor layout differs from the kernel's")
-    obs = torch.empty((S, cc.obs_dim, B), dtype=torch.float32, device=device)
-    rew = torch.empty((S, B), dtype=torch.float32, device=device)
-    stock = torch.empty((cc.N, cc.P, B), dtype=torch.float32, device=device)
-    k0, k1 = seed_key(seed)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.sc_collect_launch(
-            desc.data_ptr(), DESC_BYTES, _MODES[mode], S, B, *ptrs, k0, k1,
-            obs.data_ptr(), rew.data_ptr(), stock.data_ptr(), stream)
-    check(code, "supplychain collect")
+    out = launch_lanes(desc, cc, "collect", S, B, mode, seed, ptrs)
     launch_supplychain_collect.launches += 1
-    return obs, rew, stock
+    return out
 
 
 launch_supplychain_collect.launches = 0
@@ -522,7 +521,14 @@ def make_supplychain_collect(cc: CompiledChain, T: int, B: int,
     # unsupported chains and networks fail here, when the collector is built
     if mode in ("random", "policy"):
         check_uniform_demand(cc)
-    desc = (torch.as_tensor(chain_descriptor(cc), device=device)
+    if policy:
+        words = chain_descriptor(cc)
+    else:
+        # supplychain_dense imports this module
+        from .supplychain_dense import dense_descriptor, lane_block
+        lane_block(cc, "collect")
+        words = dense_descriptor(cc)
+    desc = (torch.as_tensor(words, device=device)
             if device.type == "cuda" else None)
     if policy:
         layout = MlpLayout(cc.obs_dim, cc.A, hidden)

@@ -1,7 +1,21 @@
-"""Trajectory collection for large chains (K5): CUDA kernel, plain version,
+"""The lane-group kernel's descriptor, planner and launch, and the
+trajectory collection for large chains (K5): CUDA kernel, plain version,
 wrapper.
 
-Replaces the TPU kernel ``make_supplychain_dense_collect_pallas`` of
+The lane-group kernel (``csrc/supplychain_lanes.cuh``) steps each env on a
+group of G lanes, E envs a block, with the env's state in shared memory:
+lanes split each phase of the step over nodes, rows or shipping nodes, and
+the lane of each destination adds its incoming edges' shipments in the
+order ``dense_edges`` lists them.  It reads each input where the step uses
+it.  It serves three kernels, all on the descriptor ``dense_descriptor``
+makes and planned by ``lane_block``: K5 here, K1's ``random`` and
+``actions`` modes (``ops/supplychain_collect.py``) and K6a
+(``ops/supplychain_episode.py``), each launched through ``launch_lanes``.
+It follows the collect kernels' float rules (``csrc/supplychain_step.cuh``)
+and matches the plain versions bit for bit in the dynamics; rewards differ
+in the order of the cost sum (~1e-7 relative).
+
+K5 replaces the TPU kernel ``make_supplychain_dense_collect_pallas`` of
 ``gym_supplychain_tpu/ops/supplychain_pallas_dense.py`` (``_kernel``), the
 collect kernel of the 26-40-node topologies (``sc-Nperstage-multiproduct-v0``
 at ``[5, 4, 7, 10]`` nodes per echelon, 4 products, or 10 per echelon, 2
@@ -22,18 +36,11 @@ reward ``reward [S, B]`` (S = episodes * T).
   kernel draws lead-times per use from the TPU's generator instead; no
   stream of the port matches the TPU's value for value anyway.
 
-The kernel (``csrc/supplychain_dense.cu``) runs each env on a group of 16
-lanes (``dense_block``), 8 envs a block, with the env's state in
-shared memory: lanes split each phase of the step over nodes, rows or
-shipping nodes, and the lane of each destination adds its incoming edges'
-shipments in the order ``dense_edges`` lists them.  It reads each input
-where the step uses it, so it builds none of the JAX kernel's pre-gathered
-``[S, N, P, Dmax, B]`` tables.  It follows the collect kernels' float rules
-(``csrc/supplychain_step.cuh``) and matches the plain version, an eager
-loop over ``core/step.py`` (``supplychain_collect_plain``), bit for bit in
-the dynamics; rewards differ in the order of the cost sum (~1e-7 relative).
-The wrapper takes the plain version only for a tensor on the CPU, and
-launches the kernel or raises for a CUDA one.
+K5 runs 16 lanes an env, 8 envs a block, and builds none of the JAX
+kernel's pre-gathered ``[S, N, P, Dmax, B]`` tables.  Its plain version is
+an eager loop over ``core/step.py`` (``supplychain_collect_plain``).  The
+wrapper takes the plain version only for a tensor on the CPU, and launches
+the kernel or raises for a CUDA one.
 """
 from __future__ import annotations
 
@@ -42,22 +49,23 @@ import torch
 
 from ..core.compile import CompiledChain
 from ._mlp import SMEM_MAX
-from .supplychain_collect import (_check, _check_tables, _desc_fields,
+from .supplychain_collect import (_MAX, _check, _check_tables, _desc_fields,
                                   check_kernel_support, check_uniform_demand,
                                   descriptor_words, resolve_device, seed_key,
                                   supplychain_collect_plain)
 
 __all__ = ["make_supplychain_dense_collect", "launch_supplychain_dense",
            "supplychain_dense_collect_plain", "dense_descriptor",
-           "dense_edges", "dense_block", "DENSE_MAX"]
+           "dense_edges", "lane_block", "launch_lanes", "DENSE_MAX"]
 
-_MODES = {"random": 0, "actions": 1}      # the kernel's mode numbers
-# the kernel's size limits (DN_MAX_* of csrc/supplychain_dense.cu; K and A
+_MODES = ("random", "actions")            # K5's modes
+_LANE_MODES = {"random": 0, "actions": 1, "seeded": 4}  # the kernel's numbers
+# the kernel's size limits (DN_MAX_* of csrc/supplychain_lanes.cuh; K and A
 # bound nothing in the kernel, they are its tested range)
 DENSE_MAX = dict(N=64, P=16, NP=128, D=16, ND=1024, NPD=2048, RING=8, K=512,
                  A=1024, RP=128, CDF=8)
 _DN_FIELDS = _desc_fields(DENSE_MAX)
-# struct DnEdges of csrc/supplychain_dense.cu, right after DnChain
+# struct DnEdges of csrc/supplychain_lanes.cuh, right after DnChain
 _DN_EDGE_FIELDS = [("n_edges", "i", 1), ("n_ship", "i", 1), ("pad0", "i", 1),
                    ("pad1", "i", 1), ("ship_list", "i", DENSE_MAX["N"]),
                    ("edge_id", "i", DENSE_MAX["ND"]),
@@ -65,8 +73,13 @@ _DN_EDGE_FIELDS = [("n_edges", "i", 1), ("n_ship", "i", 1), ("pad0", "i", 1),
                    ("in_edge", "i", DENSE_MAX["ND"])]
 DN_CHAIN_BYTES = 4 * sum(c for _, _, c in _DN_FIELDS)
 DN_DESC_BYTES = DN_CHAIN_BYTES + 4 * sum(c for _, _, c in _DN_EDGE_FIELDS)
-DN_ENVS, DN_LANES = 8, 16      # envs a block, lanes an env (the kernel's)
-_SLOT_BOUNDS = (2, 4, 10, 16)  # the kernel's compile-time degrees (DN_CASE)
+_SLOT_BOUNDS = (2, 4, 10, 16)  # the kernel's compile-time degrees (LN_CASE)
+# lanes an env of K1 and K6a (the least that holds max(N*P, shipping
+# nodes)), and envs a block of every instance (LN_CASE in csrc/)
+LANE_GROUPS, LANE_ENVS = (4, 8, 16), 8
+# each kind's launch entry (K5, K1, K6a)
+_ENTRIES = {"dense": "sc_dense_launch", "collect": "sc_lane_launch",
+            "episode": "sc_episode_launch"}
 
 
 def dense_slot_bound(cc: CompiledChain) -> int:
@@ -74,6 +87,12 @@ def dense_slot_bound(cc: CompiledChain) -> int:
     ``_SLOT_BOUNDS`` that holds ``Dmax`` (its slot loops unroll into
     registers)."""
     return next(d for d in _SLOT_BOUNDS if cc.Dmax <= d)
+
+
+def _shipping_nodes(cc: CompiledChain) -> np.ndarray:
+    """Which nodes ship: a non-retailer with a product to ship."""
+    return (np.asarray(cc.has_ship)
+            & ~np.asarray(cc.is_retailer)[:, None]).any(axis=1)
 
 
 def dense_edges(cc: CompiledChain) -> dict:
@@ -87,8 +106,7 @@ def dense_edges(cc: CompiledChain) -> dict:
     ``ship_list`` holds the shipping nodes."""
     N, D = cc.N, cc.Dmax
     em = np.asarray(cc.edge_mask, bool)
-    has_ship = (np.asarray(cc.has_ship)
-                & ~np.asarray(cc.is_retailer)[:, None]).any(axis=1)
+    has_ship = _shipping_nodes(cc)
     edge_id = np.full(N * D, -1, np.int32)
     src = []
     for n in range(N):
@@ -123,26 +141,74 @@ def dense_descriptor(cc: CompiledChain) -> np.ndarray:
     return words.view(np.uint8)
 
 
-def dense_block(cc: CompiledChain):
-    """``(G, E, shared bytes)``: the lanes an env's group takes (16, the
-    kernel's ``DN_LANES``), the envs a block holds, and the block's dynamic
-    shared memory.  Each env has an odd-length stretch (so the block's
-    o-major obs write-out reads the 8 envs from distinct banks) of stock
-    ``[N*P]``, the pipeline ring ``[RING*N*P]``, the demand row ``[R*P]``,
-    the shipped amount per (edge, product) and lead-time per edge, the
-    fired count per node and the observation ``[O]``.  Raises where 8 envs
-    do not fit in a block."""
-    e = dense_edges(cc)
+def lane_block(cc: CompiledChain, kind: str):
+    """``(G, E, stride, shared bytes)`` of the lane-group kernel for
+    ``kind``: ``"dense"`` (K5: 16 lanes an env), ``"collect"`` (K1
+    ``random``/``actions``) or ``"episode"`` (K6a: no observation); the
+    last two take the least of ``LANE_GROUPS`` that holds ``max(N*P,
+    shipping nodes)`` and only chains within the collect kernel's limits.
+    E is ``LANE_ENVS``: a block's o-major obs write-out runs are one 32-byte
+    sector.  Each env has an odd-length stretch of ``stride`` words (so the
+    write-out reads the block's envs from distinct banks): stock ``[N*P]``,
+    the pipeline ring ``[RING*N*P]``, the demand row ``[R*P]``, the shipped
+    amount per (edge, product) and lead-time per edge, the fired count per
+    node and, but in ``"episode"``, the observation ``[O]``.  Raises for a
+    chain beyond the kind's limits or where E envs do not fit in a block."""
+    if kind not in _ENTRIES:
+        raise ValueError(f"unknown lane-kernel kind {kind!r}")
+    if kind != "dense":
+        check_kernel_support(cc, _MAX)
+    # dense_edges' counts, without its lists: the launches plan every call
+    ships = _shipping_nodes(cc)
+    n_edges = int((np.asarray(cc.edge_mask, bool) & ships[:, None]).sum())
     NP = cc.N * cc.P
-    words = (NP * (1 + cc.H + 1) + cc.R * cc.P + e["n_edges"] * (cc.P + 1)
-             + cc.N + cc.obs_dim)
-    stride = words | 1
-    smem = 4 * DN_ENVS * stride
+    words = (NP * (1 + cc.H + 1) + cc.R * cc.P + n_edges * (cc.P + 1)
+             + cc.N + (cc.obs_dim if kind != "episode" else 0))
+    G = 16 if kind == "dense" else next(
+        (g for g in LANE_GROUPS if g >= max(NP, int(ships.sum()))),
+        LANE_GROUPS[-1])
+    E, stride = LANE_ENVS, words | 1
+    smem = 4 * E * stride
     if smem > SMEM_MAX:
-        raise NotImplementedError(f"{DN_ENVS} envs of this chain take {smem} "
-                                  f"bytes of shared memory; a block has "
-                                  f"{SMEM_MAX}")
-    return DN_LANES, DN_ENVS, smem
+        raise NotImplementedError(f"{E} envs of this chain take {smem} bytes "
+                                  f"of shared memory; a block has {SMEM_MAX}")
+    return G, E, stride, smem
+
+
+def launch_lanes(desc: torch.Tensor, cc: CompiledChain, kind: str, S: int,
+                 B: int, mode: str, seed: int, ptrs):
+    """Launch the lane-group kernel planned by ``lane_block(cc, kind)`` on
+    the current stream, S steps (auto-reset every T).  ``desc`` is
+    ``dense_descriptor(cc)`` on the card, ``ptrs`` the addresses of the
+    demand, lead-time and action tables the caller checked (None where the
+    mode draws them).  Returns ``(obs [S,O,B], reward [S,B], final stock
+    [N,P,B])``, obs None for ``"episode"``."""
+    from ._build import check, library
+
+    device = desc.device
+    if device.type != "cuda":
+        raise ValueError("the lane-group kernel runs on a CUDA device")
+    _check(desc, "desc", torch.uint8, (DN_DESC_BYTES,), device)
+    G, E, stride, smem = lane_block(cc, kind)
+    lib = library()
+    if lib.dn_chain_bytes() + lib.dn_edges_bytes() != DN_DESC_BYTES:
+        raise RuntimeError("chain descriptor layout differs from the kernel's")
+    f32 = dict(dtype=torch.float32, device=device)
+    obs = (torch.empty((S, cc.obs_dim, B), **f32) if kind != "episode"
+           else None)
+    rew = torch.empty((S, B), **f32)
+    stock = torch.empty((cc.N, cc.P, B), **f32)
+    entry = getattr(lib, _ENTRIES[kind])
+    k0, k1 = seed_key(seed)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = entry(desc.data_ptr(), DN_DESC_BYTES, _LANE_MODES[mode], S, B,
+                     G, E, dense_slot_bound(cc), int(obs is not None), stride,
+                     smem, *ptrs, k0, k1,
+                     obs.data_ptr() if obs is not None else None,
+                     rew.data_ptr(), stock.data_ptr(), stream)
+    check(code, f"lane-group kernel ({kind}, {G} lanes, {E} envs a block)")
+    return obs, rew, stock
 
 
 def supplychain_dense_collect_plain(cc: CompiledChain, episodes: int, B: int,
@@ -162,45 +228,26 @@ def supplychain_dense_collect_plain(cc: CompiledChain, episodes: int, B: int,
 def launch_supplychain_dense(desc: torch.Tensor, cc: CompiledChain, S: int,
                              B: int, mode: str, seed: int = 0, demands=None,
                              leadtimes=None, actions=None):
-    """Launch the CUDA dense collect kernel on the current stream.
+    """Launch the CUDA dense collect kernel (the lane-group kernel at 16
+    lanes an env) on the current stream.
 
     ``desc`` is ``dense_descriptor(cc)`` as a uint8 tensor on the card.
     Returns ``(obs [S,O,B], reward [S,B], final stock [N,P,B])``.
     """
-    from ._build import check, library
-
     if mode not in _MODES:
         raise ValueError(f"unknown dense collect mode {mode!r}")
     device = desc.device
     if device.type != "cuda":
         raise ValueError("the dense collect kernel runs on a CUDA device")
-    _check(desc, "desc", torch.uint8, (DN_DESC_BYTES,), device)
     ptrs = (None, None, None)
     if mode == "random":
         check_uniform_demand(cc)
     else:
         ptrs = _check_tables(cc, S, B, device, demands, leadtimes, actions,
                              "actions")
-    G, E, smem = dense_block(cc)
-    lib = library()
-    if (lib.dn_chain_bytes() + lib.dn_edges_bytes() != DN_DESC_BYTES
-            or (lib.dn_lanes(), lib.dn_envs()) != (G, E)):
-        raise RuntimeError("chain descriptor layout differs from the kernel's")
-    f32 = dict(dtype=torch.float32, device=device)
-    obs = torch.empty((S, cc.obs_dim, B), **f32)
-    rew = torch.empty((S, B), **f32)
-    stock = torch.empty((cc.N, cc.P, B), **f32)
-    k0, k1 = seed_key(seed)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.sc_dense_launch(
-            desc.data_ptr(), DN_DESC_BYTES, _MODES[mode], S, B,
-            dense_slot_bound(cc), smem // (4 * E), smem,
-            *ptrs, k0, k1, obs.data_ptr(), rew.data_ptr(), stock.data_ptr(),
-            stream)
-    check(code, "supplychain dense collect")
+    out = launch_lanes(desc, cc, "dense", S, B, mode, seed, ptrs)
     launch_supplychain_dense.launches += 1
-    return obs, rew, stock
+    return out
 
 
 launch_supplychain_dense.launches = 0
@@ -233,7 +280,7 @@ def make_supplychain_dense_collect(cc: CompiledChain, T: int, B: int,
     S = episodes * T
     # unsupported chains fail here, when the collector is built
     words = dense_descriptor(cc)
-    dense_block(cc)
+    lane_block(cc, "dense")
     if mode == "random":
         check_uniform_demand(cc)
     desc = (torch.as_tensor(words, device=device)

@@ -24,13 +24,18 @@ chains), and writes only the rewards ``[T, B]``.
   the plain version agree bit for bit, as the collect kernel's policy
   modes do.
 
-The kernels (``sc_episode_kernel`` and ``sc_greedy_kernel`` in
-``csrc/supplychain_collect.cu``) reuse the collect kernels' episode init,
-table reads, observation, step and MLP, and the weight packing of
-``ops/_mlp.py``; what bounds them is set out at the top of that file.  The
-plain version is an eager loop over ``core/step.py`` in table mode; the
-wrapper takes it only for tensors on the CPU, and launches the kernel or
-raises for CUDA ones.
+``seeded`` and ``actions`` (K6a) run the lane-group kernel without its
+observation stream (``csrc/supplychain_episode.cu`` on
+``csrc/supplychain_lanes.cuh``, the step K1's ``random``/``actions`` and K5
+share: each env on a group of 4, 8 or 16 lanes, 8 envs a block), launched
+through ``ops/supplychain_dense.py``'s ``launch_lanes`` on the descriptor
+``dense_descriptor`` makes.  ``policy`` (K4) runs ``sc_greedy_kernel``
+(``csrc/supplychain_collect.cu``) on the one-thread step of
+``csrc/supplychain_step.cuh``, the chain descriptor ``chain_descriptor``
+and the weight packing of ``ops/_mlp.py``.  What bounds them is set out at
+the top of those files.  The plain version is an eager loop over
+``core/step.py`` in table mode; the wrapper takes it only for tensors on
+the CPU, and launches the kernel or raises for CUDA ones.
 """
 from __future__ import annotations
 
@@ -44,12 +49,13 @@ from ..rng.device import philox_uniform
 from ._mlp import LAYOUT_INTS, SMEM_MAX, MlpLayout
 from .supplychain_collect import (_PK_ENVS, DESC_BYTES, _check, _mlp_ordered,
                                   chain_descriptor, resolve_device, seed_key)
+from .supplychain_dense import dense_descriptor, lane_block, launch_lanes
 
 __all__ = ["make_supplychain_episode", "make_supplychain_policy_rollout",
            "launch_supplychain_episode", "launch_supplychain_greedy",
            "supplychain_episode_plain", "seeded_actions", "greedy_smem_bytes"]
 
-_MODES = {"actions": 1, "seeded": 4}      # the kernel's mode numbers
+_MODES = ("actions", "seeded")            # K6a's modes
 
 
 def seeded_actions(cc: CompiledChain, seed: int, B: int, device):
@@ -102,44 +108,32 @@ def _check_tables(cc, B, device, demands, leadtimes):
     return None
 
 
-def _cuda_desc(desc):
+def _cuda_device(desc):
     device = desc.device
     if device.type != "cuda":
         raise ValueError("the episode kernels run on a CUDA device")
-    _check(desc, "desc", torch.uint8, (DESC_BYTES,), device)
     return device
 
 
 def launch_supplychain_episode(desc: torch.Tensor, cc: CompiledChain, B: int,
                                mode: str, demands, leadtimes=None,
                                actions=None, seed: int = 0):
-    """Launch the CUDA episode kernel (``seeded``, ``actions``) on the
-    current stream.  ``desc`` is ``chain_descriptor(cc)`` on the card.
-    Returns ``(rewards [T, B], final stock [N, P, B])``."""
-    from ._build import check, library
-
+    """Launch the CUDA episode kernel (``seeded``, ``actions``: the
+    lane-group kernel without its observation stream) on the current
+    stream.  ``desc`` is ``dense_descriptor(cc)`` on the card.  Returns
+    ``(rewards [T, B], final stock [N, P, B])``."""
     if mode not in _MODES:
         raise ValueError(f"mode {mode!r}: this launcher takes 'seeded' and "
                          "'actions' (launch_supplychain_greedy takes "
                          "'policy')")
-    device = _cuda_desc(desc)
+    device = _cuda_device(desc)
     lt_ptr = _check_tables(cc, B, device, demands, leadtimes)
     act_ptr = None
     if mode == "actions":
         _check(actions, "actions", torch.float32, (cc.T, cc.A, B), device)
         act_ptr = actions.data_ptr()
-    lib = library()
-    if lib.sc_chain_bytes() != DESC_BYTES:
-        raise RuntimeError("chain descriptor layout differs from the kernel's")
-    rew = torch.empty((cc.T, B), dtype=torch.float32, device=device)
-    stock = torch.empty((cc.N, cc.P, B), dtype=torch.float32, device=device)
-    k0, k1 = seed_key(seed)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.sc_episode_launch(
-            desc.data_ptr(), DESC_BYTES, _MODES[mode], B, demands.data_ptr(),
-            lt_ptr, act_ptr, k0, k1, rew.data_ptr(), stock.data_ptr(), stream)
-    check(code, "supplychain episode")
+    _, rew, stock = launch_lanes(desc, cc, "episode", cc.T, B, mode, seed,
+                                 (demands.data_ptr(), lt_ptr, act_ptr))
     launch_supplychain_episode.launches += 1
     return rew, stock
 
@@ -173,7 +167,8 @@ def launch_supplychain_greedy(desc: torch.Tensor, cc: CompiledChain,
     ``(rewards [T, B], final stock [N, P, B])``."""
     from ._build import check, library
 
-    device = _cuda_desc(desc)
+    device = _cuda_device(desc)
+    _check(desc, "desc", torch.uint8, (DESC_BYTES,), device)
     if (layout.O, layout.A) != (cc.obs_dim, cc.A):
         raise ValueError(f"actor for O={layout.O}, A={layout.A}; the chain "
                          f"has O={cc.obs_dim}, A={cc.A}")
@@ -203,9 +198,9 @@ def launch_supplychain_greedy(desc: torch.Tensor, cc: CompiledChain,
 launch_supplychain_greedy.launches = 0
 
 
-def _setup(cc: CompiledChain, T: int, device):
-    """Checks shared by both builders -> (device, chain descriptor on the
-    card or None for the CPU)."""
+def _setup(cc: CompiledChain, T: int, device, words_fn):
+    """Checks shared by both runner makers -> (device, the kernel's chain
+    descriptor ``words_fn(cc)`` on the card or None for the CPU)."""
     if T != cc.T:
         raise ValueError(f"T={T} must equal the chain horizon cc.T={cc.T}")
     device = torch.device(device)
@@ -213,9 +208,15 @@ def _setup(cc: CompiledChain, T: int, device):
         raise ValueError(f"unsupported device {device}")
     device = resolve_device(device)
     # unsupported chains fail here, when the runner is built
-    desc = (torch.as_tensor(chain_descriptor(cc), device=device)
+    words = words_fn(cc)
+    desc = (torch.as_tensor(words, device=device)
             if device.type == "cuda" else None)
     return device, desc
+
+
+def _lane_words(cc: CompiledChain):
+    lane_block(cc, "episode")
+    return dense_descriptor(cc)
 
 
 def _on(x, name, dtype, device):
@@ -250,7 +251,7 @@ def make_supplychain_episode(cc: CompiledChain, T: int, B: int,
     each returning the rewards ``[T, B]``.  A CUDA device launches the
     kernel; the CPU runs the plain version.
     """
-    device, desc = _setup(cc, T, device)
+    device, desc = _setup(cc, T, device, _lane_words)
 
     def _run(mode, demands, rest):
         dem, lt, last = _tables_of(cc, device, demands, rest)
@@ -279,7 +280,7 @@ def make_supplychain_policy_rollout(cc: CompiledChain, T: int, B: int,
     used).  A CUDA device launches the kernel; the CPU runs the plain
     version.
     """
-    device, desc = _setup(cc, T, device)
+    device, desc = _setup(cc, T, device, chain_descriptor)
     layout = MlpLayout(cc.obs_dim, cc.A, hidden)
     if desc is not None:
         greedy_smem_bytes(layout)

@@ -148,8 +148,11 @@ def test_descriptor_rejects_what_the_kernel_does_not_take():
 
 
 def test_wrapper_never_runs_a_cpu_tensor_through_the_kernel():
+    from gym_supplychain_tpu_torch.ops.supplychain_dense import (
+        dense_descriptor)
+
     cc = make_chain("supplychain-linear-v0", total_time_steps=3)
-    desc = torch.as_tensor(scc.chain_descriptor(cc))
+    desc = torch.as_tensor(dense_descriptor(cc))
     with pytest.raises(ValueError, match="CUDA"):
         scc.launch_supplychain_collect(desc, cc, 3, 2, "random", seed=0)
     with pytest.raises(NotImplementedError):

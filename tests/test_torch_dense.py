@@ -84,58 +84,117 @@ def test_benchmark_configs_shapes():
     assert shapes == [(26, 4, 10, 492, 138, 10, 353, 3),
                       (40, 2, 10, 620, 320, 10, 261, 3),
                       (8, 10, 2, 140, 32, 2, 261, 3)]
-    # (lanes an env, envs a block, shared bytes): 16 lanes; 8 envs of 1425,
-    # 1541 and 741 words (odd) a block
-    assert [scd.dense_block(c) for c in got] == [
-        (16, 8, 45600), (16, 8, 49312), (16, 8, 23712)]
+    # (lanes an env, envs a block, stride, shared bytes): 16 lanes; 8 envs
+    # of 1425, 1541 and 741 words (odd) a block
+    assert [scd.lane_block(c, "dense") for c in got] == [
+        (16, 8, 1425, 45600), (16, 8, 1541, 49312), (16, 8, 741, 23712)]
     # one wave at B = 4096: shared memory for 4 or more blocks of 8 envs an
     # SM (228 KB), as the kernel's registers allow
     assert [228 * 1024 // (smem + 1024) * 8 * 132 >= 4096
-            for _, _, smem in (scd.dense_block(c) for c in got)] == [True] * 3
+            for *_, smem in (scd.lane_block(c, "dense") for c in got)] \
+        == [True] * 3
     for c in got:
         with pytest.raises(NotImplementedError):
             scc.chain_descriptor(c)              # beyond the collect kernel
         assert scd.dense_descriptor(c).nbytes == scd.DN_DESC_BYTES
 
 
-def _limit_chain(P, N=None, Dmax=None, H=None, obs_dim=None):
-    """A stand-in with the fields ``dense_edges`` and ``dense_block`` read:
-    every node ships on all Dmax slots, one retailer a node."""
+def _limit_chain(P, m=scd.DENSE_MAX, R=None):
+    """A stand-in with the fields ``dense_edges`` and ``lane_block`` read at
+    the size limits ``m``: every node ships on all Dmax slots, R retailers
+    (one a node by default)."""
     from types import SimpleNamespace
 
-    m = scd.DENSE_MAX
-    N, Dmax, H = N or m["N"], Dmax or m["D"], H or m["RING"] - 1
-    Lavg = H
+    N, Dmax, H = m["N"], m["D"], m["RING"] - 1
+    Lavg, R = H, R or N
     return SimpleNamespace(
-        N=N, P=P, Dmax=Dmax, H=H, R=N,
-        obs_dim=obs_dim or N * P + N * P * (1 + Lavg) + 1,
+        N=N, P=P, Dmax=Dmax, H=H, R=R, K=m["K"], A=m["A"], Lmax=H,
+        obs_dim=R * P + N * P * (1 + Lavg) + 1,
         edge_mask=np.ones((N, Dmax), bool),
         edge_dst=np.arange(N * Dmax).reshape(N, Dmax) % N,
-        has_ship=np.ones((N, P), bool), is_retailer=np.zeros(N, bool))
+        has_ship=np.ones((N, P), bool), is_retailer=np.zeros(N, bool),
+        stock_cap=np.ones(N * P), supply_cap=np.ones(N * P),
+        proc_cap=np.ones(N), ship_cap_edge=np.ones((N, Dmax)))
 
 
 def test_dense_block_at_the_limits():
     """At DENSE_MAX (64 nodes, N*P = 128, Dmax = 16, all 1024 slots used,
-    ring 8, R*P = 128) 8 envs still fit in a block: 5,569 words an env;
-    past the limits the plan refuses."""
+    ring 8, R*P = 128) 8 envs still fit in a block of K5: 5,569 words an
+    env; past the limits the plan refuses."""
     cc = _limit_chain(P=2)
     words = 128 * (1 + 8) + 128 + 1024 * 3 + 64 + cc.obs_dim
-    assert scd.dense_block(cc) == (16, 8, 4 * 8 * (words | 1))
+    assert scd.lane_block(cc, "dense") == (16, 8, words | 1,
+                                           4 * 8 * (words | 1))
     assert 4 * 8 * (words | 1) == 178208
     with pytest.raises(NotImplementedError, match="shared memory"):
-        scd.dense_block(_limit_chain(P=16))              # N*P = 1024
+        scd.lane_block(_limit_chain(P=16), "dense")      # N*P = 1024
+
+
+def _lane_instances():
+    """The (G, E, DT, OBS) instances each launch entry builds: ``LN_CASE``
+    of ``csrc/supplychain_dense.cu`` (K5), ``csrc/supplychain_lanes.cu``
+    (K1) and ``csrc/supplychain_episode.cu`` (K6a)."""
+    import re
+    from pathlib import Path
+
+    csrc = Path(scd.__file__).parents[1] / "csrc"
+    return {kind: {tuple(map(int, c)) for c in re.findall(
+        r"LN_CASE\((\d+), (\d+), (\d+), (\d+)\)",
+        (csrc / f"supplychain_{src}.cu").read_text())}
+        for kind, src in (("dense", "dense"), ("collect", "lanes"),
+                          ("episode", "episode"))}
+
+
+@pytest.mark.parametrize("chain,G,stride", [
+    ("supplychain-linear-v0", 4, 41),       # N*P 4, 3 shipping nodes
+    ("supplychain-ntom-v0", 8, 109),        # N*P 8, 6 shipping nodes
+    ("supplychain-2perstage-v0", 8, 93),    # N*P 8, 6 shipping nodes
+    ("collect limits", 16, 1121),           # N*P 32, all 32 nodes ship
+])
+def test_lane_block_small_chains(chain, G, stride):
+    """K1 and K6a plan the least of 4, 8 and 16 lanes that holds max(N*P,
+    shipping nodes), 8 envs a block (32-byte obs runs), the episode's
+    stretch without the observation; K5 keeps 16 lanes; every plan is an
+    instance its launch entry builds, at the chain's slot bound."""
+    cc = (_limit_chain(P=1, m=scc._MAX, R=16) if chain == "collect limits"
+          else make_chain(chain))        # N = 32, P = 1, Dmax = 8, R = 16
+    dt = scd.dense_slot_bound(cc)
+    episode = stride - cc.obs_dim | 1
+    assert scd.lane_block(cc, "collect") == (G, 8, stride, 32 * stride)
+    assert scd.lane_block(cc, "episode") == (G, 8, episode, 32 * episode)
+    assert scd.lane_block(cc, "dense")[:3] == (16, 8, stride)
+    built = _lane_instances()
+    assert (G, 8, dt, 1) in built["collect"]
+    assert (G, 8, dt, 0) in built["episode"]
+    assert (16, 8, dt, 1) in built["dense"]
+    with pytest.raises(ValueError, match="kind"):
+        scd.lane_block(cc, "policy")
+
+
+def test_lane_block_refuses_chains_beyond_the_collect_kernel():
+    """K1 and K6a keep the collect kernel's limits (``_MAX``); K5 plans the
+    same chain."""
+    cc = make_chain("sc-2perstage-multiproduct-v0", num_products=10)
+    for kind in ("collect", "episode"):
+        with pytest.raises(NotImplementedError, match="collect kernel"):
+            scd.lane_block(cc, kind)
+    assert scd.lane_block(cc, "dense")[:2] == (16, 8)
 
 
 @pytest.mark.parametrize("config", ["nperstage-5-4-7-10-x4",
-                                    "nperstage-10-x2", "multiproduct-x10"])
+                                    "nperstage-10-x2", "multiproduct-x10",
+                                    "supplychain-linear-v0",
+                                    "supplychain-ntom-v0"])
 def test_dense_edges_sum_like_core_step(config):
     """``dense_edges`` lists each destination's incoming edges in (source
     node, slot) order, and summing a destination's pushes in that order,
-    per lead-time, gives ``core/step.py``'s pipeline adds bit for bit."""
+    per lead-time, gives ``core/step.py``'s pipeline adds bit for bit (the
+    lane-group kernel's order: K5's chains, and K1's and K6a's)."""
     from gym_supplychain_tpu_torch.benchmarks import large_topologies as lt
     from gym_supplychain_tpu_torch.core.step import _in_edge_index
 
-    cc = lt.config_chain(config)
+    cc = (make_chain(config) if config.startswith("supplychain")
+          else lt.config_chain(config))
     N, D, P = cc.N, cc.Dmax, cc.P
     ed = scd.dense_edges(cc)
     src = [divmod(int(k), D) for k in np.nonzero(ed["edge_id"] >= 0)[0]]
@@ -249,10 +308,10 @@ def test_random_equals_actions_on_philox_tables():
 
 
 def test_descriptor_layout_matches_kernel_struct():
-    """``DnChain`` of ``csrc/supplychain_dense.cu`` is ``ChainT`` at the
+    """``DnChain`` of ``csrc/supplychain_lanes.cuh`` is ``ChainT`` at the
     ``DN_MAX_*`` limits, which equal ``DENSE_MAX``; the descriptor's fields
     mirror it (the kernel also checks the byte count at launch)."""
-    fields, macros = _struct_fields("supplychain_dense.cu", "DnChain")
+    fields, macros = _struct_fields("supplychain_lanes.cuh", "DnChain")
     assert fields == scd._DN_FIELDS
     assert {k: macros[f"DN_MAX_{k}"] for k in ("N", "P", "NP", "D", "ND",
                                                "NPD", "RING", "RP", "CDF")} \

@@ -112,7 +112,7 @@ def test_runners_check_what_they_take():
         sce.greedy_smem_bytes(MlpLayout(cc.obs_dim, cc.A, (256, 256)))
     assert sce.greedy_smem_bytes(MlpLayout(27, 14, (128, 128))) < 232448
     # a CPU launch never reaches the kernel
-    desc = torch.as_tensor(sce.chain_descriptor(cc))
+    desc = torch.as_tensor(sce.dense_descriptor(cc))
     (dem, lt), act = _tables(cc, 4, 2, 0)
     with pytest.raises(ValueError, match="CUDA"):
         sce.launch_supplychain_episode(desc, cc, 2, "actions",

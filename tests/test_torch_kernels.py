@@ -12,7 +12,9 @@ policy modes' pre, logp and value at the JAX collect tests' tolerances; the
 update kernel's gradients within 4x the plain float32 error against float64;
 the episode kernel's rewards atol 1e-5 * max|r| with its final stock
 bit-equal; the dense collect kernel (K5) as the collect kernel; the
-beer-game episode sweep (K6b) bit-exact.
+beer-game episode sweep (K6b) bit-exact.  K1's ``random``/``actions``, K6a
+and K5 are the lane-group kernel; its in-kernel draws equal the plain
+version's Philox tables bit for bit.
 """
 import numpy as np
 import pytest
@@ -23,7 +25,10 @@ torch.set_num_threads(1)
 from gym_supplychain_tpu_torch import make_chain  # noqa: E402
 from gym_supplychain_tpu_torch.ops import beergame_collect as bgc  # noqa: E402
 from gym_supplychain_tpu_torch.ops import supplychain_collect as scc  # noqa: E402
+from gym_supplychain_tpu_torch.ops import supplychain_episode as sce  # noqa: E402
 from gym_supplychain_tpu_torch.ops._mlp import MlpLayout  # noqa: E402
+from gym_supplychain_tpu_torch.ops.supplychain_dense import (  # noqa: E402
+    dense_descriptor)
 
 
 def _device():
@@ -41,7 +46,7 @@ def test_supplychain_kernel_matches_plain(env_id, mode):
     cc = make_chain(env_id, total_time_steps=15)
     B, E = 256, 2
     S = E * cc.T
-    desc = torch.as_tensor(scc.chain_descriptor(cc), device=dev)
+    desc = torch.as_tensor(dense_descriptor(cc), device=dev)
     kw = dict(seed=5)
     if mode == "actions":
         rs = np.random.RandomState(1)
@@ -270,8 +275,6 @@ def test_supplychain_episode_kernel_matches_plain(env_id, mode):
     """Rewards atol 1e-5 * max|r| (costs summed in another order), final
     stock bit-equal; the runners built with a bare "cuda" launch the
     kernels and take tables made on the current device."""
-    from gym_supplychain_tpu_torch.ops import supplychain_episode as sce
-
     dev = _device()
     T, B, hidden, seed = 40, 300, (32, 16), 7
     cc = make_chain(env_id, total_time_steps=T)
@@ -300,18 +303,104 @@ def test_supplychain_episode_kernel_matches_plain(env_id, mode):
     before = launcher.launches
     rew = run(*tables, *kw.values())
     assert launcher.launches == before + 1 and rew.device == dem.device
-    desc = torch.as_tensor(sce.chain_descriptor(cc), device=dev)
     if mode == "policy":
+        desc = torch.as_tensor(sce.chain_descriptor(cc), device=dev)
         lay = MlpLayout(cc.obs_dim, cc.A, hidden)
         k = sce.launch_supplychain_greedy(
             desc, cc, lay, torch.as_tensor(lay.ints, device=dev),
             lay.pack(kw["params"].flat()), B, dem, lt)
     else:
+        desc = torch.as_tensor(dense_descriptor(cc), device=dev)
         k = sce.launch_supplychain_episode(desc, cc, B, mode, dem, lt, **kw)
     p = sce.supplychain_episode_plain(cc, B, mode, dem, lt, **kw)
     assert torch.equal(k[0], rew)
     assert float((k[0] - p[0]).abs().max()) <= 1e-5 * float(p[0].abs().max())
     assert torch.equal(k[1], p[1])
+
+
+def _small_chain(name, T):
+    if name == "nperstage [2,3,2,2]x2":    # N*P 18: 16 lanes; Dmax 3 of 2-3
+        return make_chain("sc-Nperstage-multiproduct-v0",
+                          nodes_per_echelon=[2, 3, 2, 2], num_products=2,
+                          stochastic_leadtimes=True, total_time_steps=T)
+    return make_chain(name, total_time_steps=T)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,mode", [("collect", "actions"),
+                                         ("collect", "random"),
+                                         ("episode", "actions"),
+                                         ("episode", "seeded")])
+@pytest.mark.parametrize("chain", ["supplychain-ntom-v0",
+                                   "nperstage [2,3,2,2]x2"])
+def test_lane_kernels_negative_values_and_ragged_batch(chain, kernel, mode):
+    """K1 (``collect``) and K6a (``episode``) on the lane-group kernel at a
+    B that is no multiple of its 8 envs a block; in ``actions`` some
+    actions below -1 give negative supplies and ship values, so the degree
+    elision falls back to all Dmax slots there.  Obs atol 1e-6, rewards
+    atol 1e-5 * max|r|, final stock bit-equal."""
+    dev = _device()
+    T, E, B, seed = 10, 2, 8 * 12 + 3, 6
+    cc = _small_chain(chain, T)
+    S = E * T if kernel == "collect" else T
+    rs = np.random.RandomState(B)
+    act = (3 * rs.rand(S, cc.A, B) - 2).astype(np.float32)      # [-2, 1)
+    assert (act < -1).mean() > 0.2
+    put = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
+    dem = put(rs.randint(0, 25, size=(S + (kernel == "episode"), cc.R, cc.P,
+                                      B)).astype(np.float32))
+    lt = put(rs.randint(1, cc.Lmax + 1, size=(S, cc.K, B)).astype(np.int32))
+    kw = (dict(seed=seed) if mode in ("random", "seeded")
+          else dict(actions=put(act)))
+    desc = torch.as_tensor(dense_descriptor(cc), device=dev)
+    if kernel == "collect":
+        if mode == "actions":
+            kw.update(demands=dem, leadtimes=lt)
+        k = scc.launch_supplychain_collect(desc, cc, S, B, mode, **kw)
+        p = scc.supplychain_collect_plain(cc, E, B, mode, device=dev, **kw)
+        assert float((k[0] - p[0]).abs().max()) <= 1e-6
+        k, p = k[1:], p[1:]
+    else:
+        k = sce.launch_supplychain_episode(desc, cc, B, mode, dem, lt, **kw)
+        p = sce.supplychain_episode_plain(cc, B, mode, dem, lt, **kw)
+    assert float((k[0] - p[0]).abs().max()) <= 1e-5 * float(p[0].abs().max())
+    assert torch.equal(k[1], p[1])
+    assert bool(torch.isfinite(k[0]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["collect", "episode"])
+@pytest.mark.parametrize("chain", ["supplychain-linear-v0",
+                                   "supplychain-ntom-v0",
+                                   "nperstage [2,3,2,2]x2"])
+def test_lane_kernel_draws_equal_their_tables(chain, kernel):
+    """K1 ``random`` equals K1 ``actions`` fed ``philox_tables``, and K6a
+    ``seeded`` equals K6a ``actions`` fed ``seeded_actions``, bit for bit:
+    the kernel draws the Philox words the plain version does."""
+    dev = _device()
+    T, E, B, seed = 12, 2, 8 * 9 + 5, 2 ** 33 + 1
+    cc = _small_chain(chain, T)
+    desc = torch.as_tensor(dense_descriptor(cc), device=dev)
+    if kernel == "collect":
+        S = E * T
+        k = scc.launch_supplychain_collect(desc, cc, S, B, "random", seed=seed)
+        dem, lt, act = scc.philox_tables(cc, seed, range(S), B, dev)
+        t = scc.launch_supplychain_collect(desc, cc, S, B, "actions",
+                                           demands=dem, leadtimes=lt,
+                                           actions=act)
+    else:
+        rs = np.random.RandomState(3)
+        dem = torch.as_tensor(rs.randint(0, 25, size=(T + 1, cc.R, cc.P, B))
+                              .astype(np.float32), device=dev)
+        lt = (torch.as_tensor(rs.randint(1, cc.Lmax + 1, size=(T, cc.K, B))
+                              .astype(np.int32), device=dev)
+              if cc.stochastic_leadtimes else None)
+        k = sce.launch_supplychain_episode(desc, cc, B, "seeded", dem, lt,
+                                           seed=seed)
+        t = sce.launch_supplychain_episode(
+            desc, cc, B, "actions", dem, lt,
+            actions=sce.seeded_actions(cc, seed, B, dev))
+    assert all(torch.equal(a, b) for a, b in zip(k, t))
 
 
 @pytest.mark.cuda
@@ -444,6 +533,10 @@ ptxas info    : Compiling entry function '_Z15sc_dense_kernelILi16ELi10EEvPK6Cha
 ptxas info    : Function properties for _Z15sc_dense_kernelILi16ELi10EEvPK6ChainTILi64EEiPf
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 165 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZL14sc_lane_kernelILi8ELi8ELi2ELi1EEvPK6ChainTILi64EEiPf' for 'sm_90a'
+ptxas info    : Function properties for _ZL14sc_lane_kernelILi8ELi8ELi2ELi1EEvPK6ChainTILi64EEiPf
+    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers
 """
 
 
@@ -462,4 +555,7 @@ def test_ptxas_report_reads_the_build_report(tmp_path, monkeypatch):
     assert _build.ptxas_report("sc_dense_kernel") == [dict(
         function="sc_dense_kernel<16,10>", registers=165, spill_stores=0,
         spill_loads=0, stack=0)]
+    assert _build.ptxas_report("sc_lane_kernel") == [dict(
+        function="sc_lane_kernel<8,8,2,1>", registers=72, spill_stores=0,
+        spill_loads=0, stack=8)]
     assert _build.ptxas_report("bg_collect_kernel") == []
