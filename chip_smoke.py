@@ -16,22 +16,25 @@ beer-game episode sweep at 4096 envs.
 
 Phases, in order; any failure exits nonzero:
   1. device, power limit, torch/CUDA/nvcc versions; kernel build time;
-     ptxas's registers and spills of the update kernel and of every
-     instance of the lane-group kernel (K1 ``random``/``actions``, K6a, K5)
+     ptxas's registers and spills of the update kernel, of every instance
+     of the lane-group kernel (K1 ``random``/``actions``, K6a, K5) and of
+     the policy lane kernel (K1's policy modes, K4)
   2. supply-chain kernel, ``actions`` mode, against plain (linear, ntom)
   3. supply-chain kernel, ``random`` mode, against plain; marginals
   4. beer-game kernel: v0 random and actions, v2 per-lane actions
   5. the collection path: env-steps/s of kernel and plain, launch counts,
      the lane-group kernel's lanes an env, envs a block and grid
-  6. supply-chain kernel, policy modes, against plain (linear, ntom):
-     ``policy_eps`` on Philox tables, ``policy`` against ``policy_eps``,
-     the ``sample_major`` layout against the default one
+  6. supply-chain kernel, policy modes, against plain (linear, ntom, at
+     B and at a ragged B + 7): ``policy_eps`` on Philox tables, ``policy``
+     against ``policy_eps``, the ``sample_major`` layout against the
+     default one; the policy lane kernel's lanes, envs a block and grid
   7. the PPO update kernel against plain, both against float64 autograd,
      at M = 60 * 4096 samples; two launches must give the same bits; its
      time a call alone and back to back (card and host apart)
   8. the trainer's path: the train CLI, then ``make_ppo_fused`` timed per
      phase (collect / gae / update) against the plain trainer, whose first
-     iteration must match the kernel trainer's
+     iteration must match the kernel trainer's; then K1 ``policy`` alone at
+     the trainer's shape beside its plain version
   9. the episode kernel against plain at B = 4096, T = 360 (linear, ntom):
      ``actions`` on random tables, ``seeded`` against ``actions`` fed its
      Philox rows (bit for bit), greedy ``policy`` at hidden (128, 128);
@@ -41,7 +44,8 @@ Phases, in order; any failure exits nonzero:
      must repeat the uninterrupted one bit for bit, the evaluate CLI runs
      both engines on it (B = 4096, T = 360, 4 episodes; they share their
      inputs, so their mean returns agree within 1e-5), ``best_base_stock``
-     runs at the same size, and both evaluators are timed
+     runs at the same size; both evaluators are timed, and the kernel
+     evaluator's table draw alone
   11. the dense collect kernel (K5) at B = 4096, T = 360 on the configs of
      ``gym_supplychain_tpu_torch.benchmarks.large_topologies``: ``actions``
      on random tables against plain over 2 episodes (all three), ``random``
@@ -55,9 +59,10 @@ The line before the last is a JSON summary of the kernels, each with its
 bound: the larger of the bytes it must move over 3.35 TB/s and the float32
 operations it must do over 67 TFLOP/s (the H100 SXM data sheet at 700 W;
 the env step's scalar operations are not counted, so the bound stays a
-lower bound).  The last line is ``{"ok": true, "device": {...}}``.  Without
-CUDA, or without the package beside it, it prints the reason and no result
-and exits 2.
+lower bound); beside K1 ``policy`` and K4 the text prints the bound without
+FMA contraction, which their float rules forbid (twice the MLP's).  The
+last line is ``{"ok": true, "device": {...}}``.  Without CUDA, or without
+the package beside it, it prints the reason and no result and exits 2.
 """
 from __future__ import annotations
 
@@ -87,6 +92,7 @@ TRAIN_REPS, PLAIN_TRAIN_REPS = 5, 3  # phase 8: timed iterations (median)
 EVAL_EPISODES = 4          # phase 10: the evaluate CLI's episodes
 PLAIN_REPS = 2             # phases 9-10: timed plain calls (median)
 EVAL_RTOL = 1e-5           # phase 10: kernel vs scan evaluator, mean return
+RAGGED = 7                 # phase 6: B + 7 envs, a last block part inactive
 DENSE_REPS = 3             # phase 11: timed calls of the dense kernel (median)
 EAGER_STEPS = 10           # phase 11: the eager env's slope, 10 vs 20 steps
 PEAK_FLOPS = 67e12         # H100 SXM float32 outside the tensor cores
@@ -162,6 +168,22 @@ def _plan(cc, kind, B):
     G, E, _, smem = lane_block(cc, kind)
     return (f"G={G} lanes an env, E={E} envs a block, grid "
             f"{-(-B // E)} x {G * E} threads, {smem} B shared a block")
+
+
+def _policy_plan(cc, layout, B, nets):
+    """The policy lane kernel's plan as printed beside a time."""
+    from gym_supplychain_tpu_torch.ops.supplychain_dense import policy_block
+
+    G, E, _, smem = policy_block(cc, layout, B, nets)
+    return (f"G={G} lanes an env, E={E} envs a block, grid "
+            f"{-(-B // E)} x {G * E} threads, {smem} B shared a block")
+
+
+def _issue_bound_ms(macs):
+    """The least time of ``macs`` multiply-adds without FMA contraction: an
+    FMUL and an FADD each, at one float32 instruction a lane a clock (half
+    the FLOP peak, which counts an FMA as two operations)."""
+    return 1e3 * 2 * macs / (PEAK_FLOPS / 2)
 
 
 def _sc_tables(cc, S, B, seed, device):
@@ -388,39 +410,48 @@ def _check_policy(tag, k, p, errs):
 
 
 def phase_policy(B, episodes, seed, errs):
-    """Phase 6: the supply-chain kernel's policy modes against plain."""
+    """Phase 6: the supply-chain kernel's policy modes against plain, at B
+    and at a ragged B whose last block holds inactive envs."""
     import torch
     import gym_supplychain_tpu_torch as sct
     from gym_supplychain_tpu_torch.ops._mlp import MlpLayout
     from gym_supplychain_tpu_torch.ops.supplychain_collect import (
-        chain_descriptor, launch_supplychain_policy, philox_tables,
-        supplychain_collect_plain)
+        launch_supplychain_policy, philox_tables, supplychain_collect_plain)
+    from gym_supplychain_tpu_torch.ops.supplychain_dense import (
+        dense_descriptor)
 
     dev = torch.device("cuda")
     print(f"phase 6: supplychain_collect, policy modes, hidden {HIDDEN}, "
           f"mu.w x100, vs plain")
-    for env_id in ("supplychain-linear-v0", "supplychain-ntom-v0"):
+    for env_id, Bc in (("supplychain-linear-v0", B),
+                       ("supplychain-ntom-v0", B),
+                       ("supplychain-linear-v0", B + RAGGED),
+                       ("supplychain-ntom-v0", B + RAGGED)):
         cc = sct.make_chain(env_id, total_time_steps=TRAIN_T)
         S, O, A = episodes * TRAIN_T, cc.obs_dim, cc.A
         model = _policy_model(cc, seed, dev)
         layout = MlpLayout(O, A, HIDDEN)
-        args = (torch.as_tensor(chain_descriptor(cc), device=dev), cc, layout,
+        args = (torch.as_tensor(dense_descriptor(cc), device=dev), cc, layout,
                 torch.as_tensor(layout.ints, device=dev),
-                layout.pack(model.flat()), S, B)
-        dem, lt, eps = philox_tables(cc, seed, range(S), B, dev, policy=True)
+                layout.pack(model.flat()), S, Bc)
+        dem, lt, eps = philox_tables(cc, seed, range(S), Bc, dev, policy=True)
         k_eps = launch_supplychain_policy(*args, "policy_eps", demands=dem,
                                           leadtimes=lt, eps=eps)
-        p_eps = supplychain_collect_plain(cc, episodes, B, "policy_eps",
+        p_eps = supplychain_collect_plain(cc, episodes, Bc, "policy_eps",
                                           demands=dem, leadtimes=lt, eps=eps,
                                           params=model)
         torch.cuda.synchronize()
-        tag = f"{env_id} B={B} T={TRAIN_T} episodes={episodes}"
+        tag = f"{env_id} B={Bc} T={TRAIN_T} episodes={episodes}"
+        print(f"  {tag}: {_policy_plan(cc, layout, Bc, 2)}")
         _check_policy(f"(a) {tag} policy_eps kernel vs plain", k_eps, p_eps,
                       errs)
+        del p_eps
         k_pol = launch_supplychain_policy(*args, "policy", seed=seed)
         torch.cuda.synchronize()
         _check_policy(f"(b) {tag} policy vs policy_eps on the seed's tables",
                       k_pol, k_eps, errs)
+        if Bc != B:
+            continue
         k_sm = launch_supplychain_policy(*args, "policy", seed=seed,
                                          sample_major=True)
         torch.cuda.synchronize()
@@ -603,7 +634,32 @@ def phase_trainer(seed):
           f"tol 1e-4); cosine of the parameter deltas {cos:.8f} (> 0.9999)")
     if not (rel <= 1e-4 and cos > 0.9999):
         raise RuntimeError("trainer: kernel and plain trainers disagree")
-    return dict(counts=counts, kernel=res[False], plain=res[True])
+
+    # K1 `policy` alone at the trainer's shape (sample-major, one episode):
+    # the kernel's launch between CUDA events, beside the plain version
+    from gym_supplychain_tpu_torch.ops._mlp import MlpLayout
+    from gym_supplychain_tpu_torch.ops.supplychain_dense import (
+        dense_descriptor)
+
+    dev = torch.device("cuda")
+    model = _policy_model(cc, seed, dev)
+    lay = MlpLayout(cc.obs_dim, cc.A, HIDDEN)
+    args = (torch.as_tensor(dense_descriptor(cc), device=dev), cc, lay,
+            torch.as_tensor(lay.ints, device=dev), lay.pack(model.flat()), T,
+            B, "policy")
+    k1_ms, _ = _timed(lambda: scc.launch_supplychain_policy(
+        *args, seed=seed, sample_major=True), REPS)
+    k1_plain, _ = _timed(lambda: scc.supplychain_collect_plain(
+        cc, 1, B, "policy", seed=seed, params=model, sample_major=True,
+        device=dev), PLAIN_REPS)
+    macs = _macs(lay, [0, 1]) * T * B
+    print(f"  K1 policy alone, B={B}, T={T}, sample-major: kernel "
+          f"{k1_ms:.3f} ms (median of {REPS}) = {k1_ms / T * 1e3:.2f} us a "
+          f"step, plain {k1_plain:.1f} ms (median of {PLAIN_REPS}); issue "
+          f"bound without FMA {_issue_bound_ms(macs):.4f} ms; "
+          f"{_policy_plan(cc, lay, B, 2)}")
+    return dict(counts=counts, kernel=res[False], plain=res[True],
+                k1=dict(ms=k1_ms, plain_ms=k1_plain))
 
 
 def _episode_tables(cc, B, seed, device):
@@ -655,13 +711,13 @@ def phase_episode(B, seed, errs):
     res = {}
     for env_id in ("supplychain-linear-v0", "supplychain-ntom-v0"):
         cc = sct.make_chain(env_id)
-        # K6a runs the lane-group kernel, K4 the one-thread step
+        # K6a runs the lane-group kernel, K4 the policy lane kernel
         desc = torch.as_tensor(sce.dense_descriptor(cc), device=dev)
         dem, lt, act = _episode_tables(cc, B, seed, dev)
         model = _policy_model(cc, seed, dev)
         layout = MlpLayout(cc.obs_dim, cc.A, HIDDEN)
-        greedy_args = (torch.as_tensor(sce.chain_descriptor(cc), device=dev),
-                       cc, layout, torch.as_tensor(layout.ints, device=dev),
+        greedy_args = (desc, cc, layout,
+                       torch.as_tensor(layout.ints, device=dev),
                        layout.pack(model.flat()), B, dem, lt)
         calls = {
             "actions": (lambda: sce.launch_supplychain_episode(
@@ -702,14 +758,18 @@ def phase_episode(B, seed, errs):
             res["seeded"]["bound"] = _bound(tables + out, 0)
             res["policy"]["bound"] = _bound(tables + out + 4 * layout.wsec[0],
                                             flops)
-            plan = "; " + _plan(cc, "episode", B)
+            plans = dict(seeded=_plan(cc, "episode", B),
+                         actions=_plan(cc, "episode", B),
+                         policy=f"issue bound without FMA "
+                                f"{_issue_bound_ms(flops / 2):.4f} ms; "
+                                f"{_policy_plan(cc, layout, B, 1)}")
             for mode, r in res.items():
                 print(f"  {tag} {mode}: kernel {r['ms']:.3f} ms (median of "
                       f"{REPS}), plain {r['plain_ms']:.1f} ms (median of "
                       f"{PLAIN_REPS}), bound {r['bound'][0]:.4f} ms "
                       f"({r['bound'][1]}): {r['bound'][0] / r['ms']:.2%} of "
-                      f"it; {cc.T * B / r['ms'] * 1e3:.4e} env-steps/s"
-                      f"{plan if mode != 'policy' else ''}")
+                      f"it; {cc.T * B / r['ms'] * 1e3:.4e} env-steps/s; "
+                      f"{plans[mode]}")
 
     # the rewards-only sweeps through the entry point: counts zeroed just
     # before each, read just after
@@ -740,6 +800,7 @@ def phase_eval(seed):
     import gym_supplychain_tpu_torch as sct
     from gym_supplychain_tpu_torch.learn import evaluate, heuristics, train
     from gym_supplychain_tpu_torch.ops import supplychain_episode as sce
+    from gym_supplychain_tpu_torch.rng.device import device_episode_tables
     from gym_supplychain_tpu_torch.utils.checkpoint import restore_checkpoint
 
     B, work = ENVS, ROOT / "gym_supplychain_tpu_torch" / "_build" / "ckpt"
@@ -801,13 +862,17 @@ def phase_eval(seed):
     scan = evaluate.make_evaluator(cc, B, device="cuda")
     k_ms, _ = _timed(lambda: fused(params, seed, 1), REPS)
     s_ms, _ = _timed(lambda: scan(params, seed, 1), PLAIN_REPS)
+    t_ms, _ = _timed(lambda: device_episode_tables((seed, 0), cc, B,
+                                                   device="cuda"), REPS)
     for name, ms, reps in (("kernel", k_ms, REPS), ("scan", s_ms, PLAIN_REPS)):
         print(f"  {name} evaluator: {ms:.3f} ms per episode (tables "
               f"included; median of {reps}) = {cc.T * B / ms * 1e3:.4e} "
               f"env-steps/s")
+    print(f"  its table draw alone (device_episode_tables): {t_ms:.3f} ms "
+          f"an episode (median of {REPS})")
     shutil.rmtree(work, ignore_errors=True)
     return dict(launches=launches, kernel_ms=k_ms, scan_ms=s_ms,
-                grid_s=grid_s)
+                tables_ms=t_ms, grid_s=grid_s)
 
 
 def phase_dense(B, seed):
@@ -974,10 +1039,11 @@ def _kernel_lines(res, tr, upd, ep, ev, dn, bge, sc_errs, bg_errs, pol_errs,
     cc = sct.make_chain("supplychain-ntom-v0", total_time_steps=TRAIN_T)
     lay = MlpLayout(cc.obs_dim, cc.A, HIDDEN)
     M = TRAIN_T * B
-    # policy collection: weights in; obs, pre, logp, value, reward, stock out
-    line("supplychain_collect[policy]", "supplychain_collect.cu",
+    # policy collection alone: weights in; obs, pre, logp, value, reward,
+    # stock out
+    line("supplychain_collect[policy]", "supplychain_policy.cu",
          f"{sc_pallas}:791", tr["counts"]["supplychain_collect[policy]"],
-         max(pol_errs), tr["kernel"]["collect"], tr["plain"]["collect"],
+         max(pol_errs), tr["k1"]["ms"], tr["k1"]["plain_ms"],
          _bound(4 * (sum(lay.wsec) + M * (cc.obs_dim + cc.A + 3)
                      + cc.N * cc.P * B),
                 2 * _macs(lay, [0, 1]) * M))
@@ -993,7 +1059,7 @@ def _kernel_lines(res, tr, upd, ep, ev, dn, bge, sc_errs, bg_errs, pol_errs,
     for mode in ("seeded", "actions", "policy"):
         r = ep[mode]
         line(f"supplychain_episode[{mode}]",
-             "supplychain_collect.cu" if mode == "policy"
+             "supplychain_policy.cu" if mode == "policy"
              else "supplychain_episode.cu",
              f"{sc_pallas}:736",
              ev["launches"] if mode == "policy" else r["launches"],
@@ -1044,7 +1110,8 @@ def main(argv=None) -> int:
     _build.library()
     print(f"kernel build {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
-    for kernel in ("ppo_grad_kernel", "sc_lane_kernel"):
+    for kernel in ("ppo_grad_kernel", "sc_lane_kernel",
+                   "sc_policy_lane_kernel"):
         rows = _build.ptxas_report(kernel)
         if not rows:
             raise RuntimeError(f"no ptxas report for {kernel}")

@@ -9,9 +9,9 @@
 // `actions` (make_supplychain_episode_pallas): one episode of T steps from
 // demand [T+1,R,P,B] and lead-time [T,K,B] tables, its actions from a table
 // or from Philox at counter (lane, step, block, 0), writing only the reward
-// [T,B] and the final stock.  The one-thread step of supplychain_step.cuh
-// served it before; K4 (`policy`, supplychain_collect.cu) stays on that
-// step.  Lanes and envs a block as K1's (supplychain_lanes.cu).
+// [T,B] and the final stock.  K4 (`policy`) runs the policy lane kernel of
+// supplychain_policy.cu on the same step.  Lanes and envs a block as K1's
+// (supplychain_lanes.cu).
 #include "supplychain_lanes.cuh"
 
 // G, E, DT >= dmax slots a node, OBS: the instances built, as lane_block in

@@ -6,9 +6,8 @@
 //
 // Replaces the TPU kernel `_collect_kernel` of
 // gym_supplychain_tpu/ops/supplychain_pallas.py in its PRNG and table modes
-// (make_supplychain_collect_pallas).  The one-thread step of
-// supplychain_step.cuh served it before; that step still serves K1's
-// policy modes and K4 (supplychain_collect.cu).
+// (make_supplychain_collect_pallas); its policy modes run the policy lane
+// kernel of supplychain_policy.cu on the same step.
 //
 // A group of G = 4, 8 or 16 lanes an env (the least that holds max(N*P,
 // shipping nodes): 4 for supplychain-linear-v0, 8 for supplychain-ntom-v0)

@@ -3,7 +3,9 @@
 // env's state in shared memory.
 //
 // One kernel template, sc_lane_kernel<G, E, DT, OBS>, serves three kernels
-// on one chain descriptor (DnChain then DnEdges below):
+// on one chain descriptor (DnChain then DnEdges below), and the step serves
+// a fourth kernel template, sc_policy_lane_kernel (supplychain_policy.cu:
+// K1's policy modes and K4, the actor in the loop):
 // * K5, the dense collect kernel (supplychain_dense.cu): G = 16, E = 8,
 //   modes `random` and `actions`, obs every step;
 // * K1 in its modes `random` and `actions` (supplychain_lanes.cu): the same
@@ -23,8 +25,8 @@
 // gym_supplychain_tpu/ops/supplychain_pallas.py.  Each env runs through S
 // steps with auto-reset every T steps (K6a: S = T); the dynamics match the
 // plain version (core/step.py) bit for bit: the step below follows
-// supplychain_step.cuh's sc_step operation for operation (same ChainT
-// descriptor, same float rules: --fmad=false, IEEE division, every product
+// core/step.py operation for operation (the float rules of
+// supplychain_step.cuh: --fmad=false, IEEE division, every product
 // rounded), spread over lanes.
 //
 // An env's state is a contiguous stretch of dynamic shared memory: stock
@@ -43,11 +45,13 @@
 //   and the lead-time columns it selects stay in one lane;
 // * ship: one shipping node a lane, products inner (the processing and
 //   per-destination ship capacities carry across products); the degree
-//   elision of sc_step stays per (node, product).  Each edge's shipped
-//   amount goes to its own slot;
+//   elision (slots past a node's degree skipped while every value is >= 0)
+//   is per (node, product).  Each edge's shipped amount goes to its own
+//   slot;
 // * pipeline adds: the lane of each (destination, product) adds its
 //   incoming edges' amounts, per lead-time, in (source node, slot) order,
-//   then onto pipe + supply: sc_step's order, so the ring stays bit-exact;
+//   then onto pipe + supply: core/step.py's order, so the ring stays
+//   bit-exact;
 // * retailer demand: lanes over (retailer, product).
 // Costs are per-lane partials per category, summed over the group by a
 // fixed shuffle tree; rewards differ from plain in that order only (~1e-7
@@ -184,8 +188,9 @@ __device__ __forceinline__ void ln_init(const DnChain& ch, const LnEnv& env,
   }
 }
 
-// ---- pre-action observation (sc_obs): the demand entries over the lanes,
-// then a (node, product) row a lane with its stock and pipeline entries
+// ---- pre-action observation (core/step.py obs_fn): the demand entries
+// over the lanes, then a (node, product) row a lane with its stock and
+// pipeline entries
 template <int G>
 __device__ __forceinline__ void ln_obs(const DnChain& ch, const LnEnv& env,
                                        int te, int g) {
@@ -217,7 +222,7 @@ __device__ __forceinline__ void ln_obs(const DnChain& ch, const LnEnv& env,
 // ---- phase 4 at one shipping node n, its products in order.  DT >= dmax
 // is the kernel's compile-time degree: every loop over slots unrolls, so
 // the slot arrays live in registers; the sorted cut and the clips stop at
-// the run-time Dn as sc_step's do.
+// the run-time Dn as core/step.py's do.
 template <int DT, class In>
 __device__ __forceinline__ void ln_ship_node(const DnChain& ch,
                                              const DnEdges& ed,
@@ -340,7 +345,7 @@ __device__ __forceinline__ void ln_ship_node(const DnChain& ch,
   }
 }
 
-// ---- phases 1-6 of one step (sc_step), over the group's G lanes ------------
+// ---- phases 1-6 of one step (core/step.py), over the group's G lanes -----
 template <int G, int DT, class In>
 __device__ __forceinline__ float ln_step(const DnChain& ch, const DnEdges& ed,
                                          const LnEnv& env, In& in, int t,

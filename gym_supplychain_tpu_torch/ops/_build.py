@@ -37,9 +37,9 @@ _lib_dir = None
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _F = ctypes.c_float
 _SIGNATURES = {
-    "sc_policy_launch": [_P, _I, _P, _P, _I, _I, _I, _I, _P, _P, _P, _U, _U,
-                         _I, _P, _P, _P, _P, _P, _P, _P],
-    "sc_greedy_launch": [_P, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
+    # the policy lane kernel's entry: K1 `policy`/`policy_eps`, K4
+    "sc_policy_lane_launch": [_P, _I, _P, _P] + [_I] * 8 + [_P, _P, _P, _U,
+                                                           _U, _I] + [_P] * 7,
     # the lane-group kernel's entries (LN_ENTRY_ARGS): K5, K1, K6a
     **{name: [_P] + [_I] * 10 + [_P, _P, _P, _U, _U, _P, _P, _P, _P]
        for name in ("sc_dense_launch", "sc_lane_launch", "sc_episode_launch")},
@@ -47,7 +47,6 @@ _SIGNATURES = {
     "bg_episode_launch": [_I] * 10 + [_P] * 5,
     "ppo_update_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F,
                           _F, _F, _F, _P, _P, _I, _P],
-    "sc_chain_bytes": [],
     "dn_chain_bytes": [],
     "dn_edges_bytes": [],
     "mlp_layout_ints": [],

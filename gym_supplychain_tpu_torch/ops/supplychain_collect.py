@@ -27,23 +27,23 @@ auto-reset at every boundary; every step emits its pre-action observation
   ``[X, S*B]`` with time-major columns ``s*B + b``: the update phase's
   sample layout, read with no copy.
 
-Two kernels serve the modes, both within the size limits ``_MAX``:
+Two kernels serve the modes, both on the lane-group step of
+``csrc/supplychain_lanes.cuh`` (the step K5 and K6a share: each env on a
+group of 4, 8 or 16 lanes, its state in shared memory), both within the
+size limits ``_MAX`` and on the descriptor ``dense_descriptor``
+(``ops/supplychain_dense.py``) makes:
 
 * ``random`` and ``actions`` run the lane-group kernel
-  (``csrc/supplychain_lanes.cu`` on ``csrc/supplychain_lanes.cuh``, the
-  step K5 and K6a share): each env on a group of 4, 8 or 16 lanes, 8 envs
-  a block, its state in shared memory, launched through
-  ``ops/supplychain_dense.py``'s ``launch_lanes`` on the descriptor
-  ``dense_descriptor`` makes.
-* the policy modes run ``sc_policy_kernel`` (``csrc/supplychain_collect.cu``)
-  on the one-thread step of ``csrc/supplychain_step.cuh``: one thread per
-  env with its state in per-thread arrays and the chain in a shared-memory
-  descriptor (``chain_descriptor``: that header's ``ChainT`` at ``_MAX``),
-  the MLP run cooperatively per block of 32 envs with the weights in shared
-  memory.
+  (``csrc/supplychain_lanes.cu``), 8 envs a block, launched through
+  ``launch_lanes``.
+* the policy modes run the policy lane kernel
+  (``csrc/supplychain_policy.cu``), launched through
+  ``launch_policy_lanes``: E envs a block (``policy_block``), the packed
+  weights (``ops/_mlp.py``) in shared memory once a block, the MLP run by
+  every thread of the block.
 
 What bounds them on the card, and the MLP's ordered accumulation, are set
-out at the top of those files; the float rules both steps and the plain
+out at the top of those files; the float rules the step and the plain
 version follow (no FMA contraction, the pipeline add association, ordered
 sums, the stable sorted cut), at the top of ``csrc/supplychain_step.cuh``.
 The plain version is an eager loop over ``core/step.py``; the wrapper takes
@@ -62,17 +62,16 @@ from ..models.policy import (LOG_STD_MAX, LOG_STD_MIN, flat_params,
 from ..rng.device import (box_muller, demand_from_uniform,
                           leadtimes_from_uniform, philox_uniform,
                           poisson_clip_thresholds)
-from ._mlp import LAYOUT_INTS, SMEM_MAX, MlpLayout
+from ._mlp import MlpLayout
 
 __all__ = ["make_supplychain_collect", "launch_supplychain_collect",
            "launch_supplychain_policy", "supplychain_collect_plain",
            "philox_tables", "chain_descriptor", "check_uniform_demand",
-           "check_kernel_support", "descriptor_words",
-           "policy_smem_bytes", "resolve_device", "seed_key"]
+           "check_kernel_support", "descriptor_words", "resolve_device",
+           "seed_key"]
 
 _MODES = {"random": 0, "actions": 1, "policy": 2, "policy_eps": 3}
 _POLICY_MODES = ("policy", "policy_eps")
-_PK_ENVS = 32                      # envs a block of the policy kernel
 _MAX = dict(N=32, P=8, NP=32, D=8, ND=256, NPD=256, RING=8, K=64, A=64,
             RP=16, CDF=8)
 
@@ -136,7 +135,8 @@ def check_kernel_support(cc: CompiledChain, m=_MAX,
 
 
 def chain_descriptor(cc: CompiledChain) -> np.ndarray:
-    """The chain as the bytes of ``ScChain`` (uint8 array)."""
+    """The chain as the bytes of ``ScChain`` (uint8 array): ``ChainT`` at
+    the collect kernel's limits ``_MAX``, which it raises beyond."""
     check_kernel_support(cc)
     return descriptor_words(cc, _DESC_FIELDS)
 
@@ -395,39 +395,23 @@ def launch_supplychain_collect(desc: torch.Tensor, cc: CompiledChain, S: int,
 launch_supplychain_collect.launches = 0
 
 
-def policy_smem_bytes(layout: MlpLayout) -> int:
-    """Dynamic shared memory of the policy kernel: the packed weights, the
-    obs tile, two hidden-activation tiles and the two head tiles, for a
-    block of 32 envs.  Raises where the block would exceed the card's
-    shared memory (the chain descriptor and the layout sit beside it)."""
-    floats = (layout.wsec[0] + layout.wsec[1]
-              + _PK_ENVS * (layout.O + 2 * max(layout.hidden)
-                            + sum(layout.head_rows)))
-    dyn = 4 * floats
-    static = DESC_BYTES + 4 * LAYOUT_INTS
-    if dyn + static > SMEM_MAX:
-        raise NotImplementedError(
-            f"actor-critic O={layout.O}, A={layout.A}, hidden="
-            f"{layout.hidden} needs {dyn + static} bytes of shared memory "
-            f"per block; the policy kernel has {SMEM_MAX}")
-    return dyn
-
-
 def launch_supplychain_policy(desc: torch.Tensor, cc: CompiledChain,
                               layout: MlpLayout, layout_dev: torch.Tensor,
                               weights: torch.Tensor, S: int, B: int,
                               mode: str, seed: int = 0, demands=None,
                               leadtimes=None, eps=None,
                               sample_major: bool = False):
-    """Launch the CUDA policy collect kernel (``policy``, ``policy_eps``)
-    on the current stream.
+    """Launch the CUDA policy collect kernel (``policy``, ``policy_eps``:
+    the policy lane kernel) on the current stream.
 
+    ``desc`` is ``dense_descriptor(cc)`` (``ops/supplychain_dense.py``),
     ``layout_dev`` is ``layout.ints`` and ``weights`` is
-    ``layout.pack(flat)``, both on the card.  Returns ``(obs, act_pre,
+    ``layout.pack(flat)``, all on the card.  Returns ``(obs, act_pre,
     logp [S,B], value [S,B], reward [S,B], final stock [N,P,B])`` with obs
     and ``act_pre`` ``[S,X,B]``, or ``[X,S*B]`` with ``sample_major``.
     """
-    from ._build import check, library
+    # supplychain_dense imports this module
+    from .supplychain_dense import launch_policy_lanes
 
     if mode not in _POLICY_MODES:
         raise ValueError(f"mode {mode!r}: this launcher takes the policy "
@@ -435,46 +419,15 @@ def launch_supplychain_policy(desc: torch.Tensor, cc: CompiledChain,
     device = desc.device
     if device.type != "cuda":
         raise ValueError("the collect kernel runs on a CUDA device")
-    if (layout.O, layout.A) != (cc.obs_dim, cc.A):
-        raise ValueError(f"actor-critic for O={layout.O}, A={layout.A}; the "
-                         f"chain has O={cc.obs_dim}, A={cc.A}")
-    _check(desc, "desc", torch.uint8, (DESC_BYTES,), device)
-    _check(layout_dev, "layout", torch.int32, (LAYOUT_INTS,), device)
-    _check(weights, "weights", torch.float32,
-           (layout.wsec[0] + layout.wsec[1],), device)
-    smem = policy_smem_bytes(layout)
     ptrs = (None, None, None)
     if mode == "policy":
         check_uniform_demand(cc)
     else:
         ptrs = _check_tables(cc, S, B, device, demands, leadtimes, eps, "eps")
-    lib = library()
-    if lib.sc_chain_bytes() != DESC_BYTES:
-        raise RuntimeError("chain descriptor layout differs from the kernel's")
-    if lib.mlp_layout_ints() != LAYOUT_INTS:
-        raise RuntimeError("MLP layout differs from the kernel's")
-    O, A = cc.obs_dim, cc.A
-    f32 = dict(dtype=torch.float32, device=device)
-    if sample_major:
-        obs = torch.empty((O, S * B), **f32)
-        pre = torch.empty((A, S * B), **f32)
-    else:
-        obs = torch.empty((S, O, B), **f32)
-        pre = torch.empty((S, A, B), **f32)
-    logp, value, rew = (torch.empty((S, B), **f32) for _ in range(3))
-    stock = torch.empty((cc.N, cc.P, B), **f32)
-    k0, k1 = seed_key(seed)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.sc_policy_launch(
-            desc.data_ptr(), DESC_BYTES, layout_dev.data_ptr(),
-            weights.data_ptr(), smem, _MODES[mode], S, B, *ptrs, k0, k1,
-            int(sample_major), obs.data_ptr(), pre.data_ptr(),
-            logp.data_ptr(), value.data_ptr(), rew.data_ptr(),
-            stock.data_ptr(), stream)
-    check(code, "supplychain policy collect")
+    out = launch_policy_lanes(desc, cc, layout, layout_dev, weights, mode, S,
+                              B, seed, ptrs, sample_major)
     launch_supplychain_policy.launches += 1
-    return obs, pre, logp, value, rew, stock
+    return out
 
 
 launch_supplychain_policy.launches = 0
@@ -521,19 +474,16 @@ def make_supplychain_collect(cc: CompiledChain, T: int, B: int,
     # unsupported chains and networks fail here, when the collector is built
     if mode in ("random", "policy"):
         check_uniform_demand(cc)
-    if policy:
-        words = chain_descriptor(cc)
-    else:
-        # supplychain_dense imports this module
-        from .supplychain_dense import dense_descriptor, lane_block
-        lane_block(cc, "collect")
-        words = dense_descriptor(cc)
+    # supplychain_dense imports this module
+    from .supplychain_dense import dense_descriptor, lane_block, policy_block
+    lane_block(cc, "collect")
+    words = dense_descriptor(cc)
     desc = (torch.as_tensor(words, device=device)
             if device.type == "cuda" else None)
     if policy:
         layout = MlpLayout(cc.obs_dim, cc.A, hidden)
         if desc is not None:
-            policy_smem_bytes(layout)
+            policy_block(cc, layout, B, 2)
             layout_dev = torch.as_tensor(layout.ints, device=device)
 
     def _tensor(x, name, dtype):

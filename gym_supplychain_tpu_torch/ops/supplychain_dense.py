@@ -1,4 +1,4 @@
-"""The lane-group kernel's descriptor, planner and launch, and the
+"""The lane-group kernels' descriptor, planners and launches, and the
 trajectory collection for large chains (K5): CUDA kernel, plain version,
 wrapper.
 
@@ -11,7 +11,11 @@ it.  It serves three kernels, all on the descriptor ``dense_descriptor``
 makes and planned by ``lane_block``: K5 here, K1's ``random`` and
 ``actions`` modes (``ops/supplychain_collect.py``) and K6a
 (``ops/supplychain_episode.py``), each launched through ``launch_lanes``.
-It follows the collect kernels' float rules (``csrc/supplychain_step.cuh``)
+The policy lane kernel (``csrc/supplychain_policy.cu``) runs the same step
+with the actor in the loop, the MLP over every thread of a block: K1's
+policy modes and K4, planned by ``policy_block`` and launched through
+``launch_policy_lanes``.
+They follow the collect kernels' float rules (``csrc/supplychain_step.cuh``)
 and matches the plain versions bit for bit in the dynamics; rewards differ
 in the order of the cost sum (~1e-7 relative).
 
@@ -48,7 +52,7 @@ import numpy as np
 import torch
 
 from ..core.compile import CompiledChain
-from ._mlp import SMEM_MAX
+from ._mlp import LAYOUT_INTS, SMEM_MAX, MlpLayout
 from .supplychain_collect import (_MAX, _check, _check_tables, _desc_fields,
                                   check_kernel_support, check_uniform_demand,
                                   descriptor_words, resolve_device, seed_key,
@@ -56,7 +60,8 @@ from .supplychain_collect import (_MAX, _check, _check_tables, _desc_fields,
 
 __all__ = ["make_supplychain_dense_collect", "launch_supplychain_dense",
            "supplychain_dense_collect_plain", "dense_descriptor",
-           "dense_edges", "lane_block", "launch_lanes", "DENSE_MAX"]
+           "dense_edges", "lane_block", "launch_lanes", "policy_block",
+           "launch_policy_lanes", "DENSE_MAX"]
 
 _MODES = ("random", "actions")            # K5's modes
 _LANE_MODES = {"random": 0, "actions": 1, "seeded": 4}  # the kernel's numbers
@@ -80,6 +85,12 @@ LANE_GROUPS, LANE_ENVS = (4, 8, 16), 8
 # each kind's launch entry (K5, K1, K6a)
 _ENTRIES = {"dense": "sc_dense_launch", "collect": "sc_lane_launch",
             "episode": "sc_episode_launch"}
+# envs a block of the policy lane kernel, largest first, the blocks its E
+# must still make (about one an SM of the H100's 132) and its threads a
+# block at most (PL_MAX_THREADS of csrc/supplychain_policy.cu)
+POLICY_ENVS, POLICY_MIN_BLOCKS, POLICY_MAX_THREADS = (32, 16, 8), 128, 256
+# the policy lane kernel's modes (MODE_* of csrc/supplychain_step.cuh)
+_POLICY_MODES = {"policy": 2, "policy_eps": 3, "greedy": 5}
 
 
 def dense_slot_bound(cc: CompiledChain) -> int:
@@ -141,6 +152,24 @@ def dense_descriptor(cc: CompiledChain) -> np.ndarray:
     return words.view(np.uint8)
 
 
+def _stretch_words(cc: CompiledChain, obs: bool) -> int:
+    """Words of an env's stretch (``lane_block``), with or without its
+    observation."""
+    ships = _shipping_nodes(cc)
+    # dense_edges' counts, without its lists: the launches plan every call
+    n_edges = int((np.asarray(cc.edge_mask, bool) & ships[:, None]).sum())
+    NP = cc.N * cc.P
+    return (NP * (1 + cc.H + 1) + cc.R * cc.P + n_edges * (cc.P + 1) + cc.N
+            + (cc.obs_dim if obs else 0))
+
+
+def _small_lanes(cc: CompiledChain) -> int:
+    """Lanes an env on a chain within the collect kernel's limits: the
+    least of ``LANE_GROUPS`` that holds max(N*P, shipping nodes)."""
+    need = max(cc.N * cc.P, int(_shipping_nodes(cc).sum()))
+    return next((g for g in LANE_GROUPS if g >= need), LANE_GROUPS[-1])
+
+
 def lane_block(cc: CompiledChain, kind: str):
     """``(G, E, stride, shared bytes)`` of the lane-group kernel for
     ``kind``: ``"dense"`` (K5: 16 lanes an env), ``"collect"`` (K1
@@ -158,20 +187,51 @@ def lane_block(cc: CompiledChain, kind: str):
         raise ValueError(f"unknown lane-kernel kind {kind!r}")
     if kind != "dense":
         check_kernel_support(cc, _MAX)
-    # dense_edges' counts, without its lists: the launches plan every call
-    ships = _shipping_nodes(cc)
-    n_edges = int((np.asarray(cc.edge_mask, bool) & ships[:, None]).sum())
-    NP = cc.N * cc.P
-    words = (NP * (1 + cc.H + 1) + cc.R * cc.P + n_edges * (cc.P + 1)
-             + cc.N + (cc.obs_dim if kind != "episode" else 0))
-    G = 16 if kind == "dense" else next(
-        (g for g in LANE_GROUPS if g >= max(NP, int(ships.sum()))),
-        LANE_GROUPS[-1])
-    E, stride = LANE_ENVS, words | 1
+    G = 16 if kind == "dense" else _small_lanes(cc)
+    E, stride = LANE_ENVS, _stretch_words(cc, kind != "episode") | 1
     smem = 4 * E * stride
     if smem > SMEM_MAX:
         raise NotImplementedError(f"{E} envs of this chain take {smem} bytes "
                                   f"of shared memory; a block has {SMEM_MAX}")
+    return G, E, stride, smem
+
+
+def policy_block(cc: CompiledChain, layout: MlpLayout, B: int, nets: int):
+    """``(G, E, stride, shared bytes)`` of the policy lane kernel
+    (``csrc/supplychain_policy.cu``) for ``nets`` networks: 2 for K1's
+    policy modes (actor and critic), 1 for K4 (the actor).
+
+    G is ``lane_block``'s for the chain (4 lanes linear, 8 ntom).  The
+    weights are copied once a block, so E, the envs a block, is the largest
+    of ``POLICY_ENVS`` that still makes ``POLICY_MIN_BLOCKS`` blocks of B
+    envs (B = 4096: 32; B = 1024: 8), else the smallest, within
+    ``POLICY_MAX_THREADS`` threads a block (16 lanes: 16 envs).  A block's
+    dynamic shared memory holds the packed weights of its nets, two hidden
+    tiles ``[Hmax, E]``, the heads ``[Jp, E]`` and E env stretches of
+    ``stride`` words (odd): ``lane_block``'s ``"collect"`` stretch and the
+    step's action ``[A]``.  Raises ``NotImplementedError`` where that and the
+    layout ints exceed a block's shared memory, and for a chain beyond the
+    collect kernel's limits."""
+    if nets not in (1, 2):
+        raise ValueError(f"nets must be 1 or 2, got {nets}")
+    if (layout.O, layout.A) != (cc.obs_dim, cc.A):
+        raise ValueError(f"actor-critic for O={layout.O}, A={layout.A}; the "
+                         f"chain has O={cc.obs_dim}, A={cc.A}")
+    check_kernel_support(cc, _MAX)
+    G = _small_lanes(cc)
+    stride = (_stretch_words(cc, True) + cc.A) | 1
+    fits = [e for e in POLICY_ENVS if G * e <= POLICY_MAX_THREADS]
+    E = next((e for e in fits if -(-B // e) >= POLICY_MIN_BLOCKS), fits[-1])
+    floats = sum(layout.wsec[:nets]) + E * (
+        2 * max(layout.hidden) + sum(layout.head_rows[:nets]) + stride)
+    smem = 4 * floats
+    total = smem + 4 * LAYOUT_INTS
+    if total > SMEM_MAX:
+        raise NotImplementedError(
+            f"{'actor-critic' if nets == 2 else 'actor'} O={layout.O}, "
+            f"A={layout.A}, hidden={layout.hidden} at {E} envs a block needs "
+            f"{total} bytes of shared memory, {total - SMEM_MAX} beyond the "
+            f"{SMEM_MAX} a block has")
     return G, E, stride, smem
 
 
@@ -209,6 +269,60 @@ def launch_lanes(desc: torch.Tensor, cc: CompiledChain, kind: str, S: int,
                      rew.data_ptr(), stock.data_ptr(), stream)
     check(code, f"lane-group kernel ({kind}, {G} lanes, {E} envs a block)")
     return obs, rew, stock
+
+
+def launch_policy_lanes(desc: torch.Tensor, cc: CompiledChain,
+                        layout: MlpLayout, layout_dev: torch.Tensor,
+                        weights: torch.Tensor, mode: str, S: int, B: int,
+                        seed: int, ptrs, sample_major: bool = False):
+    """Launch the policy lane kernel planned by ``policy_block`` on the
+    current stream, S steps (auto-reset every T): ``mode`` ``"policy"`` or
+    ``"policy_eps"`` (K1: actor and critic) or ``"greedy"`` (K4: the actor,
+    one episode).  ``desc`` is ``dense_descriptor(cc)``, ``layout_dev``
+    ``layout.ints`` and ``weights`` ``layout.pack(flat)``, all on the card;
+    ``ptrs`` the addresses of the demand, lead-time and noise tables the
+    caller checked (None where the mode draws them).  Returns ``(obs,
+    act_pre, logp [S,B], value [S,B], reward [S,B], final stock [N,P,B])``
+    with obs and ``act_pre`` ``[S,X,B]``, or ``[X,S*B]`` with
+    ``sample_major``; K4 returns only the reward and the stock (the rest
+    None)."""
+    from ._build import check, library
+
+    device = desc.device
+    if device.type != "cuda":
+        raise ValueError("the policy lane kernel runs on a CUDA device")
+    _check(desc, "desc", torch.uint8, (DN_DESC_BYTES,), device)
+    _check(layout_dev, "layout", torch.int32, (LAYOUT_INTS,), device)
+    _check(weights, "weights", torch.float32,
+           (layout.wsec[0] + layout.wsec[1],), device)
+    greedy = mode == "greedy"
+    G, E, stride, smem = policy_block(cc, layout, B, 1 if greedy else 2)
+    lib = library()
+    if lib.dn_chain_bytes() + lib.dn_edges_bytes() != DN_DESC_BYTES:
+        raise RuntimeError("chain descriptor layout differs from the kernel's")
+    if lib.mlp_layout_ints() != LAYOUT_INTS:
+        raise RuntimeError("MLP layout differs from the kernel's")
+    f32 = dict(dtype=torch.float32, device=device)
+    O, A = cc.obs_dim, cc.A
+    obs = pre = logp = value = None
+    if not greedy:
+        obs = torch.empty((O, S * B) if sample_major else (S, O, B), **f32)
+        pre = torch.empty((A, S * B) if sample_major else (S, A, B), **f32)
+        logp, value = torch.empty((S, B), **f32), torch.empty((S, B), **f32)
+    rew = torch.empty((S, B), **f32)
+    stock = torch.empty((cc.N, cc.P, B), **f32)
+    k0, k1 = seed_key(seed)
+    ptr = (lambda x: None if x is None else x.data_ptr())  # noqa: E731
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = lib.sc_policy_lane_launch(
+            desc.data_ptr(), DN_DESC_BYTES, layout_dev.data_ptr(),
+            weights.data_ptr(), _POLICY_MODES[mode], S, B, G, E,
+            dense_slot_bound(cc), stride, smem, *ptrs, k0, k1,
+            int(sample_major), ptr(obs), ptr(pre), ptr(logp), ptr(value),
+            rew.data_ptr(), stock.data_ptr(), stream)
+    check(code, f"policy lane kernel ({mode}, {G} lanes, {E} envs a block)")
+    return obs, pre, logp, value, rew, stock
 
 
 def supplychain_dense_collect_plain(cc: CompiledChain, episodes: int, B: int,

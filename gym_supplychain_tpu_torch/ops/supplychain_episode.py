@@ -24,18 +24,19 @@ chains), and writes only the rewards ``[T, B]``.
   the plain version agree bit for bit, as the collect kernel's policy
   modes do.
 
+Both kernels run the lane-group step of ``csrc/supplychain_lanes.cuh``
+(the step K1 and K5 share: each env on a group of 4, 8 or 16 lanes, its
+state in shared memory) on the descriptor ``dense_descriptor`` makes.
 ``seeded`` and ``actions`` (K6a) run the lane-group kernel without its
-observation stream (``csrc/supplychain_episode.cu`` on
-``csrc/supplychain_lanes.cuh``, the step K1's ``random``/``actions`` and K5
-share: each env on a group of 4, 8 or 16 lanes, 8 envs a block), launched
-through ``ops/supplychain_dense.py``'s ``launch_lanes`` on the descriptor
-``dense_descriptor`` makes.  ``policy`` (K4) runs ``sc_greedy_kernel``
-(``csrc/supplychain_collect.cu``) on the one-thread step of
-``csrc/supplychain_step.cuh``, the chain descriptor ``chain_descriptor``
-and the weight packing of ``ops/_mlp.py``.  What bounds them is set out at
-the top of those files.  The plain version is an eager loop over
-``core/step.py`` in table mode; the wrapper takes it only for tensors on
-the CPU, and launches the kernel or raises for CUDA ones.
+observation stream (``csrc/supplychain_episode.cu``, 8 envs a block),
+launched through ``ops/supplychain_dense.py``'s ``launch_lanes``.
+``policy`` (K4) runs the policy lane kernel (``csrc/supplychain_policy.cu``)
+with the actor alone, launched through ``launch_policy_lanes``: E envs a
+block (``policy_block``), the packed actor (``ops/_mlp.py``) in shared
+memory once a block, the MLP run by every thread of the block.  What bounds
+them is set out at the top of those files.  The plain version is an eager
+loop over ``core/step.py`` in table mode; the wrapper takes it only for
+tensors on the CPU, and launches the kernel or raises for CUDA ones.
 """
 from __future__ import annotations
 
@@ -46,14 +47,15 @@ from ..core.compile import CompiledChain
 from ..core.step import make_supplychain_kernels
 from ..models.policy import flat_params, split_params
 from ..rng.device import philox_uniform
-from ._mlp import LAYOUT_INTS, SMEM_MAX, MlpLayout
-from .supplychain_collect import (_PK_ENVS, DESC_BYTES, _check, _mlp_ordered,
-                                  chain_descriptor, resolve_device, seed_key)
-from .supplychain_dense import dense_descriptor, lane_block, launch_lanes
+from ._mlp import MlpLayout
+from .supplychain_collect import (_check, _mlp_ordered, resolve_device,
+                                  seed_key)
+from .supplychain_dense import (dense_descriptor, lane_block, launch_lanes,
+                                launch_policy_lanes, policy_block)
 
 __all__ = ["make_supplychain_episode", "make_supplychain_policy_rollout",
            "launch_supplychain_episode", "launch_supplychain_greedy",
-           "supplychain_episode_plain", "seeded_actions", "greedy_smem_bytes"]
+           "supplychain_episode_plain", "seeded_actions"]
 
 _MODES = ("actions", "seeded")            # K6a's modes
 
@@ -141,66 +143,29 @@ def launch_supplychain_episode(desc: torch.Tensor, cc: CompiledChain, B: int,
 launch_supplychain_episode.launches = 0
 
 
-def greedy_smem_bytes(layout: MlpLayout) -> int:
-    """Dynamic shared memory of the greedy kernel: the packed actor
-    section, the obs tile, two hidden tiles and the head tile for a block of
-    32 envs.  Raises where the block would exceed the card's shared memory
-    (the chain descriptor and the layout sit beside it)."""
-    floats = layout.wsec[0] + _PK_ENVS * (layout.O + 2 * max(layout.hidden)
-                                          + layout.head_rows[0])
-    dyn = 4 * floats
-    if dyn + DESC_BYTES + 4 * LAYOUT_INTS > SMEM_MAX:
-        raise NotImplementedError(
-            f"actor O={layout.O}, A={layout.A}, hidden={layout.hidden} needs "
-            f"{dyn + DESC_BYTES + 4 * LAYOUT_INTS} bytes of shared memory per "
-            f"block; the greedy kernel has {SMEM_MAX}")
-    return dyn
-
-
 def launch_supplychain_greedy(desc: torch.Tensor, cc: CompiledChain,
                               layout: MlpLayout, layout_dev: torch.Tensor,
                               weights: torch.Tensor, B: int, demands,
                               leadtimes=None):
-    """Launch the CUDA greedy-policy kernel on the current stream.
-    ``layout_dev`` is ``layout.ints`` and ``weights`` ``layout.pack(flat)``
-    (the kernel reads its actor section), both on the card.  Returns
-    ``(rewards [T, B], final stock [N, P, B])``."""
-    from ._build import check, library
-
+    """Launch the CUDA greedy-policy kernel (the policy lane kernel with the
+    actor alone) on the current stream.  ``desc`` is
+    ``dense_descriptor(cc)``, ``layout_dev`` ``layout.ints`` and
+    ``weights`` ``layout.pack(flat)`` (the kernel reads its actor section),
+    all on the card.  Returns ``(rewards [T, B], final stock [N, P, B])``."""
     device = _cuda_device(desc)
-    _check(desc, "desc", torch.uint8, (DESC_BYTES,), device)
-    if (layout.O, layout.A) != (cc.obs_dim, cc.A):
-        raise ValueError(f"actor for O={layout.O}, A={layout.A}; the chain "
-                         f"has O={cc.obs_dim}, A={cc.A}")
-    _check(layout_dev, "layout", torch.int32, (LAYOUT_INTS,), device)
-    _check(weights, "weights", torch.float32,
-           (layout.wsec[0] + layout.wsec[1],), device)
-    smem = greedy_smem_bytes(layout)
     lt_ptr = _check_tables(cc, B, device, demands, leadtimes)
-    lib = library()
-    if lib.sc_chain_bytes() != DESC_BYTES:
-        raise RuntimeError("chain descriptor layout differs from the kernel's")
-    if lib.mlp_layout_ints() != LAYOUT_INTS:
-        raise RuntimeError("MLP layout differs from the kernel's")
-    rew = torch.empty((cc.T, B), dtype=torch.float32, device=device)
-    stock = torch.empty((cc.N, cc.P, B), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.sc_greedy_launch(
-            desc.data_ptr(), DESC_BYTES, layout_dev.data_ptr(),
-            weights.data_ptr(), smem, B, demands.data_ptr(), lt_ptr,
-            rew.data_ptr(), stock.data_ptr(), stream)
-    check(code, "supplychain greedy rollout")
+    out = launch_policy_lanes(desc, cc, layout, layout_dev, weights, "greedy",
+                              cc.T, B, 0, (demands.data_ptr(), lt_ptr, None))
     launch_supplychain_greedy.launches += 1
-    return rew, stock
+    return out[4:]
 
 
 launch_supplychain_greedy.launches = 0
 
 
-def _setup(cc: CompiledChain, T: int, device, words_fn):
-    """Checks shared by both runner makers -> (device, the kernel's chain
-    descriptor ``words_fn(cc)`` on the card or None for the CPU)."""
+def _setup(cc: CompiledChain, T: int, device):
+    """Checks shared by both runner makers -> (device, the kernels' chain
+    descriptor ``dense_descriptor(cc)`` on the card or None for the CPU)."""
     if T != cc.T:
         raise ValueError(f"T={T} must equal the chain horizon cc.T={cc.T}")
     device = torch.device(device)
@@ -208,15 +173,11 @@ def _setup(cc: CompiledChain, T: int, device, words_fn):
         raise ValueError(f"unsupported device {device}")
     device = resolve_device(device)
     # unsupported chains fail here, when the runner is built
-    words = words_fn(cc)
+    lane_block(cc, "episode")
+    words = dense_descriptor(cc)
     desc = (torch.as_tensor(words, device=device)
             if device.type == "cuda" else None)
     return device, desc
-
-
-def _lane_words(cc: CompiledChain):
-    lane_block(cc, "episode")
-    return dense_descriptor(cc)
 
 
 def _on(x, name, dtype, device):
@@ -251,7 +212,7 @@ def make_supplychain_episode(cc: CompiledChain, T: int, B: int,
     each returning the rewards ``[T, B]``.  A CUDA device launches the
     kernel; the CPU runs the plain version.
     """
-    device, desc = _setup(cc, T, device, _lane_words)
+    device, desc = _setup(cc, T, device)
 
     def _run(mode, demands, rest):
         dem, lt, last = _tables_of(cc, device, demands, rest)
@@ -280,11 +241,25 @@ def make_supplychain_policy_rollout(cc: CompiledChain, T: int, B: int,
     used).  A CUDA device launches the kernel; the CPU runs the plain
     version.
     """
-    device, desc = _setup(cc, T, device, chain_descriptor)
+    device, desc = _setup(cc, T, device)
     layout = MlpLayout(cc.obs_dim, cc.A, hidden)
     if desc is not None:
-        greedy_smem_bytes(layout)
+        policy_block(cc, layout, B, 1)
         layout_dev = torch.as_tensor(layout.ints, device=device)
+    # the weights last packed: (the tensors, their version counters, the
+    # packed buffer).  An episode of an evaluation sweep reuses the buffer
+    # while the same tensors hold the same values; an in-place update (an
+    # optimizer step, a load) bumps a tensor's version and packs anew.
+    packed = [(), (), None]
+
+    def _packed(flat):
+        if any(p.is_inference() for p in flat):     # no version counter
+            return layout.pack(flat)
+        versions = tuple(p._version for p in flat)
+        if (len(flat) != len(packed[0]) or versions != packed[1]
+                or any(a is not b for a, b in zip(flat, packed[0]))):
+            packed[:] = [tuple(flat), versions, layout.pack(flat)]
+        return packed[2]
 
     def run_policy(demands, *rest):
         dem, lt, params = _tables_of(cc, device, demands, rest)
@@ -295,8 +270,7 @@ def make_supplychain_policy_rollout(cc: CompiledChain, T: int, B: int,
                                  f"{device}")
         if desc is not None:
             return launch_supplychain_greedy(desc, cc, layout, layout_dev,
-                                             layout.pack(flat), B, dem,
-                                             lt)[0]
+                                             _packed(flat), B, dem, lt)[0]
         return supplychain_episode_plain(cc, B, "policy", dem, lt,
                                          params=flat)[0]
 

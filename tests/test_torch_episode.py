@@ -28,7 +28,8 @@ from gym_supplychain_tpu.ops.supplychain_pallas import (  # noqa: E402
 from gym_supplychain_tpu_torch import make_chain  # noqa: E402
 from gym_supplychain_tpu_torch.models.policy import params_from_jax  # noqa: E402
 from gym_supplychain_tpu_torch.ops import supplychain_episode as sce  # noqa: E402
-from gym_supplychain_tpu_torch.ops._mlp import MlpLayout  # noqa: E402
+from gym_supplychain_tpu_torch.ops._mlp import (  # noqa: E402
+    LAYOUT_INTS, MlpLayout)
 
 CASES = [("supplychain-linear-v0", 20, 8, (32, 32), 1),
          ("supplychain-ntom-v0", 15, 4, (16,), 2),
@@ -107,10 +108,11 @@ def test_runners_check_what_they_take():
     bad = cc.__class__(**{**cc.__dict__,
                           "stock_cap": -np.asarray(cc.stock_cap)})
     with pytest.raises(ValueError):                  # negative capacities
-        sce.chain_descriptor(bad)
+        sce.dense_descriptor(bad)
     with pytest.raises(NotImplementedError):         # over the shared memory
-        sce.greedy_smem_bytes(MlpLayout(cc.obs_dim, cc.A, (256, 256)))
-    assert sce.greedy_smem_bytes(MlpLayout(27, 14, (128, 128))) < 232448
+        sce.policy_block(cc, MlpLayout(cc.obs_dim, cc.A, (256, 256)), 4096, 1)
+    assert sce.policy_block(cc, MlpLayout(27, 14, (128, 128)), 4096,
+                            1)[3] + 4 * LAYOUT_INTS <= 232448
     # a CPU launch never reaches the kernel
     desc = torch.as_tensor(sce.dense_descriptor(cc))
     (dem, lt), act = _tables(cc, 4, 2, 0)

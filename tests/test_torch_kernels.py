@@ -174,6 +174,60 @@ def test_supplychain_policy_kernel_matches_plain(env_id, mode, sample_major):
     assert float((k[4] - p[4]).abs().max()) <= 1e-5 * float(p[4].abs().max())
 
 
+def _close_policy(k, p):
+    """Phase 6's gates on (obs, act_pre, logp, value, reward, stock)."""
+    assert float((k[0] - p[0]).abs().max()) <= 1e-6
+    assert float((k[1] - p[1]).abs().max()) <= 1e-4
+    assert torch.allclose(k[2], p[2], rtol=1e-4, atol=1e-3)
+    assert float((k[3] - p[3]).abs().max()) <= 1e-4
+    assert float((k[4] - p[4]).abs().max()) <= 1e-5 * float(p[4].abs().max())
+    assert torch.equal(k[5], p[5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,E", [(8 * 12 + 3, 8), (2048 + 5, 16),
+                                 (4096 + 7, 32)])
+@pytest.mark.parametrize("env_id", ["supplychain-linear-v0",
+                                    "supplychain-ntom-v0"])
+def test_policy_lane_kernel_ragged_batches_at_each_block(env_id, B, E):
+    """K1's policy modes on the policy lane kernel at each E the planner
+    picks, with a last block that holds inactive envs: ``policy_eps``
+    against plain, ``policy`` against ``policy_eps`` on its Philox tables,
+    and K4 against plain at the same B, final stock bit-equal."""
+    from gym_supplychain_tpu_torch.ops.supplychain_dense import policy_block
+
+    dev = _device()
+    T, episodes, hidden, seed = 6, 2, (32, 16), 4
+    cc = make_chain(env_id, total_time_steps=T)
+    S = episodes * T
+    model = _policy_model(cc, hidden, dev)
+    lay = MlpLayout(cc.obs_dim, cc.A, hidden)
+    assert policy_block(cc, lay, B, 2)[1] == policy_block(cc, lay, B, 1)[1] \
+        == E
+    desc = torch.as_tensor(dense_descriptor(cc), device=dev)
+    args = (desc, cc, lay, torch.as_tensor(lay.ints, device=dev),
+            lay.pack(model.flat()), S, B)
+    dem, lt, eps = scc.philox_tables(cc, seed, range(S), B, dev, policy=True)
+    k_eps = scc.launch_supplychain_policy(*args, "policy_eps", demands=dem,
+                                          leadtimes=lt, eps=eps)
+    p_eps = scc.supplychain_collect_plain(cc, episodes, B, "policy_eps",
+                                          demands=dem, leadtimes=lt, eps=eps,
+                                          params=model)
+    _close_policy(k_eps, p_eps)
+    _close_policy(scc.launch_supplychain_policy(*args, "policy", seed=seed),
+                  k_eps)
+    rs = np.random.RandomState(B)
+    dem = torch.as_tensor(rs.randint(0, 25, size=(T + 1, cc.R, cc.P, B))
+                          .astype(np.float32), device=dev)
+    lt = (torch.as_tensor(rs.randint(1, cc.Lmax + 1, size=(T, cc.K, B))
+                          .astype(np.int32), device=dev)
+          if cc.stochastic_leadtimes else None)
+    k = sce.launch_supplychain_greedy(*args[:5], B, dem, lt)
+    p = sce.supplychain_episode_plain(cc, B, "policy", dem, lt, params=model)
+    assert float((k[0] - p[0]).abs().max()) <= 1e-5 * float(p[0].abs().max())
+    assert torch.equal(k[1], p[1])
+
+
 @pytest.mark.cuda
 def test_ppo_update_kernel_matches_plain_and_repeats():
     """Kernel and plain float32 gradients against float64 autograd: the
@@ -304,7 +358,7 @@ def test_supplychain_episode_kernel_matches_plain(env_id, mode):
     rew = run(*tables, *kw.values())
     assert launcher.launches == before + 1 and rew.device == dem.device
     if mode == "policy":
-        desc = torch.as_tensor(sce.chain_descriptor(cc), device=dev)
+        desc = torch.as_tensor(dense_descriptor(cc), device=dev)
         lay = MlpLayout(cc.obs_dim, cc.A, hidden)
         k = sce.launch_supplychain_greedy(
             desc, cc, lay, torch.as_tensor(lay.ints, device=dev),
@@ -316,6 +370,40 @@ def test_supplychain_episode_kernel_matches_plain(env_id, mode):
     assert torch.equal(k[0], rew)
     assert float((k[0] - p[0]).abs().max()) <= 1e-5 * float(p[0].abs().max())
     assert torch.equal(k[1], p[1])
+
+
+@pytest.mark.cuda
+def test_greedy_runner_packs_each_weight_version_once():
+    """The greedy runner reuses its packed weights while the parameters
+    stay the same tensors at the same version, and packs anew after an
+    in-place update or for other tensors: its rewards follow the plain
+    version through both."""
+    dev = _device()
+    T, B, hidden = 8, 64, (16, 16)
+    cc = make_chain("supplychain-ntom-v0", total_time_steps=T)
+    rs = np.random.RandomState(5)
+    dem = torch.as_tensor(rs.randint(0, 25, size=(T + 1, cc.R, cc.P, B))
+                          .astype(np.float32), device=dev)
+    lt = torch.as_tensor(rs.randint(1, cc.Lmax + 1, size=(T, cc.K, B))
+                         .astype(np.int32), device=dev)
+    run = sce.make_supplychain_policy_rollout(cc, T, B, hidden=hidden,
+                                              device="cuda")
+    model = _policy_model(cc, hidden, dev)
+
+    def check():
+        p = sce.supplychain_episode_plain(cc, B, "policy", dem, lt,
+                                          params=model)[0]
+        k = run(dem, lt, model)
+        assert float((k - p).abs().max()) <= 1e-5 * float(p.abs().max())
+        return k
+
+    first = check()
+    assert torch.equal(run(dem, lt, model), first)
+    with torch.no_grad():
+        model.mu.w.mul_(-1.0)
+    assert not torch.equal(check(), first)
+    model = _policy_model(cc, hidden, dev, seed=1)
+    check()
 
 
 def _small_chain(name, T):
@@ -518,6 +606,25 @@ def test_beergame_episode_kernel_matches_plain(delay, init_delay):
     assert bge.launch_beergame_episode.launches == before + 1
     p = bge.beergame_episode_plain(*args, **kw)
     assert k.device == args[0].device and torch.equal(k, p)
+
+
+def test_policy_split_variants_apply_to_the_kernel_source():
+    """``benchmarks/policy_split.py`` cuts the MLP and the env step out of
+    the policy lane kernel by replacing texts of its source: every text is
+    there, the MLP-less build runs neither net, the step-less one no
+    ``ln_step``; both keep the rest of the source."""
+    from gym_supplychain_tpu_torch.benchmarks import policy_split as ps
+    from gym_supplychain_tpu_torch.ops import _build
+
+    src = (_build.CSRC / "supplychain_policy.cu").read_text()
+    out = ps.variant_sources()
+    assert set(out) == {"no_mlp", "no_step"}
+    assert out["no_mlp"].count("if (0) pl_net(") == 2
+    assert "mu_s[i * E + e])" not in out["no_mlp"]
+    assert out["no_step"].count("r = act[0];") == 2
+    assert "ln_step<G, DT>(" not in out["no_step"]
+    for text in out.values():
+        assert text != src and text.count("\n") == src.count("\n")
 
 
 _PTXAS = """\

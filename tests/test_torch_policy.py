@@ -34,7 +34,10 @@ from gym_supplychain_tpu_torch.models.policy import (  # noqa: E402
     ActorCritic, MLPConfig, actor_critic_forward, params_from_jax,
     params_to_numpy, tanh_gaussian_logp)
 from gym_supplychain_tpu_torch.ops import supplychain_collect as scc  # noqa: E402
-from gym_supplychain_tpu_torch.ops._mlp import MlpLayout  # noqa: E402
+from gym_supplychain_tpu_torch.ops._mlp import (  # noqa: E402
+    LAYOUT_INTS, SMEM_MAX, MlpLayout)
+from gym_supplychain_tpu_torch.ops.supplychain_dense import (  # noqa: E402
+    dense_descriptor, lane_block, policy_block)
 from gym_supplychain_tpu_torch.rng.device import box_muller  # noqa: E402
 
 
@@ -218,8 +221,10 @@ def test_policy_collect_rejects_what_it_does_not_take():
     with pytest.raises(NotImplementedError):        # more than 4 layers
         MlpLayout(cc.obs_dim, cc.A, (8,) * 5)
     with pytest.raises(NotImplementedError):        # over the shared memory
-        scc.policy_smem_bytes(MlpLayout(cc.obs_dim, cc.A, (256, 256)))
-    assert scc.policy_smem_bytes(MlpLayout(27, 14, (128, 128))) < 232448
+        policy_block(cc, MlpLayout(cc.obs_dim, cc.A, (256, 256)), 4096, 2)
+    ntom = make_chain("supplychain-ntom-v0")
+    assert policy_block(ntom, MlpLayout(27, 14, (128, 128)), 4096,
+                        2)[3] + 4 * LAYOUT_INTS <= 232448
     # a CPU collector takes no parameters from another device
     run = scc.make_supplychain_collect(cc, 3, 2, mode="policy", hidden=(4,),
                                        device="cpu")
@@ -228,9 +233,55 @@ def test_policy_collect_rejects_what_it_does_not_take():
     with pytest.raises(ValueError, match="collector on cpu"):
         run(model, 0)
     # a CPU launch never reaches the kernel
-    desc = torch.as_tensor(scc.chain_descriptor(cc))
+    desc = torch.as_tensor(dense_descriptor(cc))
     lay = MlpLayout(cc.obs_dim, cc.A, (4,))
     with pytest.raises(ValueError, match="CUDA"):
         scc.launch_supplychain_policy(desc, cc, lay,
                                       torch.as_tensor(lay.ints), None, 3, 2,
                                       "policy")
+
+
+@pytest.mark.parametrize("nets", [1, 2])
+@pytest.mark.parametrize("env_id", ["supplychain-linear-v0",
+                                    "supplychain-ntom-v0",
+                                    "supplychain-2perstage-v0"])
+def test_policy_block_fits_the_trainer_widths(env_id, nets):
+    """The policy lane kernel's plan at hidden (128, 128): ``lane_block``'s
+    lanes, an odd stretch of the collect stretch plus the action, and the
+    weights of ``nets`` networks, the tiles and E stretches within a
+    block's shared memory at every E it picks."""
+    cc = make_chain(env_id)
+    lay = MlpLayout(cc.obs_dim, cc.A, (128, 128))
+    G_lane, _, lane_stride, _ = lane_block(cc, "collect")
+    for B in (4096, 1024, 4096 + 7, 5):
+        G, E, stride, smem = policy_block(cc, lay, B, nets)
+        assert G == G_lane and stride % 2 == 1
+        assert abs(stride - cc.A - lane_stride) <= 1
+        assert smem == 4 * (sum(lay.wsec[:nets]) + E * (
+            2 * 128 + sum(lay.head_rows[:nets]) + stride))
+        assert smem + 4 * LAYOUT_INTS <= SMEM_MAX == 232448
+    with pytest.raises(NotImplementedError, match="beyond"):
+        policy_block(cc, MlpLayout(cc.obs_dim, cc.A, (256, 256)), 4096,
+                     nets)
+
+
+@pytest.mark.parametrize("B,E", [(4096, 32), (4096 + 7, 32), (4065, 32),
+                                 (4064, 16), (2048, 16), (2033, 16),
+                                 (2032, 8), (1024, 8), (3, 8)])
+def test_policy_block_envs_follow_the_batch(B, E):
+    """E is the largest of 32, 16 and 8 that still makes 128 blocks of B
+    envs (one weight copy an SM at B = 4096), else 8; the actor and the
+    actor-critic plan alike."""
+    cc = make_chain("supplychain-ntom-v0")
+    lay = MlpLayout(cc.obs_dim, cc.A, (128, 128))
+    assert policy_block(cc, lay, B, 1)[1] == policy_block(cc, lay, B,
+                                                          2)[1] == E
+    # 16 lanes an env (N*P = 18): at most 16 envs, 256 threads a block
+    big = make_chain("sc-Nperstage-multiproduct-v0",
+                     nodes_per_echelon=[2, 3, 2, 2], num_products=2)
+    lay16 = MlpLayout(big.obs_dim, big.A, (128, 128))
+    assert policy_block(big, lay16, B, 1)[:2] == (16, min(E, 16))
+    with pytest.raises(ValueError, match="nets"):
+        policy_block(cc, lay, B, 3)
+    with pytest.raises(ValueError, match="O="):
+        policy_block(cc, MlpLayout(cc.obs_dim + 1, cc.A, (8,)), B, 1)
