@@ -17,13 +17,19 @@ beer-game episode sweep at 4096 envs.
 Phases, in order; any failure exits nonzero:
   1. device, power limit, torch/CUDA/nvcc versions; kernel build time;
      ptxas's registers and spills of the update kernel, of every instance
-     of the lane-group kernel (K1 ``random``/``actions``, K6a, K5) and of
-     the policy lane kernel (K1's policy modes, K4)
+     of the lane-group kernel (K1 ``random``/``actions``, K6a, K5), of
+     the policy lane kernel (K1's policy modes, K4) and of the beer-game
+     kernel (K3, K6b)
   2. supply-chain kernel, ``actions`` mode, against plain (linear, ntom)
   3. supply-chain kernel, ``random`` mode, against plain; marginals
-  4. beer-game kernel: v0 random and actions, v2 per-lane actions
+  4. beer-game kernel, bit-exact against plain: v0 random and actions, v2
+     per-lane actions, 3 and 6 levels (idle lanes in a group), delay 0, a
+     ragged B + 7, the v2 stochastic config at max_delay 3 and 4
   5. the collection path: env-steps/s of kernel and plain, launch counts,
-     the lane-group kernel's lanes an env, envs a block and grid
+     the lane-group kernel's lanes an env, envs a block and grid, the
+     geomean; then K3 alone on the card beside its entry point, and the v2
+     stochastic config (outside the geomean) at B and 1024 envs, alone and
+     through ``make_beergame_collect``
   6. supply-chain kernel, policy modes, against plain (linear, ntom, at
      B and at a ragged B + 7): ``policy_eps`` on Philox tables, ``policy``
      against ``policy_eps``, the ``sample_major`` layout against the
@@ -53,8 +59,8 @@ Phases, in order; any failure exits nonzero:
      benchmark's timings (1 and 2 episodes a call, the plain version, the
      eager env's step)
   12. the beer-game episode sweep (K6b), beergame-v0 at B = 4096: bit-exact
-     against plain at delay 2 and at delay 0 with init_delay 2, then timed
-     through ``beergame_episode``
+     against plain at delay 2 and at delay 0 with init_delay 2, at B and at
+     a ragged B + 7, then timed through ``beergame_episode`` and alone
 The line before the last is a JSON summary of the kernels, each with its
 bound: the larger of the bytes it must move over 3.35 TB/s and the float32
 operations it must do over 67 TFLOP/s (the H100 SXM data sheet at 700 W;
@@ -92,7 +98,7 @@ TRAIN_REPS, PLAIN_TRAIN_REPS = 5, 3  # phase 8: timed iterations (median)
 EVAL_EPISODES = 4          # phase 10: the evaluate CLI's episodes
 PLAIN_REPS = 2             # phases 9-10: timed plain calls (median)
 EVAL_RTOL = 1e-5           # phase 10: kernel vs scan evaluator, mean return
-RAGGED = 7                 # phase 6: B + 7 envs, a last block part inactive
+RAGGED = 7                 # phases 4, 6, 12: B + 7 envs, a ragged last block
 DENSE_REPS = 3             # phase 11: timed calls of the dense kernel (median)
 EAGER_STEPS = 10           # phase 11: the eager env's slope, 10 vs 20 steps
 PEAK_FLOPS = 67e12         # H100 SXM float32 outside the tensor cores
@@ -256,41 +262,60 @@ def phase_supplychain(chains, B, episodes, seed, errs):
 
 
 def phase_beergame(B, episodes, seed, errs):
-    """Phase 4: the beer-game kernel, bit-exact against its plain version."""
+    """Phase 4: the beer-game kernel, bit-exact against its plain version:
+    v0 and v2, idle lanes in a group (3, 6 levels), delay 0, a ragged last
+    block, the v2 stochastic config at max_delay 3 and 4."""
     import numpy as np
     import torch
     from gym_supplychain_tpu_torch.ops.beergame_collect import (
-        beergame_collect_plain, launch_beergame_collect)
+        beergame_block, beergame_collect_plain, launch_beergame_collect)
 
     dev = torch.device("cuda")
-    L, W = 4, WEEKS
+    W = WEEKS
     S = episodes * W
     rs = np.random.RandomState(seed)
     put = lambda x: torch.as_tensor(x, device=dev).contiguous()   # noqa: E731
-    v0_dem = put(np.tile(np.array([4] * 4 + [8] * (W - 4), np.int32)[:, None],
-                         (episodes, B)))
+    rand = lambda hi, *shape: put(rs.randint(0, hi, size=shape)   # noqa: E731
+                                  .astype(np.int32))
+    v0_dem = lambda b: put(np.tile(                               # noqa: E731
+        np.array([4] * 4 + [8] * (W - 4), np.int32)[:, None], (episodes, b)))
+
+    def stochastic(b, maxd):
+        return dict(mode="random", seed=seed, demand=rand(12, S, b),
+                    delays=rand(maxd + 1, S, b), delay=None, max_delay=maxd,
+                    v2=True, max_stock=100, exceeded_capacity_penalty=100)
+
     cases = [
-        ("v0 random", dict(mode="random", demand=v0_dem, seed=seed)),
-        ("v0 actions", dict(mode="actions", demand=v0_dem,
-                            actions=put(rs.randint(0, 16, size=(S, L, B))
-                                        .astype(np.int32)))),
-        ("v2 per-lane actions", dict(
-            mode="actions",
-            demand=put(rs.randint(0, 12, size=(S, B)).astype(np.int32)),
-            delays=put(rs.randint(0, 5, size=(S, B)).astype(np.int32)),
-            actions=put(rs.randint(0, 20, size=(S, L, B)).astype(np.int32)),
-            delay=None, max_delay=4, v2=True, max_stock=40,
-            exceeded_capacity_penalty=37)),
+        ("v0 random", 4, B, dict(mode="random", demand=v0_dem(B), seed=seed)),
+        ("v0 actions", 4, B, dict(mode="actions", demand=v0_dem(B),
+                                  actions=rand(16, S, 4, B))),
+        ("v2 per-lane actions", 4, B, dict(
+            mode="actions", demand=rand(12, S, B), delays=rand(5, S, B),
+            actions=rand(20, S, 4, B), delay=None, max_delay=4, v2=True,
+            max_stock=40, exceeded_capacity_penalty=37)),
+        ("L=3 random", 3, B, dict(mode="random", demand=v0_dem(B),
+                                  seed=seed)),
+        ("L=6 actions", 6, B, dict(mode="actions", demand=rand(12, S, B),
+                                   actions=rand(16, S, 6, B))),
+        ("delay 0, init_delay 2", 4, B, dict(
+            mode="actions", demand=rand(12, S, B), actions=rand(16, S, 4, B),
+            delay=0, init_delay=2)),
+        (f"ragged B+{RAGGED} random", 4, B + RAGGED, dict(
+            mode="random", demand=v0_dem(B + RAGGED), seed=seed)),
+        ("v2 stochastic max_delay 3", 4, B, stochastic(B, 3)),
+        ("v2 stochastic max_delay 4", 4, B, stochastic(B, 4)),
     ]
     print("phase 4: beergame_collect vs plain (bit-exact)")
-    for tag, kw in cases:
-        k = launch_beergame_collect(W, L, B, episodes, **kw)
-        p = beergame_collect_plain(W, L, B, episodes, **kw)
+    for tag, L, b, kw in cases:
+        k = launch_beergame_collect(W, L, b, episodes, **kw)
+        p = beergame_collect_plain(W, L, b, episodes, **kw)
         torch.cuda.synchronize()
         obs_err = int((k[0] - p[0]).abs().max())
         rew_err = int((k[1] - p[1]).abs().max())
-        print(f"  {tag} B={B} weeks={W} episodes={episodes}: max obs err "
-              f"{obs_err}, max reward err {rew_err}")
+        G, E, grid = beergame_block(L, b)
+        print(f"  {tag} L={L} B={b} weeks={W} episodes={episodes}: max obs "
+              f"err {obs_err}, max reward err {rew_err}; {G} lanes an env, "
+              f"{E} envs a block, {grid} blocks")
         errs.append(float(max(obs_err, rew_err)))
         if not (torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])):
             raise RuntimeError(f"beergame {tag}: kernel is not bit-exact")
@@ -371,7 +396,57 @@ def phase_main_path(B, episodes, seed, reps):
         if not (ok and shape_ok and r["launches"] > 0):
             raise RuntimeError(f"main path {env_id} failed")
     print(f"  launch counts after the main path: {counts}")
+    rates = [results[e]["S"] * B / results[e]["ms"] * 1e3 for e in runs]
+    print(f"  geomean {math.prod(rates) ** (1 / len(rates)):.4e} "
+          f"env-steps/s")
+    _beergame_alone(spec, bg_kw, bg_dem, B, episodes, seed, results)
     return results
+
+
+def _beergame_alone(spec, bg_kw, bg_dem, B, episodes, seed, results):
+    """Phase 5, after the main path's counts: K3 alone on beergame-v0
+    beside its entry point, then the v2 stochastic config (outside the
+    geomean) at B and 1024 envs through ``make_beergame_collect`` and
+    alone, bit-exact against plain.  Alone: the card's time a launch,
+    back to back behind a sleep kernel, on prebuilt [S, B] tables."""
+    import torch
+    from gym_supplychain_tpu_torch.benchmarks.beergame import V2, device_ms
+    from gym_supplychain_tpu_torch.ops import beergame_collect as bgc
+    from gym_supplychain_tpu_torch.ops.beergame_collect import beergame_block
+
+    W, L = spec.weeks, spec.levels
+    S = episodes * W
+    dem = bg_dem[:, None].expand(W, B).repeat(episodes, 1)
+    r = results["beergame-v0"]
+    r["alone_ms"] = device_ms(lambda: bgc.launch_beergame_collect(
+        W, L, B, episodes, "random", demand=dem, seed=seed, **bg_kw), REPS)
+    G, E, grid = beergame_block(L, B)
+    print(f"  beergame-v0 K3 alone {r['alone_ms']:.4f} ms on the card a "
+          f"launch, entry point {r['ms']:.4f} ms; {G} lanes an env, {E} envs"
+          f" a block, {grid} blocks")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    for b in (B, 1024):
+        d = torch.randint(0, 12, (S, b), generator=gen, device="cuda",
+                          dtype=torch.int32)
+        dl = torch.randint(0, 4, (S, b), generator=gen, device="cuda",
+                           dtype=torch.int32)
+        run = bgc.make_beergame_collect(W, L, b, episodes=episodes,
+                                        mode="random", device="cuda", **V2)
+        ms, k = _timed(lambda: run(d, dl, seed), REPS)
+        alone = device_ms(lambda: bgc.launch_beergame_collect(
+            W, L, b, episodes, "random", demand=d, delays=dl, seed=seed,
+            **V2), REPS)
+        p = bgc.beergame_collect_plain(W, L, b, episodes, "random",
+                                       demand=d, delays=dl, seed=seed, **V2)
+        ok = torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+        G, E, grid = beergame_block(L, b)
+        print(f"  beergame v2 stochastic B={b}: entry point {ms:.4f} ms = "
+              f"{S * b / ms * 1e3:.4e} env-steps/s, K3 alone {alone:.4f} ms;"
+              f" {G} lanes an env, {E} envs a block, {grid} blocks; "
+              f"bit-exact {ok}")
+        if not ok:
+            raise RuntimeError(f"beergame v2 stochastic B={b}: not bit-exact")
 
 
 def _policy_model(cc, seed, dev):
@@ -947,51 +1022,65 @@ def phase_dense(B, seed):
 
 def phase_beergame_episode(B, seed):
     """Phase 12: the beer-game episode sweep (K6b), bit-exact against
-    plain at delay 2 and at delay 0 with init_delay 2, then timed through
-    ``beergame_episode``."""
+    plain at delay 2 and at delay 0 with init_delay 2, at B and at a ragged
+    B + 7, then timed through ``beergame_episode`` and alone."""
     import numpy as np
     import torch
     import gym_supplychain_tpu_torch as sct
+    from gym_supplychain_tpu_torch.benchmarks.beergame import device_ms
     from gym_supplychain_tpu_torch.ops import beergame_episode as bge
+    from gym_supplychain_tpu_torch.ops.beergame_collect import beergame_block
 
     dev = torch.device("cuda")
     spec = sct.make_chain("beergame-v0")
     W, L = spec.weeks, spec.levels
     rs = np.random.RandomState(seed)
     put = lambda x: torch.as_tensor(x, device=dev).contiguous()  # noqa: E731
-    args = (put(rs.randint(0, 13, size=(W, B)).astype(np.int32)),
-            put(rs.randint(0, 16, size=(W, L, B)).astype(np.int32)),
-            put(rs.randint(0, 2 * spec.init_inv + 1, size=(L, B))
-                .astype(np.int32)))
+
+    def inputs(b):
+        return (put(rs.randint(0, 13, size=(W, b)).astype(np.int32)),
+                put(rs.randint(0, 16, size=(W, L, b)).astype(np.int32)),
+                put(rs.randint(0, 2 * spec.init_inv + 1, size=(L, b))
+                    .astype(np.int32)))
+
+    args = inputs(B)
     base = dict(init_ship=spec.init_ship, init_orders=spec.init_orders,
                 inv_cost=spec.inv_cost, backlog_cost=spec.backlog_cost)
     print(f"phase 12: beergame_episode (K6b), beergame-v0, B={B}, W={W}, "
           f"per-lane demand, orders and initial inventory, vs plain "
           f"(bit-exact)")
     err = 0
-    for kw in (dict(delay=spec.delay), dict(delay=0, init_delay=2)):
-        k = bge.launch_beergame_episode(*args, **base, **kw)
-        p = bge.beergame_episode_plain(*args, **base, **kw)
-        torch.cuda.synchronize()
-        e = int((k - p).abs().max())
-        err = max(err, e)
-        print(f"  {kw}: max reward err {e}, bit-equal {torch.equal(k, p)}")
-        if not torch.equal(k, p):
-            raise RuntimeError(f"beergame episode {kw}: not bit-exact")
+    for b, a in ((B, args), (B + RAGGED, inputs(B + RAGGED))):
+        for kw in (dict(delay=spec.delay), dict(delay=0, init_delay=2)):
+            k = bge.launch_beergame_episode(*a, **base, **kw)
+            p = bge.beergame_episode_plain(*a, **base, **kw)
+            torch.cuda.synchronize()
+            e = int((k - p).abs().max())
+            err = max(err, e)
+            print(f"  B={b} {kw}: max reward err {e}, bit-equal "
+                  f"{torch.equal(k, p)}")
+            if not torch.equal(k, p):
+                raise RuntimeError(f"beergame episode B={b} {kw}: not "
+                                   "bit-exact")
     bge.launch_beergame_episode.launches = 0
     ms, rew = _timed(lambda: bge.beergame_episode(*args, device="cuda",
                                                   delay=spec.delay, **base),
                      REPS)
     launches = bge.launch_beergame_episode.launches
+    alone = device_ms(lambda: bge.launch_beergame_episode(
+        *args, delay=spec.delay, **base), REPS)
     plain_ms, _ = _timed(lambda: bge.beergame_episode_plain(
         *args, delay=spec.delay, **base), PLAIN_REPS)
     # demand [W,B], orders [W,L,B] and inventory [L,B] in, rewards [W,B] out
     bound = _bound(4 * B * (2 * W + W * L + L), 0)
+    G, E, grid = beergame_block(L, B)
     print(f"  through beergame_episode: {ms:.4f} ms an episode (median of "
-          f"{REPS}) = {W * B / ms * 1e3:.4e} env-weeks/s; bound "
-          f"{bound[0]:.5f} ms ({bound[1]}): {bound[0] / ms:.2%} of it; plain "
-          f"{plain_ms:.2f} ms; launches {launches}; rewards "
-          f"{tuple(rew.shape)}")
+          f"{REPS}) = {W * B / ms * 1e3:.4e} env-weeks/s; alone "
+          f"{alone:.4f} ms on the card a launch; bound {bound[0]:.5f} ms "
+          f"({bound[1]}): {bound[0] / ms:.2%} of it, {bound[0] / alone:.2%} "
+          f"of the launch alone; plain {plain_ms:.2f} ms; launches "
+          f"{launches}; rewards {tuple(rew.shape)}; {G} lanes an env, {E} "
+          f"envs a block, {grid} blocks")
     if not (launches > 0 and rew.shape == (W, B)):
         raise RuntimeError("beergame episode sweep failed")
     return dict(ms=ms, plain_ms=plain_ms, launches=launches, err=float(err),
@@ -1111,7 +1200,7 @@ def main(argv=None) -> int:
     print(f"kernel build {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for kernel in ("ppo_grad_kernel", "sc_lane_kernel",
-                   "sc_policy_lane_kernel"):
+                   "sc_policy_lane_kernel", "bg_collect_kernel"):
         rows = _build.ptxas_report(kernel)
         if not rows:
             raise RuntimeError(f"no ptxas report for {kernel}")

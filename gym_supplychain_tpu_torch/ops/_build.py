@@ -43,8 +43,8 @@ _SIGNATURES = {
     # the lane-group kernel's entries (LN_ENTRY_ARGS): K5, K1, K6a
     **{name: [_P] + [_I] * 10 + [_P, _P, _P, _U, _U, _P, _P, _P, _P]
        for name in ("sc_dense_launch", "sc_lane_launch", "sc_episode_launch")},
-    "bg_collect_launch": [_I] * 19 + [_P, _P, _P, _U, _U, _P, _P, _P],
-    "bg_episode_launch": [_I] * 10 + [_P] * 5,
+    "bg_collect_launch": [_I] * 27 + [_P, _P, _P, _U, _U, _P, _P, _P],
+    "bg_episode_launch": [_I] * 12 + [_P] * 5,
     "ppo_update_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F,
                           _F, _F, _F, _P, _P, _I, _P],
     "dn_chain_bytes": [],

@@ -14,8 +14,9 @@ one v0 episode of W weeks for every env from a per-lane demand table
   prepended initial delay).
 
 The kernel is the beer-game collect kernel's (``csrc/beergame_collect.cu``)
-with its template flag ``EPISODE`` set: it reads the initial inventory per
-lane and writes no observations.  The plain version is the eager
+with its template flag ``EPISODE`` set, a lane per level as
+``beergame_block`` plans it: it reads the initial inventory per lane and
+writes no observations.  The plain version is the eager
 ``core/beergame.py`` engine started from that inventory; all arithmetic is
 integer, so the two agree bit for bit.  The wrapper takes the plain version
 only for tensors on the CPU, and launches the kernel or raises for CUDA
@@ -27,12 +28,11 @@ import numpy as np
 import torch
 
 from ..core.beergame import make_beergame_kernels
+from . import beergame_collect as _bgc
 from .supplychain_collect import _check, resolve_device
 
 __all__ = ["beergame_episode", "launch_beergame_episode",
            "beergame_episode_plain"]
-
-_MAX_L, _MAX_RING = 16, 16        # BG_MAX_L, BG_MAX_RING of the kernel
 
 
 def _ring(delay: int, init_delay):
@@ -81,21 +81,21 @@ def launch_beergame_episode(demand, actions, initial_inventory,
     if device.type != "cuda":
         raise ValueError("the beer-game episode kernel runs on a CUDA device")
     W, L, B = actions.shape
-    if L > _MAX_L or ring > _MAX_RING:
+    if L > _bgc.BG_MAX_L or ring > _bgc.BG_MAX_RING:
         raise NotImplementedError(f"levels {L} and ring {ring} exceed the "
-                                  f"kernel's {_MAX_L} and {_MAX_RING}")
+                                  f"kernel's {_bgc.BG_MAX_L} and "
+                                  f"{_bgc.BG_MAX_RING}")
     _check(actions, "actions", torch.int32, (W, L, B), device)
     _check(demand, "demand", torch.int32, (W, B), device)
     _check(initial_inventory, "initial_inventory", torch.int32, (L, B),
            device)
+    G, E, _ = _bgc.beergame_block(L, B)
     rew = torch.empty((W, B), dtype=torch.int32, device=device)
-    lib = library()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = lib.bg_episode_launch(
-            W, B, L, ring, delay, init_delay, init_ship, init_orders,
-            inv_cost, backlog_cost, demand.data_ptr(), actions.data_ptr(),
-            initial_inventory.data_ptr(), rew.data_ptr(), stream)
+    code = _bgc.launch_on(
+        device, library().bg_episode_launch, W, B, L, ring, delay,
+        init_delay, init_ship, init_orders, inv_cost, backlog_cost,
+        G.bit_length() - 1, E, demand.data_ptr(), actions.data_ptr(),
+        initial_inventory.data_ptr(), rew.data_ptr())
     check(code, "beergame episode")
     launch_beergame_episode.launches += 1
     return rew

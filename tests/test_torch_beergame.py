@@ -7,6 +7,9 @@ on the cases of ``tests/test_pallas_ops.py`` (v0 over an auto-reset
 boundary, v2 with per-lane stochastic delays including zero delays, v2 with
 a scalar delay).
 """
+import re
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -160,3 +163,166 @@ def test_wrapper_checks():
     # a CPU collector takes no tensor from another device
     with pytest.raises(ValueError, match="collector on cpu"):
         bgc.make_beergame_collect(35, 4, 8, device="cpu")(demand.to("meta"), 0)
+
+
+@pytest.mark.parametrize("levels", [1, 2, 3, 4, 5, 6, 8, 9, 16])
+@pytest.mark.parametrize("B", [1, 7, 1024, 1031, 4096, 4103])
+def test_beergame_block_covers_every_env_once(levels, B):
+    """``beergame_block``: G lanes, the power of two at or above the
+    levels and at least 4, E envs a block within the kernel's threads, and
+    blocks that hold every env once (the last block ragged where E does
+    not divide B)."""
+    G, E, blocks = bgc.beergame_block(levels, B)
+    assert G >= levels and G & (G - 1) == 0 and G in (4, 8, 16)
+    assert G == 4 or G < 2 * levels
+    assert G * E <= bgc.BG_MAX_THREADS and E in bgc.BG_ENVS
+    assert (blocks - 1) * E < B <= blocks * E
+    envs = np.arange(blocks)[:, None] * E + np.arange(E)[None, :]
+    live = envs[envs < B]
+    np.testing.assert_array_equal(np.sort(live), np.arange(B))
+    # the largest E that still gives each SM a block, else the smallest
+    fits = [e for e in bgc.BG_ENVS if G * e <= bgc.BG_MAX_THREADS]
+    wide = [e for e in fits if -(-B // e) >= bgc.BG_MIN_BLOCKS]
+    assert E == (wide[0] if wide else fits[-1])
+
+
+def test_beergame_block_limits_and_kernel_instances():
+    """The planner refuses what the kernel does not take, and the kernel
+    source builds an instance for each G the planner gives and every ring
+    of 1..16 slots (a pipeline of 4, 8 or 16 slots holding it), with the
+    limits the wrappers check."""
+    from gym_supplychain_tpu_torch.ops import _build
+
+    with pytest.raises(NotImplementedError, match="levels"):
+        bgc.beergame_block(17, 64)
+    with pytest.raises(ValueError, match="threads"):
+        bgc.beergame_block(16, 64, envs=32)
+    assert bgc.beergame_block(4, 4096, envs=64) == (4, 64, 64)
+    src = (_build.CSRC / "beergame_collect.cu").read_text()
+    cases = {(int(g), int(c)) for g, c in
+             re.findall(r"BG_CASE\((\d+), (\d+)\)", src)}
+    planned = {bgc.beergame_block(L, 64)[0]
+               for L in range(1, bgc.BG_MAX_L + 1)}
+    for G in planned:
+        for ring in range(1, bgc.BG_MAX_RING + 1):
+            assert any(g == G and c >= ring for g, c in cases), (G, ring)
+    for name in ("BG_MAX_L", "BG_MAX_RING", "BG_MAX_THREADS"):
+        m = re.search(rf"#define {name} (\d+)", src)
+        assert m and int(m[1]) == getattr(bgc, name), name
+    with pytest.raises(NotImplementedError, match="ring"):
+        bgc.launch_beergame_collect(
+            35, 4, 8, 1, "random", demand=torch.zeros(35, dtype=torch.int32),
+            delay=16)
+
+
+def _old_table(x, weeks, S, B, episodes):
+    """The [S, B] table the collector used to build before each launch."""
+    if x.ndim == 1:
+        x = x[:, None].expand(x.shape[0], B)
+    if x.shape[0] == weeks and weeks != S:
+        x = x.repeat(episodes, 1)
+    return x.contiguous()
+
+
+@pytest.mark.parametrize("episodes", [1, 3])
+@pytest.mark.parametrize("shape", ["weeks", "weeks, B", "S", "S, B",
+                                   "weeks, B expanded", "S, B column slice"])
+def test_table_views_expand_to_the_old_tables(shape, episodes):
+    """The kernel reads demand and per-lane delay tables in place through
+    ``table_view``'s rows and strides; expanded on the CPU, what it reads
+    is the ``[S, B]`` table the collector built before."""
+    W, B = 5, 6
+    S = episodes * W
+    rs = np.random.RandomState(episodes)
+    rows = W if shape.startswith("weeks") else S
+    t = torch.as_tensor(rs.randint(-9, 99, size=(rows, 2 * B))
+                        .astype(np.int32))
+    x = {"weeks": t[:, 0], "S": t[:, 0], "weeks, B": t[:, :B].contiguous(),
+         "S, B": t[:, :B].contiguous(),
+         "weeks, B expanded": t[:, 0, None].expand(rows, B),
+         "S, B column slice": t[:, 1::2]}[shape]
+    view = bgc.table_view(x, "demand", W, S, B, torch.device("cpu"))
+    assert view[0] is x and view[1] == rows
+    got = bgc.expand_table(view, S, B)
+    assert torch.equal(got, _old_table(x, W, S, B, episodes))
+
+
+def test_table_view_rejects_what_the_kernel_does_not_read():
+    cpu = torch.device("cpu")
+    ok = torch.zeros((4, 3), dtype=torch.int32)
+    with pytest.raises(ValueError, match="shape"):
+        bgc.table_view(torch.zeros((5, 3), dtype=torch.int32), "demand", 4,
+                       8, 3, cpu)
+    with pytest.raises(ValueError, match="shape"):
+        bgc.table_view(torch.zeros((4, 2), dtype=torch.int32), "delays", 4,
+                       8, 3, cpu)
+    with pytest.raises(ValueError, match="shape"):
+        bgc.table_view(torch.zeros((4, 3, 1), dtype=torch.int32), "demand",
+                       4, 8, 3, cpu)
+    with pytest.raises(TypeError, match="dtype"):
+        bgc.table_view(ok.long(), "demand", 4, 8, 3, cpu)
+    with pytest.raises(TypeError, match="tensor"):
+        bgc.table_view(ok.numpy(), "demand", 4, 8, 3, cpu)
+    with pytest.raises(ValueError, match="meta"):
+        bgc.table_view(ok.to("meta"), "demand", 4, 8, 3, cpu)
+
+
+def test_collector_puts_a_numpy_table_on_its_device_once():
+    """A numpy demand table goes to the collector's device once and is
+    reused while its values hold; a changed table is taken anew."""
+    W, L, B = 6, 4, 5
+    run = bgc.make_beergame_collect(W, L, B, episodes=2, mode="random",
+                                    device="cpu")
+    dem = np.array([4, 4, 8, 8, 8, 8], np.int32)
+    made = []
+    real = torch.tensor
+
+    def spy(x, *a, **k):
+        if isinstance(x, np.ndarray):
+            made.append(x.shape)
+        return real(x, *a, **k)
+
+    with mock.patch.object(torch, "tensor", spy):
+        o1, r1 = run(dem, 3)
+        o2, r2 = run(dem, 3)
+        assert len(made) == 1
+        dem[0] = 9
+        o3, _ = run(dem, 3)
+        assert len(made) == 2
+    assert torch.equal(o1, o2) and torch.equal(r1, r2)
+    assert not torch.equal(o1, o3)
+    want = bgc.make_beergame_collect(W, L, B, episodes=2, mode="random",
+                                     device="cpu")(dem.copy(), 3)
+    assert torch.equal(o3, want[0])
+
+
+def test_ptxas_report_names_the_beergame_instances(tmp_path, monkeypatch):
+    """Phase 1 of ``chip_smoke.py`` prints each ``bg_collect_kernel``
+    instance by its lanes, pipeline slots and episode flag."""
+    from gym_supplychain_tpu_torch.ops import _build
+
+    (tmp_path / "beergame_collect.ptxas.txt").write_text(
+        "ptxas info    : Compiling entry function "
+        "'_Z17bg_collect_kernelILi4ELi4ELi0EEv6BgArgsPKiS2_PiS3_' for "
+        "'sm_90a'\n"
+        "ptxas info    : Function properties for "
+        "_Z17bg_collect_kernelILi4ELi4ELi0EEv6BgArgsPKiS2_PiS3_\n"
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads\n"
+        "ptxas info    : Used 58 registers\n")
+    monkeypatch.setattr(_build, "_lib", object())
+    monkeypatch.setattr(_build, "_lib_dir", tmp_path)
+    assert _build.ptxas_report("bg_collect_kernel") == [dict(
+        function="bg_collect_kernel<4,4,0>", registers=58, spill_stores=0,
+        spill_loads=0, stack=0)]
+
+
+def test_beergame_benchmark_cases_agree_on_the_cpu():
+    """``benchmarks/beergame.py``'s cases (K3 beergame-v0, the v2
+    stochastic config at two batches, K6b): on the CPU each entry point
+    runs the plain version and must equal it on the same inputs."""
+    from gym_supplychain_tpu_torch.benchmarks import beergame as bb
+
+    cases = bb._cases(6, 0, torch.device("cpu"))
+    assert set(cases) == {"k3_v0", "k3_v2_6", "k3_v2_1024", "k6b"}
+    for name, (_, entry, plain) in cases.items():
+        assert bb._same(entry(), plain()), name

@@ -70,25 +70,55 @@ def test_supplychain_kernel_matches_plain(env_id, mode):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", ["v0 random", "v0 actions", "v2 per-lane"])
+@pytest.mark.parametrize("case", [
+    "v0 random", "v0 actions", "v2 per-lane", "L3 random", "L6 actions",
+    "L16 random", "delay 0", "ragged", "v2 stochastic max_delay 3",
+    "v2 stochastic max_delay 4", "init_delay above delay",
+    "tiled tables"])
 def test_beergame_kernel_matches_plain(case):
+    """K3 against plain, bit-exact: v0 and v2, idle lanes in a group (3, 6
+    levels), 16 levels, delay 0, a ragged last block, the v2 stochastic
+    config (per-lane delays up to max_delay, 3 and 4), a ring longer than
+    the delay, and ``[weeks]`` / ``[weeks, B]`` tables read in place."""
     dev = _device()
     W, L, B, E = 35, 4, 256, 2
+    L = {"L3 random": 3, "L6 actions": 6, "L16 random": 16}.get(case, L)
+    B = B + 7 if case == "ragged" else B
     S = E * W
     rs = np.random.RandomState(3)
     put = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
     kw = dict(mode="random", seed=9,
               demand=put(rs.randint(0, 12, size=(S, B)).astype(np.int32)))
-    if case != "v0 random":
+    if "actions" in case or case in ("v2 per-lane", "delay 0", "ragged"):
         kw.update(mode="actions", seed=0, actions=put(
             rs.randint(0, 20, size=(S, L, B)).astype(np.int32)))
     if case == "v2 per-lane":
         kw.update(delay=None, max_delay=4, v2=True, max_stock=40,
                   exceeded_capacity_penalty=37,
                   delays=put(rs.randint(0, 5, size=(S, B)).astype(np.int32)))
+    if case.startswith("v2 stochastic"):
+        maxd = int(case[-1])
+        kw.update(delay=None, max_delay=maxd, v2=True, max_stock=100,
+                  exceeded_capacity_penalty=100, delays=put(
+                      rs.randint(0, maxd + 1, size=(S, B)).astype(np.int32)))
+    if case in ("delay 0", "ragged"):
+        kw.update(delay=0 if case == "delay 0" else 3, init_delay=2)
+    if case == "init_delay above delay":
+        kw.update(delay=1, init_delay=5)
     k = bgc.launch_beergame_collect(W, L, B, E, **kw)
     p = bgc.beergame_collect_plain(W, L, B, E, **kw)
     assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    if case == "tiled tables":
+        # [weeks] and [weeks, B] tables tiled over the episodes in place
+        dem = put(rs.randint(0, 12, size=(W, B)).astype(np.int32))
+        dl = put(rs.randint(0, 4, size=W).astype(np.int32))
+        kw = dict(mode="random", seed=4, delay=None, max_delay=3)
+        k = bgc.launch_beergame_collect(W, L, B, E, demand=dem, delays=dl,
+                                        **kw)
+        p = bgc.beergame_collect_plain(
+            W, L, B, E, demand=dem.repeat(E, 1),
+            delays=dl[:, None].expand(W, B).repeat(E, 1), **kw)
+        assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
 
 
 @pytest.mark.cuda
@@ -587,13 +617,15 @@ def test_supplychain_dense_kernel_negative_values_and_ragged_batch(mode, B):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("L,B", [(4, 300), (3, 300), (6, 257), (16, 64)])
 @pytest.mark.parametrize("delay,init_delay", [(2, None), (0, 2), (3, 1)])
-def test_beergame_episode_kernel_matches_plain(delay, init_delay):
-    """K6b: bit-exact (integers), per-lane demand and initial inventory."""
+def test_beergame_episode_kernel_matches_plain(delay, init_delay, L, B):
+    """K6b: bit-exact (integers), per-lane demand and initial inventory, at
+    idle lanes in a group (3, 6 levels), 16 levels and ragged B."""
     from gym_supplychain_tpu_torch.ops import beergame_episode as bge
 
     dev = _device()
-    W, L, B = 35, 4, 300
+    W = 35
     rs = np.random.RandomState(4)
     put = lambda x: torch.as_tensor(x, device=dev)  # noqa: E731
     args = (put(rs.randint(0, 12, size=(W, B)).astype(np.int32)),
