@@ -9,8 +9,9 @@ CUDA events: trajectory collection at 4096 envs for
 PPO trainer on ``supplychain-ntom-v0`` at 4096 envs, hidden (128, 128),
 horizon 60, greedy evaluation of its checkpoint at 4096 envs, horizon 360,
 with the base-stock baseline beside it, the large-topology benchmark's
-three chains (26, 40 and 8 nodes) at 4096 envs, horizon 360, and the
-beer-game episode sweep at 4096 envs.
+three chains (26, 40 and 8 nodes) at 4096 envs, horizon 360, the
+beer-game episode sweep at 4096 envs, and collection, training and
+evaluation on normal and seasonal demand drawn in the kernels.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -61,6 +62,20 @@ Phases, in order; any failure exits nonzero:
   12. the beer-game episode sweep (K6b), beergame-v0 at B = 4096: bit-exact
      against plain at delay 2 and at delay 0 with init_delay 2, at B and at
      a ragged B + 7, then timed through ``beergame_episode`` and alone
+  13. demand processes drawn in the kernels: K1 ``random`` at B = 4096,
+     T = 360, one episode, on ``sc-2perstage-seasonal-v0``,
+     ``sc-2perstage-multiproduct-v1`` (defaults, and std 10 with a normal
+     perturbation), ``sc-2perstage-multiproduct-inccosts-v1`` (std 10) and
+     the seasonal chain at B + 7: equal to ``actions`` on its Philox
+     tables bit for bit, obs and stock bit-equal to plain, rewards within
+     1e-5 * max|r|; K1 ``policy`` on the seasonal chain at phase 6's shape
+     and gates; K5 ``random`` on phase 11's [5,4,7,10] x 4 with seasonal
+     demand at its gates; then K1 ``random`` timed (8 episodes) on the
+     seasonal chain beside ``sc-2perstage-v0`` (uniform demand, the same
+     graph) and on the normal multiproduct-v1, K5 seasonal beside uniform;
+     the train CLI on the seasonal chain at phase 8's shape (K1 ``policy``
+     and K2 launched) and the trainer's phases, the evaluate CLI with both
+     engines on its checkpoint (one episode, mean returns within 1e-5)
 The line before the last is a JSON summary of the kernels, each with its
 bound: the larger of the bytes it must move over 3.35 TB/s and the float32
 operations it must do over 67 TFLOP/s (the H100 SXM data sheet at 700 W;
@@ -134,6 +149,12 @@ def _bound(n_bytes, n_flops):
     t_bytes, t_ops = n_bytes / PEAK_BYTES, n_flops / PEAK_FLOPS
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _collect_bound(cc, S, B):
+    """The bound of a collection of S steps of B envs: obs [S,O,B], reward
+    [S,B] and the final stock out, float32."""
+    return _bound(4 * B * (S * (cc.obs_dim + 1) + cc.N * cc.P), 0)
 
 
 def _macs(layout, nets):
@@ -1001,8 +1022,7 @@ def phase_dense(B, seed):
         launches = scd.launch_supplychain_dense.launches
         r = out[name]
         d, cc = r["dense"], lt.config_chain(name)
-        # obs [T,O,B], reward [T,B] and the final stock out
-        bound = _bound(4 * B * (cc.T * (cc.obs_dim + 1) + cc.N * cc.P), 0)
+        bound = _collect_bound(cc, cc.T, B)
         res[name] = dict(ms=d["ms_1_episode"], plain_ms=d["plain_ms_1_episode"],
                          launches=launches, err=errs[name], bound=bound)
         print(f"  (c) {name}: kernel {d['ms_1_episode']:.3f} ms an episode, "
@@ -1087,8 +1107,227 @@ def phase_beergame_episode(B, seed):
                 bound=bound)
 
 
-def _kernel_lines(res, tr, upd, ep, ev, dn, bge, sc_errs, bg_errs, pol_errs,
-                  pu_errs, ep_errs):
+def _demand_chain(env_id, T=360, **kw):
+    import gym_supplychain_tpu_torch as sct
+
+    return sct.make_chain(env_id, total_time_steps=T, **kw)
+
+
+def _seasonal_dense_chain():
+    """Phase 11's [5,4,7,10] x 4 (stochastic lead-times) with seasonal
+    demand: 4 peaks between 150 and 250, a normal perturbation of std 10,
+    clipped to [0, 400]."""
+    return _demand_chain("sc-Nperstage-multiproduct-v0",
+                         nodes_per_echelon=[5, 4, 7, 10], num_products=4,
+                         stochastic_leadtimes=True, demand_range=(0, 400),
+                         demand_std=10, demand_sen_peaks=4,
+                         avg_demand_range=(150, 250),
+                         demand_perturb_norm=True)
+
+
+def phase_demand(B, seed, errs):
+    """Phase 13: the demand processes drawn in the kernels (normal and
+    seasonal), K1 ``random``, K1 ``policy`` and K5 ``random`` against their
+    plain versions; K1 and K5 timed beside their uniform-demand chains;
+    the train and evaluate CLIs on ``sc-2perstage-seasonal-v0``."""
+    import shutil
+    import torch
+    from gym_supplychain_tpu_torch.learn import evaluate, ppo, train
+    from gym_supplychain_tpu_torch.ops import ppo_update as pu
+    from gym_supplychain_tpu_torch.ops import supplychain_collect as scc
+    from gym_supplychain_tpu_torch.ops import supplychain_dense as scd
+    from gym_supplychain_tpu_torch.ops import supplychain_episode as sce
+    from gym_supplychain_tpu_torch.ops._mlp import MlpLayout
+    from gym_supplychain_tpu_torch.rng.device import demand_constants
+
+    dev = torch.device("cuda")
+    seasonal = "sc-2perstage-seasonal-v0"
+    mp_normal = dict(demand_std=10, demand_perturb_norm=True)
+    print("phase 13: demand processes drawn in the kernels, T=360")
+    # (a) K1 `random` against plain (obs, stock bit-equal; rewards within
+    # REW_RTOL: the cost sum's order) and against `actions` on its Philox
+    # tables (bit for bit), one episode
+    cases = [(seasonal, {}, B), ("sc-2perstage-multiproduct-v1", {}, B),
+             ("sc-2perstage-multiproduct-v1", mp_normal, B),
+             ("sc-2perstage-multiproduct-inccosts-v1", dict(demand_std=10),
+              B), (seasonal, {}, B + RAGGED)]
+    for env_id, kw, b in cases:
+        cc = _demand_chain(env_id, **kw)
+        S = cc.T
+        desc = torch.as_tensor(scd.dense_descriptor(cc), device=dev)
+        k = scc.launch_supplychain_collect(desc, cc, S, b, "random", seed=seed)
+        dem, lt, act = scc.philox_tables(cc, seed, range(S), b, dev)
+        t = scc.launch_supplychain_collect(desc, cc, S, b, "actions",
+                                           demands=dem, leadtimes=lt,
+                                           actions=act)
+        p = scc.supplychain_collect_plain(cc, 1, b, "random", seed=seed,
+                                          device=dev)
+        torch.cuda.synchronize()
+        cfgs = [cc.demand[q if cc.demand_by_product else 0]
+                for q in range(cc.P)]
+        kinds = [demand_constants(c)["kind"] for c in cfgs]
+        in_range = all(
+            bool(((dem[:, :, q] >= c.minv) & (dem[:, :, q] <= c.maxv)).all())
+            for q, c in enumerate(cfgs))
+        tables = all(torch.equal(x, y) for x, y in zip(k, t))
+        bits = torch.equal(k[0], p[0]) and torch.equal(k[2], p[2])
+        tag = f"(a) {env_id} {kw or ''} B={b} kinds {kinds}"
+        print(f"  {tag}: random equals actions on its Philox tables "
+              f"{tables}; obs and stock bit-equal to plain {bits}; demand "
+              f"in range {in_range}")
+        _check_sc(f"{tag} random vs plain", k, p, errs)
+        if not (tables and bits and in_range):
+            raise RuntimeError(f"{tag}: the demand draw disagrees")
+    del k, t, p, dem, lt, act
+
+    # (b) K1 `policy` on the seasonal chain at phase 6's shape and gates
+    cc = _demand_chain(seasonal, T=TRAIN_T)
+    S = CHECK_EPISODES * TRAIN_T
+    model = _policy_model(cc, seed, dev)
+    lay = MlpLayout(cc.obs_dim, cc.A, HIDDEN)
+    args = (torch.as_tensor(scd.dense_descriptor(cc), device=dev), cc, lay,
+            torch.as_tensor(lay.ints, device=dev), lay.pack(model.flat()), S,
+            B)
+    k = scc.launch_supplychain_policy(*args, "policy", seed=seed)
+    dem, lt, eps = scc.philox_tables(cc, seed, range(S), B, dev, policy=True)
+    t = scc.launch_supplychain_policy(*args, "policy_eps", demands=dem,
+                                      leadtimes=lt, eps=eps)
+    p = scc.supplychain_collect_plain(cc, CHECK_EPISODES, B, "policy",
+                                      seed=seed, params=model, device=dev)
+    torch.cuda.synchronize()
+    tag = f"(b) {seasonal} B={B} T={TRAIN_T} episodes={CHECK_EPISODES}"
+    _check_policy(f"{tag} policy kernel vs plain", k, p, errs)
+    same = all(torch.equal(x, y) for x, y in zip(k, t))
+    print(f"  {tag}: policy equals policy_eps on its Philox tables {same}")
+    if not same:
+        raise RuntimeError(f"{tag}: policy differs from policy_eps")
+    del k, t, p, dem, lt, eps
+
+    # (c) K5 `random` on phase 11's largest chain with seasonal demand
+    cc = _seasonal_dense_chain()
+    S = CHECK_EPISODES * cc.T
+    desc = torch.as_tensor(scd.dense_descriptor(cc), device=dev)
+    k = scd.launch_supplychain_dense(desc, cc, S, B, "random", seed=seed)
+    p = scd.supplychain_dense_collect_plain(cc, CHECK_EPISODES, B, "random",
+                                            seed=seed, device=dev)
+    torch.cuda.synchronize()
+    dense_errs = []
+    _check_sc(f"(c) nperstage-5-4-7-10-x4 seasonal random vs plain, "
+              f"{CHECK_EPISODES} episodes", k, p, dense_errs)
+    errs += dense_errs
+    del k, p
+
+    # (d) timings through the entry points, counts zeroed just before each
+    # run and read just after: K1 `random` at B, MAIN_EPISODES episodes,
+    # the seasonal chain beside sc-2perstage-v0 (the same graph, uniform
+    # demand) and the normal multiproduct-v1; K5 seasonal beside phase 11's
+    # uniform chain, one episode
+    res = {}
+    k1 = [(seasonal, {}), ("sc-2perstage-v0", {}),
+          ("sc-2perstage-multiproduct-v1", mp_normal)]
+    for env_id, kw in k1:
+        cc = _demand_chain(env_id, **kw)
+        S = MAIN_EPISODES * cc.T
+        run = scc.make_supplychain_collect(cc, cc.T, B, mode="random",
+                                           episodes=MAIN_EPISODES,
+                                           device="cuda")
+        scc.launch_supplychain_collect.launches = 0
+        ms, out = _timed(lambda: run(seed), REPS)
+        launches = scc.launch_supplychain_collect.launches
+        plain_ms, _ = _timed(lambda: scc.supplychain_collect_plain(
+            cc, MAIN_EPISODES, B, "random", seed=seed, device=dev), 1)
+        finite = bool(torch.isfinite(out[0]).all()
+                      and torch.isfinite(out[1]).all())
+        name = env_id + (" std=10 normal" if kw else "")
+        res[name] = dict(ms=ms, plain_ms=plain_ms, launches=launches,
+                         bound=_collect_bound(cc, S, B), kernel="collect")
+        print(f"  (d) K1 random {name}, B={B}, {MAIN_EPISODES} episodes: "
+              f"kernel {ms:.3f} ms = {S * B / ms * 1e3:.4e} env-steps/s "
+              f"(median of {REPS}), plain {plain_ms:.1f} ms; bound "
+              f"{res[name]['bound'][0]:.4f} ms ({res[name]['bound'][1]}): "
+              f"{res[name]['bound'][0] / ms:.2%} of it; launches {launches}; "
+              f"finite {finite}; {_plan(cc, 'collect', B)}")
+        if not (launches > 0 and finite):
+            raise RuntimeError(f"K1 random {name} failed")
+    for name, cc in (("nperstage-5-4-7-10-x4 seasonal",
+                      _seasonal_dense_chain()),
+                     ("nperstage-5-4-7-10-x4 uniform", _demand_chain(
+                         "sc-Nperstage-multiproduct-v0",
+                         nodes_per_echelon=[5, 4, 7, 10], num_products=4,
+                         stochastic_leadtimes=True))):
+        run = scd.make_supplychain_dense_collect(cc, cc.T, B, mode="random",
+                                                 device="cuda")
+        scd.launch_supplychain_dense.launches = 0
+        ms, out = _timed(lambda: run(seed), DENSE_REPS)
+        launches = scd.launch_supplychain_dense.launches
+        plain_ms, _ = _timed(lambda: scd.supplychain_dense_collect_plain(
+            cc, 1, B, "random", seed=seed, device=dev), 1)
+        res[name] = dict(ms=ms, plain_ms=plain_ms, launches=launches,
+                         bound=_collect_bound(cc, cc.T, B), kernel="dense")
+        print(f"  (d) K5 random {name}, B={B}, 1 episode: kernel {ms:.3f} ms "
+              f"(median of {DENSE_REPS}), plain {plain_ms:.1f} ms; bound "
+              f"{res[name]['bound'][0]:.4f} ms: "
+              f"{res[name]['bound'][0] / ms:.2%} of it; launches {launches}")
+        if launches == 0:
+            raise RuntimeError(f"K5 random {name} failed")
+    for a, b in ((seasonal, "sc-2perstage-v0"),
+                 ("nperstage-5-4-7-10-x4 seasonal",
+                  "nperstage-5-4-7-10-x4 uniform")):
+        print(f"  the draw's cost: {a} {res[a]['ms']:.3f} ms against {b} "
+              f"{res[b]['ms']:.3f} ms ({res[a]['ms'] / res[b]['ms']:.3f}x)")
+
+    # (e) the train CLI on the seasonal chain at phase 8's shape, then the
+    # trainer's phases; (f) the evaluate CLI, both engines, on its
+    # checkpoint, one episode
+    work = ROOT / "gym_supplychain_tpu_torch" / "_build" / "ckpt_seasonal"
+    shutil.rmtree(work, ignore_errors=True)
+    for launcher in (scc.launch_supplychain_policy, pu.launch_ppo_update):
+        launcher.launches = 0
+    _, metrics = train.main([
+        "--env", seasonal, "--envs", str(B), "--hidden", *map(str, HIDDEN),
+        "--horizon", str(TRAIN_T), "--iters", "3", "--epochs", "2",
+        "--log-every", "1", "--seed", str(seed), "--checkpoint-dir",
+        str(work)])
+    torch.cuda.synchronize()
+    counts = {"supplychain_collect[policy]":
+              scc.launch_supplychain_policy.launches,
+              "ppo_update": pu.launch_ppo_update.launches}
+    loss = float(metrics["loss"])
+    print(f"  (e) train CLI on {seasonal}, B={B}, hidden {HIDDEN}, T="
+          f"{TRAIN_T}, 3 iterations: final loss {loss:.6f}; launch counts "
+          f"{counts}")
+    if not (all(counts.values()) and math.isfinite(loss)):
+        raise RuntimeError("seasonal trainer: the train CLI did not run both "
+                           "kernels")
+    cfg = ppo.PPOConfig(hidden=HIDDEN, epochs=2, lr=3e-4, fused_update=True)
+    init_fn, step = ppo.make_ppo_fused(_demand_chain(seasonal, T=TRAIN_T), B,
+                                       cfg, noise="prng", device="cuda")
+    tr = _train_phases(step, init_fn(seed), TRAIN_REPS)
+    print(f"  (e) the trainer on {seasonal}: {tr['iteration']:.3f} ms per "
+          f"iteration = {B * TRAIN_T / tr['iteration'] * 1e3:.4e} train "
+          f"env-steps/s; collect {tr['collect']:.3f}, gae {tr['gae']:.3f}, "
+          f"update {tr['update']:.3f} ms (median of {TRAIN_REPS})")
+    argv = ["--env", seasonal, "--restore", str(work), "--envs", str(B),
+            "--horizon", "360", "--episodes", "1", "--seed", str(seed)]
+    sce.launch_supplychain_greedy.launches = 0
+    stats_k = evaluate.main(argv + ["--engine", "kernel"])
+    torch.cuda.synchronize()
+    launches = sce.launch_supplychain_greedy.launches
+    stats_s = evaluate.main(argv + ["--engine", "scan"])
+    rel = (abs(stats_k["mean_return"] - stats_s["mean_return"])
+           / abs(stats_s["mean_return"]))
+    print(f"  (f) evaluate CLI on {seasonal}: kernel engine {stats_k} "
+          f"(greedy kernel launches {launches}); scan engine {stats_s}; "
+          f"mean returns differ by {rel:.3e} relative (tol {EVAL_RTOL:g})")
+    shutil.rmtree(work, ignore_errors=True)
+    if not (rel <= EVAL_RTOL and launches == 1):
+        raise RuntimeError("seasonal evaluation: the engines disagree")
+    return dict(timings=res, dense_err=max(dense_errs), train=tr,
+                train_counts=counts)
+
+
+def _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, sc_errs, bg_errs,
+                  pol_errs, pu_errs, ep_errs, dm_errs):
     """The ``kernels`` summary: each kernel with its main-path launches,
     its error against plain, its time, its plain version's and its bound
     at the main path's shapes (no single PyTorch call computes any of these
@@ -1119,8 +1358,7 @@ def _kernel_lines(res, tr, upd, ep, ev, dn, bge, sc_errs, bg_errs, pol_errs,
                  r["plain_ms"], bound)
         else:
             cc = sct.make_chain(env_id)
-            # obs [S,O,B], reward [S,B], final stock out
-            bound = _bound(4 * B * (S * (cc.obs_dim + 1) + cc.N * cc.P), 0)
+            bound = _collect_bound(cc, S, B)
             line(f"supplychain_collect[{env_id}]", "supplychain_lanes.cu",
                  f"{sc_pallas}:791", r["launches"],
                  max(sc_errs + [r["max_abs_err"]]), r["ms"], r["plain_ms"],
@@ -1160,6 +1398,18 @@ def _kernel_lines(res, tr, upd, ep, ev, dn, bge, sc_errs, bg_errs, pol_errs,
     line("beergame_episode", "beergame_collect.cu",
          "gym_supplychain_tpu/ops/beergame_pallas.py:125", bge["launches"],
          bge["err"], bge["ms"], bge["plain_ms"], bge["bound"])
+    # phase 13: K1 and K5 on normal and seasonal demand (and the uniform
+    # chains timed beside them), the draw at ops/supplychain_pallas.py:107
+    for name, r in dm["timings"].items():
+        if r["kernel"] == "collect":
+            line(f"supplychain_collect[{name}]", "supplychain_lanes.cu",
+                 f"{sc_pallas}:791", r["launches"], max(dm_errs), r["ms"],
+                 r["plain_ms"], r["bound"])
+        else:
+            line(f"supplychain_dense_collect[{name}]", "supplychain_dense.cu",
+                 "gym_supplychain_tpu/ops/supplychain_pallas_dense.py:470",
+                 r["launches"], dm["dense_err"], r["ms"], r["plain_ms"],
+                 r["bound"])
     return lines
 
 
@@ -1223,9 +1473,11 @@ def main(argv=None) -> int:
     ev = phase_eval(args.seed)
     dn = phase_dense(B, args.seed)
     bge = phase_beergame_episode(B, args.seed)
+    dm_errs = []
+    dm = phase_demand(B, args.seed, dm_errs)
 
-    kernels = _kernel_lines(res, tr, upd, ep, ev, dn, bge, sc_errs, bg_errs,
-                            pol_errs, pu_errs, ep_errs)
+    kernels = _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, sc_errs,
+                            bg_errs, pol_errs, pu_errs, ep_errs, dm_errs)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,7 +1,7 @@
 """gym-supplychain-tpu-torch: gym-supplychain-tpu on PyTorch, with
 hand-written CUDA kernels for Hopper (H100).
 
-Four slices are ported.  Rollouts: batched supply-chain and beer-game
+Five slices are ported.  Rollouts: batched supply-chain and beer-game
 environments stepped in lockstep with auto-reset (``envs.vector``), their
 eager step engines (``core``), Philox random streams (``rng.device``) and
 whole-episode trajectory collection (``ops``).  Training: the tanh-Gaussian
@@ -15,8 +15,13 @@ Large topologies: the N-per-stage and multi-product presets, trajectory
 collection for chains of up to 64 nodes (``ops.supplychain_dense``) and its
 benchmark (``python -m
 gym_supplychain_tpu_torch.benchmarks.large_topologies``), and the
-rewards-only beer-game sweep (``ops.beergame_episode``).  Entry points run
-on the card (``device="cuda"``) unless the caller asks for the CPU.  The JAX package ``gym_supplychain_tpu`` is the reference the
+rewards-only beer-game sweep (``ops.beergame_episode``).  Demand
+processes: every supply-chain id of the JAX registry (the seasonal
+2-per-stage chain, the per-product demand variants, the one-one-N chain,
+the generic ``supplychain-v0``), their uniform, normal and seasonal demand
+drawn inside the collect kernels (``rng.device.demand_from_uniforms``).
+Entry points run on the card (``device="cuda"``) unless the caller asks
+for the CPU.  The JAX package ``gym_supplychain_tpu`` is the reference the
 port is tested against; this package never imports it, nor jax.
 
 >>> import gym_supplychain_tpu_torch as sct
@@ -30,7 +35,10 @@ port is tested against; this package never imports it, nor jax.
 from .core.compile import CompiledChain, DemandConfig, compile_chain
 from .envs.presets import (BeerGameSpec, beergame_v0, linear_chain,
                            multiproduct_chain, multiproduct_inccosts_chain,
-                           nperstage_chain, ntom_chain, twoperstage_chain)
+                           multiproduct_v1_chain,
+                           multiproduct_v1_inccosts_chain, nperstage_chain,
+                           ntom_chain, oneonen_chain, supplychain_chain,
+                           twoperstage_chain, twoperstage_seasonal_chain)
 
 _REGISTRY = {
     "supplychain-linear-v0": linear_chain,
@@ -41,6 +49,11 @@ _REGISTRY = {
     "sc-Nperstage-multiproduct-v0": nperstage_chain,
     "sc-2perstage-multiproduct-inccosts-v0": multiproduct_inccosts_chain,
     "beergame-v0": beergame_v0,
+    "supplychain-v0": supplychain_chain,
+    "sc-2perstage-seasonal-v0": twoperstage_seasonal_chain,
+    "sc-2perstage-multiproduct-v1": multiproduct_v1_chain,
+    "sc-2perstage-multiproduct-inccosts-v1": multiproduct_v1_inccosts_chain,
+    "supplychain-oneonen-v0": oneonen_chain,
 }
 
 

@@ -66,11 +66,13 @@
 //   words, which L2 serves from one sector.
 // * `random` (OBS): the same rows from Philox4x32-10 at counter (b, s,
 //   block, 0): A action uniforms, then K lead-time uniforms (stochastic
-//   chains), then R*P demand uniforms.  A lane caches one Philox block for
-//   the actions and one for the lead-times (a node's columns are
-//   consecutive); the demand row's blocks go one a lane.  So `random` is
-//   `actions` fed the tables ops/supplychain_collect.py's philox_tables
-//   makes.
+//   chains), then R*P demand uniforms and, where a product's demand draws a
+//   normal, R*P more: each entry's Box-Muller partner.  A lane caches one
+//   Philox block for the actions and one for the lead-times (a node's
+//   columns are consecutive); the demand row's blocks go one a lane
+//   (ln_draw_demand), and each entry's process runs in ln_demand.  So
+//   `random` is `actions` fed the tables ops/supplychain_collect.py's
+//   philox_tables makes.
 // * `seeded` (no OBS): the actions from Philox, the first A words at
 //   counter (b, s, block, 0) as `random` draws them; lead-times and demand
 //   from the tables.  So `seeded` is `actions` fed the table
@@ -174,6 +176,69 @@ struct LnSeededIn {
   __device__ __forceinline__ float act(int i) { return ph.act(i); }
   __device__ __forceinline__ int lt(int k) { return tab.lt(k); }
 };
+
+// ---- product p's demand from the uniform u and its Box-Muller partner u2
+// at step te of the episode: the JAX package's _demand_from_u
+// (ops/supplychain_pallas.py) op for op, on the constants the host folded
+// (rng/device.py demand_constants; demand_from_uniforms is the plain
+// version).  The seasonal base takes sinf here and torch.sin there, both on
+// float32, and the normal log1pf, cosf and sqrtf: the functions PyTorch's
+// CUDA kernels call.  Rounding is half to even (rintf), as torch.round.
+#define TWO_PI_F 6.283185307179586f      // 2 pi, rounded as float
+
+__device__ __forceinline__ float ln_demand(const DnChain& ch, int p, float u,
+                                           float u2, int te) {
+  const int kind = ch.dem_kind[p];
+  float x;
+  if (kind == DEM_UNIFORM || kind == DEM_SEASONAL_UNIFORM) {
+    x = floorf(u * ch.dem_n[p]) + ch.dem_lo[p];
+    if (kind == DEM_UNIFORM) return x;
+  } else {
+    x = sqrtf(-2.0f * log1pf(-u)) * cosf(TWO_PI_F * u2) * ch.dem_std[p];
+  }
+  if (kind == DEM_NORMAL) {
+    x = x + ch.dem_mid[p];
+  } else {
+    const float arg = ch.dem_peaks[p] * (float)te / (float)ch.T;
+    x = (ch.dem_minavg[p] + ch.dem_half[p] * (1.0f + sinf(arg))) + x;
+  }
+  return rintf(fminf(fmaxf(x, ch.dem_minv[p]), ch.dem_maxv[p]));
+}
+
+// ---- the step's demand row into env.dem, over the group's lanes: Philox
+// words w0 .. w0 + R*P - 1 at counter (b, s, block, 0) are the entries'
+// uniforms and, with a normal (ch.any_normal), the next R*P words their
+// Box-Muller partners.  The two words of an entry lie in different blocks,
+// so the lanes draw the blocks of both spans, a block a lane, staging the
+// uniforms in env.dem and the partners in u2s (R*P words of the env's
+// stretch that hold nothing yet: the observation, O > 2*R*P); after a warp
+// sync each lane turns its entries into demand.
+template <int G>
+__device__ __forceinline__ void ln_draw_demand(const DnChain& ch,
+                                               const LnEnv& env, float* u2s,
+                                               uint32_t b, uint32_t s, int w0,
+                                               int te, uint32_t k0,
+                                               uint32_t k1, int g) {
+  const int P = ch.P, RP = ch.R * P;
+  const bool two = ch.any_normal != 0;
+  const int nw = two ? 2 * RP : RP;
+  const int q0 = w0 >> 2, q1 = (w0 + nw - 1) >> 2;
+  for (int q = q0 + g; q <= q1; q += G) {
+    const uint4 w = philox4x32_10(make_uint4(b, s, (uint32_t)q, 0u), k0, k1);
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = 4 * q + c - w0;
+      const float u = uniform01(philox_word(w, c));
+      if (j >= 0 && j < RP)
+        env.dem[j] = u;
+      else if (j >= RP && j < nw)
+        u2s[j - RP] = u;
+    }
+  }
+  __syncwarp();
+  for (int j = g; j < RP; j += G)
+    env.dem[j] = ln_demand(ch, j % P, env.dem[j], two ? u2s[j] : 0.0f, te);
+}
 
 // ---- episode init: initial stock, seeded pipeline -------------------------
 template <int G>
@@ -483,20 +548,8 @@ sc_lane_kernel(const DnChain* __restrict__ gch, int mode, int S, int B,
     if (te == 0) ln_init<G>(ch, env, g);
     // the step's demand row
     if (OBS && mode == MODE_RANDOM) {
-      const int w0 = A + Kr, q0 = w0 >> 2, q1 = (w0 + RP - 1) >> 2;
-      for (int q = q0 + g; q <= q1; q += G) {
-        const uint4 w = philox4x32_10(
-            make_uint4((uint32_t)b, (uint32_t)s, (uint32_t)q, 0u), k0, k1);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int j = 4 * q + c - w0;
-          if (j >= 0 && j < RP) {
-            const int p = j % ch.P;
-            const float u = uniform01(philox_word(w, c));
-            env.dem[j] = floorf(u * ch.dem_n[p]) + ch.dem_lo[p];
-          }
-        }
-      }
+      ln_draw_demand<G>(ch, env, env.obs, (uint32_t)b, (uint32_t)s, A + Kr,
+                        te, k0, k1, g);
     } else {
       for (int j = g; j < RP; j += G)
         env.dem[j] = __ldg(dem_tab + ((size_t)s * RP + j) * Bz + bb);

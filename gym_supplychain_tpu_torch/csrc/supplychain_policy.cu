@@ -60,7 +60,6 @@
 #define LOG_STD_MAX 2.0f
 #define LOG_2PI_F 1.8378770664093453f   // log(2 pi), rounded as float
 #define LN2_F 0.6931471805599453f        // log(2)
-#define TWO_PI_F 6.283185307179586f      // 2 pi
 
 // env columns a thread takes in the MLP, each weight load serving all of
 // them (2 measured 12-17% faster than 1 on the H100 for K4 and K1 on ntom)
@@ -192,8 +191,9 @@ struct LnActIn {
 // MODE_POLICY_EPS / MODE_POLICY (K1): actor and critic, the noise from a
 // table or from Philox at counter (b, s, block, 0): 2A uniforms (Box-Muller
 // pairs (i, A + i)), then K lead-time uniforms (stochastic chains), then R*P
-// demand uniforms.  Every lane of the block runs every step (an env past B
-// steps a real env's rows and writes nothing), so the syncs see full warps.
+// demand uniforms (2 R*P with a normal demand: ln_draw_demand).  Every lane
+// of the block runs every step (an env past B steps a real env's rows and
+// writes nothing), so the syncs see full warps.
 template <int G, int DT>
 static __global__ void __launch_bounds__(PL_MAX_THREADS, 1)
 sc_policy_lane_kernel(const DnChain* __restrict__ gch,
@@ -259,20 +259,10 @@ sc_policy_lane_kernel(const DnChain* __restrict__ gch,
     if (te == 0) ln_init<G>(ch, env, g);
     // the step's demand row
     if (mode == MODE_POLICY) {
-      const int w0 = 2 * A + Kr, q0 = w0 >> 2, q1 = (w0 + RP - 1) >> 2;
-      for (int q = q0 + g; q <= q1; q += G) {
-        const uint4 w = philox4x32_10(
-            make_uint4((uint32_t)b, (uint32_t)s, (uint32_t)q, 0u), k0, k1);
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int j = 4 * q + c - w0;
-          if (j >= 0 && j < RP) {
-            const int p = j % ch.P;
-            const float u = uniform01(philox_word(w, c));
-            env.dem[j] = floorf(u * ch.dem_n[p]) + ch.dem_lo[p];
-          }
-        }
-      }
+      // the previous step's MLP read the obs before its first sync, so the
+      // stretch's obs may stage the Box-Muller partners
+      ln_draw_demand<G>(ch, env, env.obs, (uint32_t)b, (uint32_t)s, 2 * A + Kr,
+                        te, k0, k1, g);
     } else {
       for (int j = g; j < RP; j += G)
         env.dem[j] = __ldg(dem_tab + ((size_t)s * RP + j) * Bz + bb);

@@ -45,6 +45,12 @@
 #define MODE_SEEDED 4
 #define MODE_GREEDY 5
 
+// demand processes (rng/device.py DEMAND_KINDS)
+#define DEM_UNIFORM 0
+#define DEM_NORMAL 1
+#define DEM_SEASONAL_NORMAL 2
+#define DEM_SEASONAL_UNIFORM 3
+
 // Layout mirrored field for field by ops/supplychain_collect.py
 // (_desc_fields); every field is 4 bytes, so there is no padding.
 // Indexing: np = n*P + p, nd = n*dmax + d, npd = np*dmax + d,
@@ -54,7 +60,7 @@ template <int MN, int MP, int MNP, int MD, int MND, int MNPD, int MRING,
 struct ChainT {
   static constexpr int MAX_N = MN, MAX_P = MP, MAX_D = MD;
   int N, P, R, A, K, T, Lavg, Lmax, H, ring, dmax, obs_dim;
-  int stochastic, n_cdf, any_factory, pad0;
+  int stochastic, n_cdf, any_factory, any_normal;
   float c_unmet, c_stock_pen, c_proc_pen, c_ship_pen;
   float init_stock[MNP];
   float stock_cap[MNP];
@@ -84,8 +90,18 @@ struct ChainT {
   int retailer_idx[MRP];
   float dem_min[MP];
   float dem_range[MP];
-  float dem_n[MP];   // uniform demand: floor(u * n) + lo
-  float dem_lo[MP];
+  // product p's demand process (rng/device.py demand_constants), its
+  // float32 constants folded on the host
+  float dem_n[MP];   // uniform draw floor(u * n) + lo: the demand, or a
+  float dem_lo[MP];  // seasonal process's uniform perturbation
+  int dem_kind[MP];  // DEM_*
+  float dem_std[MP];
+  float dem_mid[MP];  // the normal's mean, (maxv + minv) / 2
+  float dem_minv[MP];
+  float dem_maxv[MP];
+  float dem_minavg[MP];
+  float dem_half[MP];   // (maxavg - minavg) / 2
+  float dem_peaks[MP];  // sen_peaks * 2 pi
   float cdf[MCDF];   // lead-time thresholds: 1 + sum(u >= cdf[j])
 };
 

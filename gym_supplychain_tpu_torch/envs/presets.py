@@ -1,14 +1,17 @@
 """Configurations of the ported slices, as compiled chains.
 
 The topology builders of the JAX package's ``SupplyChainLinearEnv``,
-``SupplyChainNtoMEnv``, ``SupplyChain2perStageEnv``,
-``SupplyChainMultiProduct`` (and its ``_IncreasingCosts`` variant) and
-``SupplyChainNPerStage`` (``gym_supplychain_tpu/envs/presets.py``),
-returning a ``CompiledChain`` instead of a single-env object, plus the
-classic beer game's defaults.  Values are those of the JAX presets, which
-mirror the reference's README topologies, its ``__main__`` demo, its
-``SupplyChain2perStageEnv``, its multi-product environments and its
-N-per-stage environment.
+``SupplyChainOneOneNEnv``, ``SupplyChainNtoMEnv``,
+``SupplyChain2perStageEnv`` (and its seasonal variant),
+``SupplyChainMultiProduct`` (and its ``_IncreasingCosts``,
+``_DemConfigByProd`` and ``_DemConfigByProd_IncCosts`` variants) and
+``SupplyChainNPerStage`` (``gym_supplychain_tpu/envs/presets.py``), and of
+its generic ``SupplyChainEnv`` (``envs/single.py``), returning a
+``CompiledChain`` instead of a single-env object, plus the classic beer
+game's defaults.  Values are those of the JAX presets, which mirror the
+reference's README topologies, its ``__main__`` demo, its
+``SupplyChain2perStageEnv`` (and seasonal variant), its multi-product
+environments and its N-per-stage environment.
 """
 from __future__ import annotations
 
@@ -17,9 +20,18 @@ from typing import Tuple
 
 from ..core.compile import CompiledChain, compile_chain
 
-__all__ = ["linear_chain", "ntom_chain", "twoperstage_chain",
+__all__ = ["supplychain_chain", "linear_chain", "oneonen_chain",
+           "ntom_chain", "twoperstage_chain", "twoperstage_seasonal_chain",
            "multiproduct_chain", "multiproduct_inccosts_chain",
+           "multiproduct_v1_chain", "multiproduct_v1_inccosts_chain",
            "nperstage_chain", "BeerGameSpec", "beergame_v0"]
+
+
+def supplychain_chain(nodes_info, **kw) -> CompiledChain:
+    """``supplychain-v0``: the caller's ``nodes_info`` (the reference
+    schema) with ``SupplyChainEnv``'s defaults, which are
+    ``compile_chain``'s."""
+    return compile_chain(nodes_info, **kw)
 
 
 def _linear_nodes(num_products=1, initial_stock=10, stock_capacity=100,
@@ -57,6 +69,49 @@ def linear_chain(num_products=1, demand_range=(0, 5), unmet_demand_cost=1000,
     return compile_chain(
         _linear_nodes(num_products=num_products), num_products=num_products,
         demand_range=demand_range, unmet_demand_cost=unmet_demand_cost,
+        exceeded_stock_capacity_cost=exceeded_stock_capacity_cost,
+        exceeded_process_capacity_cost=exceeded_process_capacity_cost,
+        exceeded_ship_capacity_cost=exceeded_ship_capacity_cost,
+        processing_ratio=processing_ratio,
+        stochastic_leadtimes=stochastic_leadtimes, avg_leadtime=avg_leadtime,
+        max_leadtime=max_leadtime, total_time_steps=total_time_steps, **kw)
+
+
+def oneonen_chain(num_retailers=2, num_products=1, demand_range=(10, 20),
+                  initial_stock=10, stock_capacity=600, stock_cost=1,
+                  dest_cost=2, supply_cost=5, supply_capacity=150,
+                  processing_cost=10, processing_capacity=300,
+                  ship_capacity=300, processing_ratio=3,
+                  unmet_demand_cost=1000, exceeded_stock_capacity_cost=1000,
+                  exceeded_process_capacity_cost=1000,
+                  exceeded_ship_capacity_cost=1000,
+                  stochastic_leadtimes=False, avg_leadtime=2, max_leadtime=2,
+                  total_time_steps=360, **kw) -> CompiledChain:
+    """``supplychain-oneonen-v0``: one supplier, one factory, one
+    wholesaler fanning out to ``num_retailers`` retailers."""
+    retailers = [f'Retailer{i + 1}' for i in range(num_retailers)]
+    common = {'initial_stock': initial_stock,
+              'stock_capacity': stock_capacity, 'stock_cost': stock_cost}
+    nodes_info = {
+        'Supplier': {**common, 'supply_capacity': supply_capacity,
+                     'supply_cost': supply_cost, 'destinations': ['Factory'],
+                     'dest_costs': [[dest_cost]] * num_products,
+                     'ship_capacity': [ship_capacity]},
+        'Factory': {**common, 'processing_capacity': processing_capacity,
+                    'processing_cost': processing_cost,
+                    'destinations': ['Wholesal'],
+                    'dest_costs': [[dest_cost]] * num_products,
+                    'ship_capacity': [ship_capacity]},
+        'Wholesal': {**common, 'destinations': retailers,
+                     'dest_costs': [[dest_cost] * num_retailers]
+                     * num_products,
+                     'ship_capacity': [ship_capacity] * num_retailers},
+    }
+    for r in retailers:
+        nodes_info[r] = {**common, 'last_level': True}
+    return compile_chain(
+        nodes_info, num_products=num_products, demand_range=demand_range,
+        unmet_demand_cost=unmet_demand_cost,
         exceeded_stock_capacity_cost=exceeded_stock_capacity_cost,
         exceeded_process_capacity_cost=exceeded_process_capacity_cost,
         exceeded_ship_capacity_cost=exceeded_ship_capacity_cost,
@@ -172,6 +227,29 @@ def twoperstage_chain(num_products=1, initial_stocks=(0,) * 8,
         max_leadtime=max_leadtime, total_time_steps=total_time_steps, **kw)
 
 
+def twoperstage_seasonal_chain(
+        num_products=1, initial_stocks=(800,) * 8,
+        initial_supply=([[600, 600]], [[840, 840]]),
+        initial_shipments=([[600, 600]], [[840, 840]]) + ([[240, 240]],) * 4,
+        supply_capacities=(600, 840), processing_capacities=(840, 960),
+        stock_capacities=(1600, 1800) * 4, ship_capacity=1800,
+        demand_range=(0, 400), demand_std=10, demand_sen_peaks=4,
+        avg_demand_range=(150, 250), demand_perturb_norm=True,
+        **kw) -> CompiledChain:
+    """``sc-2perstage-seasonal-v0``: the 2-per-stage chain with 10x larger
+    stocks and capacities and seasonal demand (4 peaks a horizon between
+    150 and 250, a normal perturbation of std 10, clipped to [0, 400])."""
+    return twoperstage_chain(
+        num_products=num_products, initial_stocks=initial_stocks,
+        initial_supply=initial_supply, initial_shipments=initial_shipments,
+        supply_capacities=supply_capacities,
+        processing_capacities=processing_capacities,
+        stock_capacities=stock_capacities, ship_capacity=ship_capacity,
+        demand_range=demand_range, demand_std=demand_std,
+        demand_sen_peaks=demand_sen_peaks, avg_demand_range=avg_demand_range,
+        demand_perturb_norm=demand_perturb_norm, **kw)
+
+
 def _multiproduct_nodes(initial_stocks, stock_capacities, stock_costs,
                         initial_supply, supply_capacities, supply_costs,
                         dest_cost, ship_capacity, initial_shipments,
@@ -270,6 +348,53 @@ def multiproduct_inccosts_chain(num_products=2, **kw) -> CompiledChain:
         processing_costs=[[12 * (i + 1) for i in range(P)],
                           [10 * (i + 1) for i in range(P)]],
         stock_costs=[i + 1 for i in range(P)], **kw)
+
+
+def _dem_by_prod_cfg(num_products, demand_std):
+    """Per-product demand ranges, stds, peaks and average ranges of the
+    ``DemConfigByProd`` variants: seasonal (4 peaks), uniform or normal,
+    seasonal (2 peaks) for products 1-3."""
+    assert 1 <= num_products <= 3
+    demand_range = [(0, 400)]
+    demand_stds = [demand_std]
+    demand_sen_peaks = [4]
+    avg_demand_range = [(100, 300)]
+    if num_products > 1:
+        demand_range.append((0, 300))
+        demand_stds.append(demand_std)
+        demand_sen_peaks.append(None)
+        avg_demand_range.append(None)
+    if num_products > 2:
+        demand_range.append((0, 400))
+        demand_stds.append(demand_std)
+        demand_sen_peaks.append(2)
+        avg_demand_range.append((100, 300))
+    return demand_range, demand_stds, demand_sen_peaks, avg_demand_range
+
+
+def _by_prod_kw(num_products, demand_std, demand_perturb_norm):
+    rng, stds, peaks, avg = _dem_by_prod_cfg(num_products, demand_std)
+    return dict(demand_config_by_product=True, num_products=num_products,
+                demand_range=rng, demand_std=stds, demand_sen_peaks=peaks,
+                avg_demand_range=avg,
+                demand_perturb_norm=[demand_perturb_norm] * num_products)
+
+
+def multiproduct_v1_chain(num_products=2, demand_std=None,
+                          demand_perturb_norm=False, **kw) -> CompiledChain:
+    """``sc-2perstage-multiproduct-v1``: the multi-product chain with a
+    demand process per product (``_dem_by_prod_cfg``)."""
+    return multiproduct_chain(**_by_prod_kw(num_products, demand_std,
+                                            demand_perturb_norm), **kw)
+
+
+def multiproduct_v1_inccosts_chain(num_products=2, demand_std=None,
+                                   demand_perturb_norm=False,
+                                   **kw) -> CompiledChain:
+    """``sc-2perstage-multiproduct-inccosts-v1``: the increasing-cost
+    multi-product chain with a demand process per product."""
+    return multiproduct_inccosts_chain(**_by_prod_kw(
+        num_products, demand_std, demand_perturb_norm), **kw)
 
 
 def nperstage_chain(nodes_per_echelon=3, num_products=2, initial_stocks=None,

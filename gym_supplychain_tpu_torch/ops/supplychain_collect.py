@@ -11,9 +11,15 @@ auto-reset at every boundary; every step emits its pre-action observation
   ``[S, A, B]`` f32 in [-1, 1]; table row s feeds step s.
 * ``random`` draws those rows in the kernel from Philox4x32-10 keyed by the
   seed at counter ``(lane, step, block, 0)``: A action uniforms, then K
-  lead-time uniforms (stochastic chains), then R*P demand uniforms.  It is
-  ``actions`` fed with the tables ``philox_tables`` makes, so the plain
-  version of ``random`` is those tables through the plain ``actions``.
+  lead-time uniforms (stochastic chains), then R*P demand uniforms and,
+  where a product's demand is normal or has a normal perturbation, R*P
+  more (each entry's Box-Muller partner).  Every demand process of the
+  reference (uniform integer, normal, seasonal with a normal, a uniform
+  integer or no perturbation) is drawn in the kernel, as the JAX kernel's
+  ``_demand_from_u`` draws it (``rng/device.py`` ``demand_from_uniforms``).
+  It is ``actions`` fed with the tables ``philox_tables`` makes, so the
+  plain version of ``random`` is those tables through the plain
+  ``actions``.
 * ``policy_eps`` runs the sampled tanh-Gaussian actor-critic
   (``models/policy.py``) in the loop: demand and lead-time tables plus a
   normal noise table ``eps [S, A, B]``; the action is ``tanh(mu + std *
@@ -59,16 +65,15 @@ from ..core.compile import CompiledChain
 from ..core.step import make_supplychain_kernels
 from ..models.policy import (LOG_STD_MAX, LOG_STD_MIN, flat_params,
                              split_params, tanh_gaussian_terms)
-from ..rng.device import (box_muller, demand_from_uniform,
-                          leadtimes_from_uniform, philox_uniform,
-                          poisson_clip_thresholds)
+from ..rng.device import (any_normal_demand, box_muller, demand_constants,
+                          demand_from_uniforms, leadtimes_from_uniform,
+                          philox_uniform, poisson_clip_thresholds)
 from ._mlp import MlpLayout
 
 __all__ = ["make_supplychain_collect", "launch_supplychain_collect",
            "launch_supplychain_policy", "supplychain_collect_plain",
-           "philox_tables", "chain_descriptor", "check_uniform_demand",
-           "check_kernel_support", "descriptor_words", "resolve_device",
-           "seed_key"]
+           "philox_tables", "chain_descriptor", "check_kernel_support",
+           "descriptor_words", "resolve_device", "seed_key"]
 
 _MODES = {"random": 0, "actions": 1, "policy": 2, "policy_eps": 3}
 _POLICY_MODES = ("policy", "policy_eps")
@@ -81,7 +86,7 @@ def _desc_fields(m=_MAX):
     (``csrc/supplychain_step.cuh``) at the size limits ``m``."""
     NP, N, ND, NPD = m["NP"], m["N"], m["ND"], m["NPD"]
     ints = ("N", "P", "R", "A", "K", "T", "Lavg", "Lmax", "H", "ring", "dmax",
-            "obs_dim", "stochastic", "n_cdf", "any_factory", "pad0")
+            "obs_dim", "stochastic", "n_cdf", "any_factory", "any_normal")
     fields = [(k, "i", 1) for k in ints]
     fields += [(k, "f", 1) for k in ("c_unmet", "c_stock_pen", "c_proc_pen",
                                      "c_ship_pen")]
@@ -99,22 +104,16 @@ def _desc_fields(m=_MAX):
                ("retailer_idx", "i", m["RP"])]
     fields += [(k, "f", m["P"]) for k in ("dem_min", "dem_range", "dem_n",
                                           "dem_lo")]
+    fields += [("dem_kind", "i", m["P"])]
+    fields += [(k, "f", m["P"]) for k in ("dem_std", "dem_mid", "dem_minv",
+                                          "dem_maxv", "dem_minavg",
+                                          "dem_half", "dem_peaks")]
     fields += [("cdf", "f", m["CDF"])]
     return fields
 
 
 _DESC_FIELDS = _desc_fields()
 DESC_BYTES = 4 * sum(c for _, _, c in _DESC_FIELDS)
-
-
-def check_uniform_demand(cc: CompiledChain) -> None:
-    """Raise for a chain whose demand the kernels cannot draw in-kernel
-    (the modes that read demand tables take any chain)."""
-    for cfg in cc.demand:
-        if cfg.std is not None or cfg.sen_peaks is not None:
-            raise NotImplementedError(
-                "collection draws uniform integer demand only; normal and "
-                "seasonal demand are not ported yet")
 
 
 def check_kernel_support(cc: CompiledChain, m=_MAX,
@@ -154,12 +153,14 @@ def descriptor_words(cc: CompiledChain, fields) -> np.ndarray:
     ms_tail = ms * np.float32(cc.Lmax - (cc.Lavg - 1))
     cdf = (poisson_clip_thresholds(cc.Lavg - 1, cc.Lmax)
            if cc.stochastic_leadtimes else np.zeros(0, np.float32))
-    cfgs = [cc.demand[p if cc.demand_by_product else 0] for p in range(P)]
+    dem = [demand_constants(cc.demand[p if cc.demand_by_product else 0])
+           for p in range(P)]
     vals = dict(
         N=N, P=P, R=cc.R, A=cc.A, K=cc.K, T=cc.T, Lavg=cc.Lavg, Lmax=cc.Lmax,
         H=cc.H, ring=cc.H + 1, dmax=D, obs_dim=cc.obs_dim,
         stochastic=int(cc.stochastic_leadtimes), n_cdf=len(cdf),
-        any_factory=int(np.asarray(cc.is_factory).any()), pad0=0,
+        any_factory=int(np.asarray(cc.is_factory).any()),
+        any_normal=int(any_normal_demand(cc)),
         c_unmet=cc.c_unmet, c_stock_pen=cc.c_stock_pen,
         c_proc_pen=cc.c_proc_pen, c_ship_pen=cc.c_ship_pen,
         init_stock=cc.initial_stock, stock_cap=cc.stock_cap,
@@ -176,8 +177,8 @@ def descriptor_words(cc: CompiledChain, fields) -> np.ndarray:
         ship_cap_edge=cc.ship_cap_edge, ship_cost=cc.ship_cost,
         ship_act_idx=np.maximum(cc.ship_act_idx, 0), init_pipe=cc.init_pipe,
         retailer_idx=cc.retailer_idx, dem_min=cc.dem_min,
-        dem_range=cc.dem_range, dem_n=[c.maxv - c.minv + 1 for c in cfgs],
-        dem_lo=[c.minv for c in cfgs], cdf=cdf)
+        dem_range=cc.dem_range, cdf=cdf,
+        **{"dem_" + k: [c[k] for c in dem] for k in dem[0]})
     words = np.zeros(sum(c for _, _, c in fields), np.int32)
     off = 0
     for name, kind, count in fields:
@@ -212,12 +213,17 @@ def philox_tables(cc: CompiledChain, seed: int, steps, B: int, device,
     ``steps``: ``(demands [S,R,P,B] f32, leadtimes [S,K,B] int32 or None,
     actions [S,A,B] f32)``.  With ``policy`` the rows ``policy`` mode draws:
     2A noise uniforms first, so the third table is the normal noise
-    ``eps [S,A,B]`` (Box-Muller of uniforms i and A + i)."""
-    check_uniform_demand(cc)
+    ``eps [S,A,B]`` (Box-Muller of uniforms i and A + i).  The demand of
+    global step s is drawn at the episode's step ``s % T``, from its R*P
+    uniforms and, with a normal demand (``any_normal_demand``), the next
+    R*P (``demand_from_uniforms``)."""
     A, R, P = cc.A, cc.R, cc.P
+    RP = R * P
     Kr = cc.K if cc.stochastic_leadtimes else 0
     n_noise = 2 * A if policy else A
-    u = philox_uniform(seed_key(seed), steps, n_noise + Kr + R * P, B, device)
+    n_dem = 2 * RP if any_normal_demand(cc) else RP
+    u = philox_uniform(seed_key(seed), steps, n_noise + Kr + n_dem, B, device)
+    S = u.shape[0]
     if policy:
         noise = box_muller(u[:, :A], u[:, A:2 * A])
     else:
@@ -227,11 +233,14 @@ def philox_tables(cc: CompiledChain, seed: int, steps, B: int, device,
         leadtimes = leadtimes_from_uniform(
             u[:, n_noise:n_noise + Kr],
             poisson_clip_thresholds(cc.Lavg - 1, cc.Lmax))
-    ud = u[:, n_noise + Kr:].reshape(u.shape[0], R, P, B)
+    ud = u[:, n_noise + Kr:].reshape(S, n_dem // RP, R, P, B)
+    te = (torch.as_tensor(steps, dtype=torch.int64, device=u.device)
+          % cc.T).to(torch.float32).view(S, 1, 1)
     demands = torch.stack(
-        [demand_from_uniform(ud[:, :, p],
-                             cc.demand[p if cc.demand_by_product else 0],
-                             0, cc.T, torch.float32) for p in range(P)], dim=2)
+        [demand_from_uniforms(ud[:, 0, :, p],
+                              ud[:, 1, :, p] if n_dem > RP else None,
+                              cc.demand[p if cc.demand_by_product else 0],
+                              te, cc.T) for p in range(P)], dim=2)
     return demands, leadtimes, noise
 
 
@@ -382,9 +391,7 @@ def launch_supplychain_collect(desc: torch.Tensor, cc: CompiledChain, S: int,
     if device.type != "cuda":
         raise ValueError("the collect kernel runs on a CUDA device")
     ptrs = (None, None, None)
-    if mode == "random":
-        check_uniform_demand(cc)
-    else:
+    if mode == "actions":
         ptrs = _check_tables(cc, S, B, device, demands, leadtimes, actions,
                              "actions")
     out = launch_lanes(desc, cc, "collect", S, B, mode, seed, ptrs)
@@ -420,9 +427,7 @@ def launch_supplychain_policy(desc: torch.Tensor, cc: CompiledChain,
     if device.type != "cuda":
         raise ValueError("the collect kernel runs on a CUDA device")
     ptrs = (None, None, None)
-    if mode == "policy":
-        check_uniform_demand(cc)
-    else:
+    if mode == "policy_eps":
         ptrs = _check_tables(cc, S, B, device, demands, leadtimes, eps, "eps")
     out = launch_policy_lanes(desc, cc, layout, layout_dev, weights, mode, S,
                               B, seed, ptrs, sample_major)
@@ -472,9 +477,7 @@ def make_supplychain_collect(cc: CompiledChain, T: int, B: int,
     device = resolve_device(device)
     S = episodes * T
     # unsupported chains and networks fail here, when the collector is built
-    if mode in ("random", "policy"):
-        check_uniform_demand(cc)
-    # supplychain_dense imports this module
+    # (supplychain_dense imports this module)
     from .supplychain_dense import dense_descriptor, lane_block, policy_block
     lane_block(cc, "collect")
     words = dense_descriptor(cc)

@@ -35,10 +35,12 @@ reward ``reward [S, B]`` (S = episodes * T).
 * ``random`` draws those rows in the kernel from Philox4x32-10 keyed by the
   seed, as the collect kernel's ``random`` does: at counter ``(lane, step,
   block, 0)``, A action uniforms, then K lead-time uniforms (stochastic
-  chains), then R*P demand uniforms.  It is ``actions`` fed the tables
-  ``philox_tables`` makes, and that is its plain version.  The JAX dense
-  kernel draws lead-times per use from the TPU's generator instead; no
-  stream of the port matches the TPU's value for value anyway.
+  chains), then R*P demand uniforms (and R*P Box-Muller partners with a
+  normal demand), every demand process drawn in the kernel.  It is
+  ``actions`` fed the tables ``philox_tables`` makes, and that is its plain
+  version.  The JAX dense kernel draws lead-times per use from the TPU's
+  generator instead; no stream of the port matches the TPU's value for
+  value anyway.
 
 K5 runs 16 lanes an env, 8 envs a block, and builds none of the JAX
 kernel's pre-gathered ``[S, N, P, Dmax, B]`` tables.  Its plain version is
@@ -54,8 +56,8 @@ import torch
 from ..core.compile import CompiledChain
 from ._mlp import LAYOUT_INTS, SMEM_MAX, MlpLayout
 from .supplychain_collect import (_MAX, _check, _check_tables, _desc_fields,
-                                  check_kernel_support, check_uniform_demand,
-                                  descriptor_words, resolve_device, seed_key,
+                                  check_kernel_support, descriptor_words,
+                                  resolve_device, seed_key,
                                   supplychain_collect_plain)
 
 __all__ = ["make_supplychain_dense_collect", "launch_supplychain_dense",
@@ -354,9 +356,7 @@ def launch_supplychain_dense(desc: torch.Tensor, cc: CompiledChain, S: int,
     if device.type != "cuda":
         raise ValueError("the dense collect kernel runs on a CUDA device")
     ptrs = (None, None, None)
-    if mode == "random":
-        check_uniform_demand(cc)
-    else:
+    if mode == "actions":
         ptrs = _check_tables(cc, S, B, device, demands, leadtimes, actions,
                              "actions")
     out = launch_lanes(desc, cc, "dense", S, B, mode, seed, ptrs)
@@ -395,8 +395,6 @@ def make_supplychain_dense_collect(cc: CompiledChain, T: int, B: int,
     # unsupported chains fail here, when the collector is built
     words = dense_descriptor(cc)
     lane_block(cc, "dense")
-    if mode == "random":
-        check_uniform_demand(cc)
     desc = (torch.as_tensor(words, device=device)
             if device.type == "cuda" else None)
 

@@ -21,7 +21,9 @@ from ..core.compile import CompiledChain, DemandConfig
 
 __all__ = ["poisson_clip_thresholds", "philox4x32", "philox_uniform",
            "philox_words", "uniform_from_bits", "box_muller",
-           "demand_from_uniform", "leadtimes_from_uniform",
+           "demand_from_uniform", "DEMAND_KINDS", "demand_constants",
+           "any_normal_demand", "demand_from_uniforms",
+           "leadtimes_from_uniform",
            "stateless_step_rows", "device_demand_tables",
            "device_leadtime_tables", "device_episode_tables"]
 
@@ -142,6 +144,81 @@ def demand_from_uniform(u: torch.Tensor, cfg: DemandConfig, t, T: int,
                                              * t / T))
     return torch.round(torch.clamp(base + perturb, cfg.minv,
                                    cfg.maxv)).to(dtype)
+
+
+# the kernels' demand processes (DEM_* of csrc/supplychain_step.cuh)
+DEMAND_KINDS = {"uniform": 0, "normal": 1, "seasonal_normal": 2,
+                "seasonal_uniform": 3}
+
+
+def demand_constants(cfg: DemandConfig) -> dict:
+    """One product's demand process as the kernels draw it: its ``kind``
+    (``DEMAND_KINDS``) and its constants, folded once from the Python
+    numbers the JAX package's ``_demand_from_u`` folds in double and
+    rounded to float32 as they meet float32 there.  ``n``/``lo`` are the
+    uniform integer draw ``floor(u * n) + lo``: the demand itself, or a
+    seasonal process's uniform perturbation in ``[int(-3 std),
+    int(3 std)]``; ``std`` the normal's (0 for a seasonal process without
+    one); ``mid`` the normal's mean ``(maxv + minv) / 2``; ``minavg``,
+    ``half`` (``(maxavg - minavg) / 2``) and ``peaks`` (``sen_peaks *
+    2 pi``) the seasonal base; ``minv``/``maxv`` the clip."""
+    f32 = lambda x: float(np.float32(x))  # noqa: E731
+    n, lo = cfg.maxv - cfg.minv + 1, cfg.minv
+    std = 0.0 if cfg.std is None else cfg.std
+    if cfg.sen_peaks is None:
+        kind = "uniform" if cfg.std is None else "normal"
+    elif cfg.perturb_norm:
+        kind = "seasonal_normal"
+    else:
+        kind = "seasonal_uniform"
+        lo, hi = int(-3 * std), int(3 * std)
+        n = hi - lo + 1
+    seasonal = cfg.sen_peaks is not None
+    return dict(
+        kind=DEMAND_KINDS[kind], n=f32(n), lo=f32(lo), std=f32(std),
+        mid=f32((cfg.maxv + cfg.minv) / 2), minv=f32(cfg.minv),
+        maxv=f32(cfg.maxv), minavg=f32(cfg.minavg if seasonal else 0),
+        half=f32((cfg.maxavg - cfg.minavg) / 2 if seasonal else 0),
+        peaks=f32(cfg.sen_peaks * 2 * math.pi if seasonal else 0))
+
+
+def any_normal_demand(cc: CompiledChain) -> bool:
+    """Whether a product's demand draws a normal, so the kernels' rows hold
+    a second block of R*P uniforms (the Box-Muller partners)."""
+    normal = (DEMAND_KINDS["normal"], DEMAND_KINDS["seasonal_normal"])
+    return any(demand_constants(cfg)["kind"] in normal for cfg in cc.demand)
+
+
+def demand_from_uniforms(u: torch.Tensor, u2, cfg: DemandConfig, te,
+                         T: int) -> torch.Tensor:
+    """Float32 uniforms -> one product's demand (float32 integers), the
+    kernel form of the draw: the JAX package's ``_demand_from_u``
+    (``ops/supplychain_pallas.py``) op for op, as the CUDA collect kernels
+    compute it (``ln_demand`` of ``csrc/supplychain_lanes.cuh``).
+
+    ``u2`` holds the Box-Muller partners of ``u`` (``box_muller``: a
+    normal from two uniforms, where ``demand_from_uniform`` inverts one
+    uniform's CDF); ``te`` is the step within the episode (a tensor or a
+    number broadcastable to ``u``), ``T`` the horizon.  The seasonal base is
+    ``minavg + half * (1 + sin((peaks * te) / T))`` in float32, divided by
+    a tensor so that no device turns the division into a reciprocal's
+    product; then ``base + perturbation`` (or ``normal * std + mid``),
+    clipped and rounded half to even."""
+    c = demand_constants(cfg)
+    kind = c["kind"]
+    if kind in (DEMAND_KINDS["uniform"], DEMAND_KINDS["seasonal_uniform"]):
+        x = torch.floor(u * c["n"]) + c["lo"]
+        if kind == DEMAND_KINDS["uniform"]:
+            return x
+    else:
+        x = box_muller(u, u2) * c["std"]
+    if kind == DEMAND_KINDS["normal"]:
+        x = x + c["mid"]
+    else:
+        te = torch.as_tensor(te, dtype=torch.float32, device=u.device)
+        arg = (te * c["peaks"]) / torch.full_like(te, float(T))
+        x = (c["minavg"] + c["half"] * (1.0 + torch.sin(arg))) + x
+    return torch.round(torch.clamp(x, c["minv"], c["maxv"]))
 
 
 def leadtimes_from_uniform(u: torch.Tensor, cdf: np.ndarray) -> torch.Tensor:

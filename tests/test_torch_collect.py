@@ -5,9 +5,10 @@ CPU tensors) must reproduce ``make_supplychain_collect_pallas(...,
 mode="actions", interpret=True)`` over two back-to-back episodes, so the
 auto-reset is covered, at the tolerances of ``tests/test_pallas_collect.py``
 (obs atol 1e-6, rewards atol 1e-5 * max|r|).  ``random`` mode must equal
-``actions`` fed with the Philox tables, and Philox4x32-10 must give its
-published known answers.  The CUDA kernel itself is compared with the plain
-version on the card (``chip_smoke.py`` and ``tests/test_torch_kernels.py``).
+``actions`` fed with the Philox tables, on every demand process, and
+Philox4x32-10 must give its published known answers.  The CUDA kernel
+itself is compared with the plain version on the card (``chip_smoke.py``
+and ``tests/test_torch_kernels.py``).
 """
 import re
 from pathlib import Path
@@ -23,6 +24,7 @@ from gym_supplychain_tpu.ops.supplychain_pallas import (  # noqa: E402
     make_supplychain_collect_pallas)
 
 from gym_supplychain_tpu_torch import make_chain  # noqa: E402
+from gym_supplychain_tpu_torch.envs.presets import _linear_nodes  # noqa: E402
 from gym_supplychain_tpu_torch.ops import supplychain_collect as scc  # noqa: E402
 from gym_supplychain_tpu_torch.rng.device import philox4x32  # noqa: E402
 
@@ -74,11 +76,22 @@ def test_philox4x32_10_known_answers(counter, key, want):
     assert got == want
 
 
-@pytest.mark.parametrize("env_id", ["supplychain-linear-v0",
-                                    "supplychain-ntom-v0"])
-def test_random_equals_actions_on_philox_tables(env_id):
+@pytest.mark.parametrize("env_id,kw", [
+    ("supplychain-linear-v0", {}), ("supplychain-ntom-v0", {}),
+    ("sc-2perstage-seasonal-v0", {}),
+    ("sc-2perstage-multiproduct-v1", {}),
+    ("sc-2perstage-multiproduct-v1",
+     dict(num_products=3, demand_std=10, demand_perturb_norm=True)),
+    ("sc-2perstage-multiproduct-inccosts-v1", dict(demand_std=10)),
+    ("supplychain-oneonen-v0", dict(num_retailers=3)),
+    ("supplychain-v0", dict(nodes_info=_linear_nodes(), demand_std=2.0,
+                            demand_sen_peaks=3, avg_demand_range=(12, 18),
+                            demand_perturb_norm=True))])
+def test_random_equals_actions_on_philox_tables(env_id, kw):
+    """Bit for bit, on every demand process; the drawn demand is integer
+    and lies in each product's range."""
     T, B, E, seed = 9, 5, 2, 2 ** 33 + 7
-    cc = make_chain(env_id, total_time_steps=T)
+    cc = make_chain(env_id, total_time_steps=T, **kw)
     obs, rew = scc.make_supplychain_collect(cc, T, B, mode="random",
                                             episodes=E, device="cpu")(seed)
     dem, lt, act = scc.philox_tables(cc, seed, range(E * T), B, "cpu")
@@ -87,8 +100,11 @@ def test_random_equals_actions_on_philox_tables(env_id):
                                               episodes=E, device="cpu")(*args)
     assert torch.equal(obs, obs2) and torch.equal(rew, rew2)
     assert ((act >= -1) & (act < 1)).all()
-    cfg = cc.demand[0]
-    assert ((dem >= cfg.minv) & (dem <= cfg.maxv)).all()
+    for p in range(cc.P):
+        cfg = cc.demand[p if cc.demand_by_product else 0]
+        d = dem[:, :, p]
+        assert ((d >= cfg.minv) & (d <= cfg.maxv)).all()
+        assert torch.equal(d, torch.round(d))
     if lt is not None:
         assert ((lt >= 1) & (lt <= cc.Lmax)).all()
     # a step's rows depend on the global step, so episodes differ
@@ -133,13 +149,27 @@ def test_descriptor_layout_matches_kernel_struct():
 
 
 def test_descriptor_rejects_what_the_kernel_does_not_take():
+    """A seasonal chain is taken: its descriptor carries the demand
+    process and the modes that draw demand in the kernel build and run on
+    it.  A negative capacity is refused."""
+    from gym_supplychain_tpu_torch.models.policy import ActorCritic, MLPConfig
+
     seasonal = jsct.make("sc-2perstage-seasonal-v0", total_time_steps=4).cc
-    # tables carry any demand: only the modes drawing it in-kernel refuse
-    assert scc.chain_descriptor(seasonal).nbytes == scc.DESC_BYTES
+    words = scc.chain_descriptor(seasonal)
+    assert words.nbytes == scc.DESC_BYTES
+    names = [f[0] for f in scc._DESC_FIELDS]
+    ints = words.view(np.int32)
+    assert ints[names.index("any_normal")] == 1
+    off = sum(c for *_, c in scc._DESC_FIELDS[:names.index("dem_kind")])
+    assert ints[off] == 2                  # seasonal with a normal
+    model = ActorCritic(MLPConfig(seasonal.obs_dim, seasonal.A, (4,)),
+                        torch.Generator().manual_seed(0), device="cpu")
     for mode in ("random", "policy"):
-        with pytest.raises(NotImplementedError):     # seasonal demand
-            scc.make_supplychain_collect(seasonal, 4, 2, mode=mode,
-                                         hidden=(4,), device="cpu")
+        run = scc.make_supplychain_collect(seasonal, 4, 2, mode=mode,
+                                           hidden=(4,), device="cpu")
+        obs = (run(3) if mode == "random" else run(model, 3))[0]
+        assert obs.shape == (4, seasonal.obs_dim, 2)
+        assert bool((obs.abs() <= 1).all())
     cc = make_chain("supplychain-linear-v0", total_time_steps=4)
     bad = cc.__class__(**{**cc.__dict__,
                           "supply_cap": -np.asarray(cc.supply_cap)})

@@ -42,7 +42,11 @@ def _assert_chains_equal(got, want):
                                     "sc-2perstage-v0",
                                     "sc-2perstage-multiproduct-v0",
                                     "sc-Nperstage-multiproduct-v0",
-                                    "sc-2perstage-multiproduct-inccosts-v0"])
+                                    "sc-2perstage-multiproduct-inccosts-v0",
+                                    "sc-2perstage-seasonal-v0",
+                                    "sc-2perstage-multiproduct-v1",
+                                    "sc-2perstage-multiproduct-inccosts-v1",
+                                    "supplychain-oneonen-v0"])
 @pytest.mark.parametrize("T", [360, 20])
 def test_slice_presets_match_jax(env_id, T):
     _assert_chains_equal(make_chain(env_id, total_time_steps=T),
@@ -72,7 +76,13 @@ def test_registry_and_beergame_spec():
                           "sc-2perstage-multiproduct-v0",
                           "sc-Nperstage-multiproduct-v0",
                           "sc-2perstage-multiproduct-inccosts-v0",
-                          "beergame-v0")
+                          "beergame-v0", "supplychain-v0",
+                          "sc-2perstage-seasonal-v0",
+                          "sc-2perstage-multiproduct-v1",
+                          "sc-2perstage-multiproduct-inccosts-v1",
+                          "supplychain-oneonen-v0")
+    # every id of the JAX registry but the beer game's v2
+    assert set(jsct.registry()) - set(registry()) == {"beergame-v2"}
     spec = make_chain("beergame-v0")
     assert (spec.levels, spec.weeks, spec.delay) == (4, 35, 2)
     assert list(spec.demand) == [4] * 4 + [8] * 31

@@ -293,16 +293,35 @@ def test_plain_matches_jax_dense_kernel(name, B, lane_tile, episodes, seed):
                                atol=1e-5 * np.abs(want_rew).max())
 
 
-def test_random_equals_actions_on_philox_tables():
-    cc = make_chain("sc-Nperstage-multiproduct-v0",
-                    nodes_per_echelon=[2, 3, 2, 2], num_products=2,
-                    stochastic_leadtimes=True, total_time_steps=5)
+_NPS = dict(nodes_per_echelon=[2, 3, 2, 2], num_products=2,
+            stochastic_leadtimes=True)
+
+
+@pytest.mark.parametrize("env_id,kw", [
+    ("sc-Nperstage-multiproduct-v0", _NPS),
+    ("sc-Nperstage-multiproduct-v0", dict(
+        _NPS, demand_std=10, demand_sen_peaks=4, avg_demand_range=(150, 250),
+        demand_perturb_norm=True)),
+    ("sc-Nperstage-multiproduct-v0", dict(_NPS, demand_std=30)),
+    ("sc-Nperstage-multiproduct-v0", dict(
+        _NPS, demand_std=10, demand_sen_peaks=2,
+        avg_demand_range=(100, 300))),
+    ("sc-2perstage-seasonal-v0", {}),
+    ("sc-2perstage-multiproduct-v1", dict(num_products=3, demand_std=10,
+                                          demand_perturb_norm=True)),
+    ("sc-2perstage-multiproduct-inccosts-v1", dict(demand_std=10)),
+    ("supplychain-oneonen-v0", dict(num_retailers=3))])
+def test_random_equals_actions_on_philox_tables(env_id, kw):
+    """Bit for bit: uniform demand, seasonal with a normal perturbation,
+    normal, seasonal with a uniform perturbation, and the demand presets."""
+    cc = make_chain(env_id, total_time_steps=5, **kw)
     B, E, seed = 3, 2, 11
     obs, rew = scd.make_supplychain_dense_collect(
         cc, cc.T, B, mode="random", episodes=E, device="cpu")(seed)
     dem, lt, act = scc.philox_tables(cc, seed, range(E * cc.T), B, "cpu")
+    rows = [dem] + ([lt] if cc.stochastic_leadtimes else []) + [act]
     obs2, rew2 = scd.make_supplychain_dense_collect(
-        cc, cc.T, B, mode="actions", episodes=E, device="cpu")(dem, lt, act)
+        cc, cc.T, B, mode="actions", episodes=E, device="cpu")(*rows)
     assert torch.equal(obs, obs2) and torch.equal(rew, rew2)
     assert bool(torch.isfinite(obs).all()) and bool((obs.abs() <= 1).all())
 

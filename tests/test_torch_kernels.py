@@ -13,8 +13,9 @@ update kernel's gradients within 4x the plain float32 error against float64;
 the episode kernel's rewards atol 1e-5 * max|r| with its final stock
 bit-equal; the dense collect kernel (K5) as the collect kernel; the
 beer-game episode sweep (K6b) bit-exact.  K1's ``random``/``actions``, K6a
-and K5 are the lane-group kernel; its in-kernel draws equal the plain
-version's Philox tables bit for bit.
+and K5 are the lane-group kernel; its in-kernel draws, the normal and
+seasonal demand among them, equal the plain version's Philox tables bit
+for bit.
 """
 import numpy as np
 import pytest
@@ -519,6 +520,68 @@ def test_lane_kernel_draws_equal_their_tables(chain, kernel):
             desc, cc, B, "actions", dem, lt,
             actions=sce.seeded_actions(cc, seed, B, dev))
     assert all(torch.equal(a, b) for a, b in zip(k, t))
+
+
+_DEMAND_CHAINS = {
+    "seasonal": ("sc-2perstage-seasonal-v0", {}),
+    "seasonal uniform perturbation": ("sc-2perstage-seasonal-v0",
+                                      dict(demand_perturb_norm=False)),
+    "multiproduct-v1": ("sc-2perstage-multiproduct-v1", {}),
+    "multiproduct-v1 normal": ("sc-2perstage-multiproduct-v1",
+                               dict(num_products=3, demand_std=10,
+                                    demand_perturb_norm=True)),
+    "nperstage seasonal": ("sc-Nperstage-multiproduct-v0", dict(
+        nodes_per_echelon=[2, 3, 2, 2], num_products=2,
+        stochastic_leadtimes=True, demand_std=10, demand_sen_peaks=4,
+        avg_demand_range=(150, 250), demand_perturb_norm=True)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["collect", "policy", "dense"])
+@pytest.mark.parametrize("chain", sorted(_DEMAND_CHAINS))
+def test_demand_processes_drawn_in_kernel(chain, kernel):
+    """Normal and seasonal demand drawn in the kernel: K1 ``random`` (and
+    K5 ``random``) equal to ``actions`` fed ``philox_tables`` bit for bit,
+    K1 ``policy`` to ``policy_eps`` on its tables, and each against its
+    plain version (obs and stock bit-equal: the draw follows the plain
+    version's float32 ops; rewards atol 1e-5 * max|r|, the cost sum's
+    order) at a ragged B, two episodes crossing the auto-reset."""
+    from gym_supplychain_tpu_torch.ops import supplychain_dense as scd
+
+    dev = _device()
+    env_id, kw = _DEMAND_CHAINS[chain]
+    T, E, B, seed, hidden = 14, 2, 8 * 11 + 5, 2 ** 35 + 9, (16,)
+    cc = make_chain(env_id, total_time_steps=T, **kw)
+    S = E * T
+    desc = torch.as_tensor(dense_descriptor(cc), device=dev)
+    if kernel == "policy":
+        model = _policy_model(cc, hidden, dev)
+        lay = MlpLayout(cc.obs_dim, cc.A, hidden)
+        args = (desc, cc, lay, torch.as_tensor(lay.ints, device=dev),
+                lay.pack(model.flat()), S, B)
+        k = scc.launch_supplychain_policy(*args, "policy", seed=seed)
+        dem, lt, eps = scc.philox_tables(cc, seed, range(S), B, dev,
+                                         policy=True)
+        t = scc.launch_supplychain_policy(*args, "policy_eps", demands=dem,
+                                          leadtimes=lt, eps=eps)
+        p = scc.supplychain_collect_plain(cc, E, B, "policy", seed=seed,
+                                          params=model, device=dev)
+        assert all(torch.equal(a, b) for a, b in zip(k, t))
+        _close_policy(k, p)
+        assert torch.equal(k[0], p[0])
+        return
+    launch = (scd.launch_supplychain_dense if kernel == "dense"
+              else scc.launch_supplychain_collect)
+    k = launch(desc, cc, S, B, "random", seed=seed)
+    dem, lt, act = scc.philox_tables(cc, seed, range(S), B, dev)
+    t = launch(desc, cc, S, B, "actions", demands=dem, leadtimes=lt,
+               actions=act)
+    p = scc.supplychain_collect_plain(cc, E, B, "random", seed=seed,
+                                      device=dev)
+    assert all(torch.equal(a, b) for a, b in zip(k, t))
+    assert torch.equal(k[0], p[0]) and torch.equal(k[2], p[2])
+    assert float((k[1] - p[1]).abs().max()) <= 1e-5 * float(p[1].abs().max())
 
 
 @pytest.mark.cuda

@@ -142,11 +142,17 @@ def test_plain_policy_eps_matches_jax_kernel(env_id, T, B, hidden, seed):
                                atol=1e-4 * np.abs(want[4]).max())
 
 
-@pytest.mark.parametrize("env_id", ["supplychain-linear-v0",
-                                    "supplychain-ntom-v0"])
-def test_policy_equals_policy_eps_on_philox_tables(env_id):
+@pytest.mark.parametrize("env_id,kw", [
+    ("supplychain-linear-v0", {}), ("supplychain-ntom-v0", {}),
+    ("sc-2perstage-seasonal-v0", {}), ("sc-2perstage-multiproduct-v1", {}),
+    ("sc-2perstage-multiproduct-inccosts-v1",
+     dict(num_products=3, demand_std=10, demand_perturb_norm=True)),
+    ("supplychain-oneonen-v0", dict(num_retailers=3))])
+def test_policy_equals_policy_eps_on_philox_tables(env_id, kw):
+    """Bit for bit, on every demand process (the demand rows come after the
+    2A noise uniforms)."""
     T, B, E, seed, hidden = 6, 5, 2, 2 ** 40 + 3, (8,)
-    cc = make_chain(env_id, total_time_steps=T)
+    cc = make_chain(env_id, total_time_steps=T, **kw)
     model = ActorCritic(MLPConfig(cc.obs_dim, cc.A, hidden),
                         torch.Generator().manual_seed(0), device="cpu")
     with torch.no_grad():
