@@ -10,14 +10,17 @@ PPO trainer on ``supplychain-ntom-v0`` at 4096 envs, hidden (128, 128),
 horizon 60, greedy evaluation of its checkpoint at 4096 envs, horizon 360,
 with the base-stock baseline beside it, the large-topology benchmark's
 three chains (26, 40 and 8 nodes) at 4096 envs, horizon 360, the
-beer-game episode sweep at 4096 envs, and collection, training and
-evaluation on normal and seasonal demand drawn in the kernels.
+beer-game episode sweep at 4096 envs, collection, training and
+evaluation on normal and seasonal demand drawn in the kernels, the bf16
+learner (the update kernel's tensor-core mode) and the beer game's
+trainer, evaluator and order-up-to baseline.
 
     python3 chip_smoke.py [--seed 0]
 
 Phases, in order; any failure exits nonzero:
   1. device, power limit, torch/CUDA/nvcc versions; kernel build time;
-     ptxas's registers and spills of the update kernel, of every instance
+     ptxas's registers and spills of the update kernel (both modes), of
+     every instance
      of the lane-group kernel (K1 ``random``/``actions``, K6a, K5), of
      the policy lane kernel (K1's policy modes, K4) and of the beer-game
      kernel (K3, K6b)
@@ -76,9 +79,24 @@ Phases, in order; any failure exits nonzero:
      the train CLI on the seasonal chain at phase 8's shape (K1 ``policy``
      and K2 launched) and the trainer's phases, the evaluate CLI with both
      engines on its checkpoint (one episode, mean returns within 1e-5)
+  14. the bf16 learner and the beer game: K2's bf16 mode at phase 7's
+     shape against its plain bf16 version, on phase 7's inputs and on the
+     same from the trainer's initial weights (loss within 1e-3 relative,
+     each gradient tensor within 1e-2 * its max, flat cosine >= 0.9999,
+     two launches bit-identical; cosine to the float32 K2 >= 0.999 from
+     the trainer's weights, and no more than 1e-4 below the plain bf16
+     version's from phase 7's, whose x100 mu head amplifies bf16's
+     rounding), timed beside the float32 K2 in turns; the train CLI with ``--learner-dtype bf16``
+     at phase 8's shape (K1 ``policy`` and the bf16 K2 launched) and both
+     learners' phases, the first iteration's parameter change against the
+     float32 learner's (cosine >= 0.9); the train CLI on ``beergame-v2``
+     at 4096 envs, ``make_beergame_ppo`` on the v2 ranges timed an
+     iteration, the greedy evaluator, the order-up-to grid and
+     ``compare_baseline_beergame`` at 20 iterations
 The line before the last is a JSON summary of the kernels, each with its
 bound: the larger of the bytes it must move over 3.35 TB/s and the float32
-operations it must do over 67 TFLOP/s (the H100 SXM data sheet at 700 W;
+operations it must do over 67 TFLOP/s, the bf16 K2's over the tensor
+cores' 989 TFLOP/s (the H100 SXM data sheet at 700 W;
 the env step's scalar operations are not counted, so the bound stays a
 lower bound); beside K1 ``policy`` and K4 the text prints the bound without
 FMA contraction, which their float rules forbid (twice the MLP's).  The
@@ -117,6 +135,7 @@ RAGGED = 7                 # phases 4, 6, 12: B + 7 envs, a ragged last block
 DENSE_REPS = 3             # phase 11: timed calls of the dense kernel (median)
 EAGER_STEPS = 10           # phase 11: the eager env's slope, 10 vs 20 steps
 PEAK_FLOPS = 67e12         # H100 SXM float32 outside the tensor cores
+PEAK_BF16 = 989e12         # H100 SXM bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s
 
 
@@ -143,10 +162,11 @@ def _timed(fn, reps):
     return statistics.median(times), out
 
 
-def _bound(n_bytes, n_flops):
+def _bound(n_bytes, n_flops, peak_flops=PEAK_FLOPS):
     """(ms, 'bytes' or 'operations'): the least time the card could take
-    to move ``n_bytes`` and do ``n_flops`` float32 operations."""
-    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_flops / PEAK_FLOPS
+    to move ``n_bytes`` and do ``n_flops`` operations at ``peak_flops``
+    (float32 outside the tensor cores unless given)."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES, n_flops / peak_flops
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -562,32 +582,60 @@ def phase_policy(B, episodes, seed, errs):
             raise RuntimeError(f"{env_id}: sample_major layout differs")
 
 
-def phase_ppo_update(seed, errs):
-    """Phase 7: the PPO update kernel against plain, both against float64
-    autograd, at the trainer's M = T * B samples."""
+def _update_data(cc, model, M, seed, dev):
+    """Phase 7's update inputs: obs in [-1, 1), pre-tanh actions from the
+    policy, old log-probs of a nearby policy (the ratio clip has both
+    branches), normalized advantages, returns."""
     import torch
-    import gym_supplychain_tpu_torch as sct
     from gym_supplychain_tpu_torch.models.policy import (
         actor_critic_forward, tanh_gaussian_logp)
-    from gym_supplychain_tpu_torch.ops import ppo_update as pu
 
-    dev = torch.device("cuda")
-    cc = sct.make_chain("supplychain-ntom-v0", total_time_steps=TRAIN_T)
-    O, A, M = cc.obs_dim, cc.A, TRAIN_T * ENVS
-    model = _policy_model(cc, seed, dev)
+    O, A = cc.obs_dim, cc.A
     g = torch.Generator(device=dev).manual_seed(seed)
     obs = torch.rand((O, M), generator=g, device=dev) * 2 - 1
     with torch.no_grad():
         mu, log_std, _ = actor_critic_forward(model, obs)
         pre = mu + log_std.exp() * torch.randn((A, M), generator=g,
                                                device=dev)
-        # old log-probs of a nearby policy: the ratio clip has both branches
         old = tanh_gaussian_logp(pre, mu, log_std) + 0.3 * torch.randn(
             (M,), generator=g, device=dev)
     adv = torch.randn((M,), generator=g, device=dev)
     adv = (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
     ret = torch.randn((M,), generator=g, device=dev)
-    data = (obs, pre, old, adv, ret)
+    return obs, pre, old, adv, ret
+
+
+def _back_to_back(fn, n):
+    """(the card's ms a call, the host's ms to enqueue one) over ``n``
+    calls enqueued without a sync: the host runs ahead, so the first is
+    the card's time apart from the host's (a call timed alone holds some
+    of both)."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(n):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n, host_ms
+
+
+def phase_ppo_update(seed, errs):
+    """Phase 7: the PPO update kernel against plain, both against float64
+    autograd, at the trainer's M = T * B samples."""
+    import torch
+    import gym_supplychain_tpu_torch as sct
+    from gym_supplychain_tpu_torch.ops import ppo_update as pu
+
+    dev = torch.device("cuda")
+    cc = sct.make_chain("supplychain-ntom-v0", total_time_steps=TRAIN_T)
+    O, A, M = cc.obs_dim, cc.A, TRAIN_T * ENVS
+    model = _policy_model(cc, seed, dev)
+    data = _update_data(cc, model, M, seed, dev)
     gf = pu.make_ppo_update_grads(O, A, HIDDEN, M)
     lk, gk = gf(model, *data)
     lk2, gk2 = gf(model, *data)
@@ -605,18 +653,7 @@ def phase_ppo_update(seed, errs):
                                               for x in gk)
     ms, _ = _timed(lambda: gf(model, *data), REPS)
     plain_ms, _ = _timed(lambda: pu.ppo_update_plain(model, *data), REPS)
-    # back to back, the host runs ahead: the card's time a call, apart from
-    # the host's cost to enqueue one (a call timed alone holds some of both)
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(BACK_TO_BACK):
-        gf(model, *data)
-    host_ms = (time.perf_counter() - t0) * 1e3 / BACK_TO_BACK
-    end.record()
-    torch.cuda.synchronize()
-    card_ms = start.elapsed_time(end) / BACK_TO_BACK
+    card_ms, host_ms = _back_to_back(lambda: gf(model, *data), BACK_TO_BACK)
     print(f"phase 7: ppo_update, M={M}, O={O}, A={A}, hidden {HIDDEN}, "
           f"against float64 autograd")
     print(f"  gradients: max abs err kernel {err_k:.3e}, plain float32 "
@@ -662,6 +699,27 @@ def _train_phases(step, state, reps):
         if not bool(torch.isfinite(losses).all()):
             raise RuntimeError("trainer: loss is not finite")
     return {k: statistics.median(v) for k, v in times.items()}
+
+
+def _flat_cos(a, b):
+    """Cosine of two lists of tensors, flattened, in float64."""
+    import torch
+
+    a = torch.cat([x.reshape(-1).double() for x in a])
+    b = torch.cat([x.reshape(-1).double() for x in b])
+    return float(a @ b / (a.norm() * b.norm() + 1e-300))
+
+
+def _first_step(init_fn, step, seed):
+    """([the parameters' change], loss) over one iteration of a trainer
+    from its initial state."""
+    import torch
+
+    state = init_fn(seed)
+    p0 = torch.cat([x.detach().reshape(-1) for x in state.params.flat()])
+    state, m = step(state)
+    p1 = torch.cat([x.detach().reshape(-1) for x in state.params.flat()])
+    return [p1 - p0], float(m["loss"])
 
 
 def phase_trainer(seed):
@@ -714,16 +772,11 @@ def phase_trainer(seed):
     # one iteration of each from the same weights and seed
     deltas, losses = [], []
     for plain in (False, True):
-        init_fn, step = ppo.make_ppo_fused(cc, B, cfg, noise="prng",
-                                           device="cuda", plain=plain)
-        state = init_fn(seed)
-        p0 = torch.cat([x.detach().reshape(-1) for x in state.params.flat()])
-        state, m = step(state)
-        p1 = torch.cat([x.detach().reshape(-1) for x in state.params.flat()])
-        deltas.append((p1 - p0).double())
-        losses.append(float(m["loss"]))
-    cos = float(deltas[0] @ deltas[1]
-                / (deltas[0].norm() * deltas[1].norm() + 1e-300))
+        delta, loss = _first_step(*ppo.make_ppo_fused(
+            cc, B, cfg, noise="prng", device="cuda", plain=plain), seed)
+        deltas.append(delta)
+        losses.append(loss)
+    cos = _flat_cos(deltas[0], deltas[1])
     rel = abs(losses[0] - losses[1]) / max(abs(losses[1]), 1e-30)
     print(f"  one iteration from the same weights and seed: loss kernel "
           f"{losses[0]:.8f}, plain {losses[1]:.8f} (relative diff {rel:.3e}, "
@@ -1326,7 +1379,179 @@ def phase_demand(B, seed, errs):
                 train_counts=counts)
 
 
-def _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, sc_errs, bg_errs,
+def phase_bf16_beergame(seed):
+    """Phase 14: K2's bf16 mode against its plain version at phase 7's
+    shape and beside the float32 K2; the train CLI with the bf16 learner at
+    phase 8's shape; the beer game's trainer, evaluator, order-up-to grid
+    and comparison CLI."""
+    import torch
+    import gym_supplychain_tpu_torch as sct
+    from gym_supplychain_tpu_torch.learn import (compare_baseline_beergame,
+                                                 evaluate, heuristics, ppo,
+                                                 train)
+    from gym_supplychain_tpu_torch.ops import ppo_update as pu
+    from gym_supplychain_tpu_torch.ops import supplychain_collect as scc
+    from gym_supplychain_tpu_torch.ops._mlp import MlpLayout
+
+    dev = torch.device("cuda")
+    cc = sct.make_chain("supplychain-ntom-v0", total_time_steps=TRAIN_T)
+    O, A, M, B = cc.obs_dim, cc.A, TRAIN_T * ENVS, ENVS
+    print("phase 14: the bf16 learner and the beer game's trainer")
+
+    # (a) K2 bf16 against its plain bf16 version on phase 7's inputs, and
+    # on the same inputs from the trainer's initial weights
+    from gym_supplychain_tpu_torch.models.policy import ActorCritic, MLPConfig
+
+    bf16 = torch.bfloat16
+    gf = pu.make_ppo_update_grads(O, A, HIDDEN, M, compute_dtype=bf16)
+    gf32 = pu.make_ppo_update_grads(O, A, HIDDEN, M)
+    models = {
+        "phase 7's weights (mu x100)": _policy_model(cc, seed, dev),
+        "the trainer's initial weights": ActorCritic(
+            MLPConfig(O, A, HIDDEN), torch.Generator().manual_seed(seed),
+            dev)}
+    ok, err = True, 0.0
+    for tag, model in models.items():
+        data = _update_data(cc, model, M, seed, dev)
+        lk, gk = gf(model, *data)
+        lk2, gk2 = gf(model, *data)
+        lp, gp = pu.ppo_update_plain(model, *data, compute_dtype=bf16)
+        _, g32 = gf32(model, *data)
+        torch.cuda.synchronize()
+        rel = abs(float(lk) - float(lp)) / abs(float(lp))
+        per = max(float((a - b).abs().max()) / float(b.abs().max())
+                  for a, b in zip(gk, gp))
+        err = max([err] + [float((a - b).abs().max())
+                           for a, b in zip(gk, gp)])
+        cos_p, cos_32 = _flat_cos(gk, gp), _flat_cos(gk, g32)
+        cos_p32 = _flat_cos(gp, g32)
+        same = torch.equal(lk, lk2) and all(torch.equal(a, b)
+                                            for a, b in zip(gk, gk2))
+        # the float32 cosine: >= 0.999 from the trainer's weights; from
+        # phase 7's, whose x100 head amplifies bf16's rounding, the plain
+        # bf16 version's own cosine less 1e-4
+        bar = 0.999 if tag.startswith("the trainer") else cos_p32 - 1e-4
+        print(f"  (a) ppo_update bf16 (tensor cores), M={M}, hidden {HIDDEN},"
+              f" {tag}, against its plain bf16 version: loss "
+              f"{float(lk):.8f} / {float(lp):.8f} ({rel:.3e} relative, tol "
+              f"1e-3); largest tensor error / its max {per:.3e} (tol 1e-2); "
+              f"flat cosine {cos_p:.8f} (>= 0.9999); two launches "
+              f"bit-identical {same}; cosine to the float32 K2 {cos_32:.8f} "
+              f"(>= {bar:.8f}; the plain bf16 version's {cos_p32:.8f})")
+        ok &= (rel <= 1e-3 and per <= 1e-2 and cos_p >= 0.9999
+               and cos_32 >= bar and same)
+    if not ok:
+        raise RuntimeError("ppo_update bf16: kernel disagrees with its plain "
+                           "version or does not repeat")
+    model = models["phase 7's weights (mu x100)"]
+    data = _update_data(cc, model, M, seed, dev)
+    ms, _ = _timed(lambda: gf(model, *data), REPS)
+    plain_ms, _ = _timed(lambda: pu.ppo_update_plain(
+        model, *data, compute_dtype=bf16), REPS)
+    b2b = {"float32": [], "bf16": []}
+    for name in ("float32", "bf16", "bf16", "float32"):        # in turns
+        fn = gf if name == "bf16" else gf32
+        b2b[name].append(_back_to_back(lambda: fn(model, *data),
+                                       BACK_TO_BACK))
+    turns = {k: [(round(c, 4), round(h, 4)) for c, h in v]
+             for k, v in b2b.items()}
+    lay = MlpLayout(O, A, HIDDEN)
+    macs = 3 * _macs(lay, [0, 1]) - O * 2 * HIDDEN[0]
+    n_bytes = 4 * (M * (O + A + 3) + 2 * lay.n_params)
+    bound = _bound(n_bytes, 2 * macs * M, PEAK_BF16)
+    print(f"  (a) bf16 kernel {ms:.3f} ms, plain bf16 autograd "
+          f"{plain_ms:.3f} ms per call (median of {REPS}); {BACK_TO_BACK} "
+          f"back to back, in turns (card ms, host ms a call): {turns}")
+    print(f"  (a) bounds: {2 * macs * M / 1e9:.2f} GFLOP over 989 TFLOP/s "
+          f"bf16 = {1e3 * 2 * macs * M / PEAK_BF16:.4f} ms; {n_bytes / 1e6:.1f}"
+          f" MB over 3.35 TB/s = {1e3 * n_bytes / PEAK_BYTES:.4f} ms; the "
+          f"float32 FLOP bound {1e3 * 2 * macs * M / PEAK_FLOPS:.4f} ms")
+    upd = dict(ms=ms, plain_ms=plain_ms, err=err, bound=bound)
+
+    # (b) the train CLI with the bf16 learner at phase 8's shape, then the
+    # trainer's phases beside the float32 one, and the first iteration's
+    # parameter change against the float32 trainer's from the same state
+    for launcher in (scc.launch_supplychain_policy, pu.launch_ppo_update,
+                     pu.launch_ppo_update_bf16):
+        launcher.launches = 0
+    _, metrics = train.main([
+        "--env", "supplychain-ntom-v0", "--envs", str(B), "--hidden",
+        *map(str, HIDDEN), "--horizon", str(TRAIN_T), "--iters", "3",
+        "--epochs", "2", "--log-every", "1", "--seed", str(seed),
+        "--learner-dtype", "bf16"])
+    torch.cuda.synchronize()
+    counts = {"supplychain_collect[policy]":
+              scc.launch_supplychain_policy.launches,
+              "ppo_update_bf16": pu.launch_ppo_update_bf16.launches,
+              "ppo_update": pu.launch_ppo_update.launches}
+    loss = float(metrics["loss"])
+    print(f"  (b) train CLI --learner-dtype bf16, ntom, B={B}, T={TRAIN_T}, 3"
+          f" iterations: final loss {loss:.6f}; launch counts {counts}")
+    if not (counts["supplychain_collect[policy]"]
+            and counts["ppo_update_bf16"] and not counts["ppo_update"]
+            and math.isfinite(loss)):
+        raise RuntimeError("bf16 trainer: the train CLI did not run K1 "
+                           "policy and the bf16 K2 alone")
+    phases, deltas = {}, {}
+    for name, dtype in (("float32", None), ("bf16", bf16)):
+        cfg = ppo.PPOConfig(hidden=HIDDEN, epochs=2, lr=3e-4,
+                            fused_update=True, learner_dtype=dtype)
+        init_fn, step = ppo.make_ppo_fused(cc, B, cfg, noise="prng",
+                                           device="cuda")
+        phases[name] = _train_phases(step, init_fn(seed), TRAIN_REPS)
+        deltas[name] = _first_step(init_fn, step, seed)[0]
+        r = phases[name]
+        print(f"  (b) {name} learner: {r['iteration']:.3f} ms per iteration ="
+              f" {B * TRAIN_T / r['iteration'] * 1e3:.4e} train env-steps/s; "
+              f"collect {r['collect']:.3f}, gae {r['gae']:.3f}, update "
+              f"{r['update']:.3f} ms (median of {TRAIN_REPS})")
+    cos = _flat_cos(deltas["bf16"], deltas["float32"])
+    print(f"  (b) first iteration from the same state: cosine of the "
+          f"parameter deltas, bf16 against float32, {cos:.6f} (>= 0.9)")
+    if not cos >= 0.9:
+        raise RuntimeError("bf16 trainer: its update leaves the float32 one")
+
+    # (c) the beer game: the train CLI on beergame-v2, the trainer's ms an
+    # iteration, the greedy evaluator and the order-up-to grid on the v2
+    # ranges, the comparison CLI at a few iterations
+    _, metrics = train.main([
+        "--env", "beergame-v2", "--envs", str(B), "--iters", "5",
+        "--log-every", "1", "--seed", str(seed)])
+    loss = float(metrics["loss"])
+    print(f"  (c) train CLI --env beergame-v2, B={B}, 5 iterations: final "
+          f"loss {loss:.6f}, mean reward {float(metrics['mean_reward']):.3f}")
+    v2 = dict(customer_demand=(0, 12), shipment_delays=(0, 4), v2=True,
+              max_stock=100, exceeded_capacity_penalty=100)
+    cfg = ppo.PPOConfig(rollout_steps=35, hidden=(64, 64), lr=1e-3, epochs=4,
+                        ent_coef=5e-3)
+    init_fn, step = ppo.make_beergame_ppo(B, cfg, device="cuda", **v2)
+    state = init_fn(seed)
+    it_ms, _ = _timed(lambda: step(state), TRAIN_REPS)
+    ev = evaluate.make_beergame_evaluator(B, device="cuda", **v2)
+    ev_ms, stats = _timed(lambda: ev(state.params, seed + 1, 2), PLAIN_REPS)
+    t0 = time.perf_counter()
+    best, (heur, heur_std), _ = heuristics.best_beergame_base_stock(
+        B, seed, device="cuda", episodes=2, **v2)
+    grid_s = time.perf_counter() - t0
+    print(f"  (c) make_beergame_ppo, v2 ranges, B={B}, hidden (64, 64), 35 "
+          f"weeks a rollout, 4 epochs: {it_ms:.3f} ms an iteration = "
+          f"{B * 35 / it_ms * 1e3:.4e} train env-steps/s (median of "
+          f"{TRAIN_REPS}); greedy evaluator, 2 episodes: {ev_ms:.3f} ms, "
+          f"mean return {float(stats['mean_return']):.2f}; order-up-to grid "
+          f"(19 targets, 2 episodes): best S={best}, mean {heur:.2f}, std "
+          f"{heur_std:.2f}, {grid_s:.2f} s")
+    report = compare_baseline_beergame.main([
+        "--envs", "1024", "--iters", "20", "--eval-episodes", "2",
+        "--seed", str(seed)])
+    if not (math.isfinite(loss) and math.isfinite(float(
+            stats["mean_return"])) and math.isfinite(heur)
+            and "ppo_beats_order_up_to_by" in report):
+        raise RuntimeError("beer game: a trainer, evaluator or baseline "
+                           "result is not finite")
+    return dict(upd=upd, counts=counts, phases=phases)
+
+
+def _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, sc_errs, bg_errs,
                   pol_errs, pu_errs, ep_errs, dm_errs):
     """The ``kernels`` summary: each kernel with its main-path launches,
     its error against plain, its time, its plain version's and its bound
@@ -1383,6 +1608,11 @@ def _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, sc_errs, bg_errs,
          upd["plain_ms"],
          _bound(4 * (M * (cc.obs_dim + cc.A + 3) + 2 * lay.n_params),
                 2 * macs * M))
+    # its bf16 mode: the same work, its operations on the tensor cores
+    line("ppo_update[bf16]", "ppo_update_bf16.cu",
+         "gym_supplychain_tpu/ops/ppo_update_pallas.py:91",
+         bf["counts"]["ppo_update_bf16"], bf["upd"]["err"], bf["upd"]["ms"],
+         bf["upd"]["plain_ms"], bf["upd"]["bound"])
     for mode in ("seeded", "actions", "policy"):
         r = ep[mode]
         line(f"supplychain_episode[{mode}]",
@@ -1449,8 +1679,9 @@ def main(argv=None) -> int:
     _build.library()
     print(f"kernel build {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
-    for kernel in ("ppo_grad_kernel", "sc_lane_kernel",
-                   "sc_policy_lane_kernel", "bg_collect_kernel"):
+    for kernel in ("ppo_grad_kernel", "ppo_grad_bf16_kernel",
+                   "sc_lane_kernel", "sc_policy_lane_kernel",
+                   "bg_collect_kernel"):
         rows = _build.ptxas_report(kernel)
         if not rows:
             raise RuntimeError(f"no ptxas report for {kernel}")
@@ -1475,8 +1706,9 @@ def main(argv=None) -> int:
     bge = phase_beergame_episode(B, args.seed)
     dm_errs = []
     dm = phase_demand(B, args.seed, dm_errs)
+    bf = phase_bf16_beergame(args.seed)
 
-    kernels = _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, sc_errs,
+    kernels = _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, sc_errs,
                             bg_errs, pol_errs, pu_errs, ep_errs, dm_errs)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

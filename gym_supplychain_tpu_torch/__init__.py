@@ -1,7 +1,7 @@
 """gym-supplychain-tpu-torch: gym-supplychain-tpu on PyTorch, with
 hand-written CUDA kernels for Hopper (H100).
 
-Five slices are ported.  Rollouts: batched supply-chain and beer-game
+Six slices are ported.  Rollouts: batched supply-chain and beer-game
 environments stepped in lockstep with auto-reset (``envs.vector``), their
 eager step engines (``core``), Philox random streams (``rng.device``) and
 whole-episode trajectory collection (``ops``).  Training: the tanh-Gaussian
@@ -20,7 +20,11 @@ processes: every supply-chain id of the JAX registry (the seasonal
 2-per-stage chain, the per-product demand variants, the one-one-N chain,
 the generic ``supplychain-v0``), their uniform, normal and seasonal demand
 drawn inside the collect kernels (``rng.device.demand_from_uniforms``).
-Entry points run on the card (``device="cuda"``) unless the caller asks
+The bf16 learner and the beer game's learning: ``PPOConfig.learner_dtype``
+(the update kernel's tensor-core bf16 mode, ``ops.ppo_update``), the beer
+game's categorical PPO, greedy evaluator and order-up-to baseline
+(``learn.ppo.make_beergame_ppo``, ``learn.evaluate``,
+``learn.heuristics``, ``learn.compare_baseline_beergame``).  Entry points run on the card (``device="cuda"``) unless the caller asks
 for the CPU.  The JAX package ``gym_supplychain_tpu`` is the reference the
 port is tested against; this package never imports it, nor jax.
 

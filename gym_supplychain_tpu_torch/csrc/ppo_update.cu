@@ -42,36 +42,10 @@
 // G = 66 fills the 132 SMs with 16 warps each.  Products accumulate with
 // fmaf (the library is built with --fmad=false; this kernel matches its
 // plain version to a tolerance, not bit for bit).
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "ppo_update.cuh"
 
-#define PU_THREADS 512
 #define PU_MAXQ 3  // 4x4 weight-gradient blocks a thread holds in registers
 #define PU_MAXB 2  // bias-gradient registers a thread holds
-#define PU_TS 64   // samples a tile
-#define PU_TQ (PU_TS / 4)
-#define PU_LD 68   // row stride of the tile buffers
-#define PU_MAX_L 4
-#define PU_HEADER 10
-#define PU_PER_LAYER 7
-#define PU_LAYOUT_INTS (PU_HEADER + 2 * (PU_MAX_L + 1) * PU_PER_LAYER)
-
-#define PU_LOG_STD_MIN -5.0f
-#define PU_LOG_STD_MAX 2.0f
-#define PU_LOG_2PI 1.8378770664093453f
-#define PU_LN2 0.6931471805599453f
-
-struct PuLayer {
-  int K, J, Jp, w_off, b_off, gw_off, gb_off;
-};
-
-__device__ __forceinline__ PuLayer pu_layer(const int* lay, int net, int l) {
-  const int* r = lay + PU_HEADER + (net * (PU_MAX_L + 1) + l) * PU_PER_LAYER;
-  return PuLayer{r[0], r[1], r[2], r[3], r[4], r[5], r[6]};
-}
-
-__device__ __forceinline__ int pu_pad8(int n) { return (n + 7) & ~7; }
 
 // The 4x4 weight-gradient blocks of all layers, block (jb, kb) of layer l
 // numbered jb + kb * ceil(J/4) after the blocks of the layers before it,
@@ -243,56 +217,6 @@ __device__ __forceinline__ void pu_grad_accum(float (&g)[PU_MAXQ][16],
   }
 }
 
-__device__ __forceinline__ float pu_softplus(float x) {
-  return fmaxf(x, 0.0f) + log1pf(expf(-fabsf(x)));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool valid) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait1() {
-  asm volatile("cp.async.wait_group 1;\n" ::);
-}
-
-// Input slot of a tile: obs rows [0, O), pre rows [R0, R0 + A), then
-// old_logp, adv, ret rows; ragged samples (m >= M) are zero-filled.
-__device__ __forceinline__ void pu_fetch(float* slot, int net, int O, int A,
-                                         int R0, int m0, int M,
-                                         const float* obs, const float* pre,
-                                         const float* old_logp,
-                                         const float* adv, const float* ret) {
-  const int rows = net ? O + 1 : O + A + 2;
-  for (int e = threadIdx.x; e < rows * PU_TS; e += PU_THREADS) {
-    const int r = e / PU_TS, t = e % PU_TS, m = m0 + t;
-    const bool valid = m < M;
-    const size_t mm = valid ? (size_t)m : 0;
-    const float* src;
-    int dr;
-    if (r < O) {
-      src = obs + (size_t)r * M + mm;
-      dr = r;
-    } else if (net) {
-      src = ret + mm;
-      dr = R0 + A + 2;
-    } else if (r < O + A) {
-      src = pre + (size_t)(r - O) * M + mm;
-      dr = R0 + r - O;
-    } else {
-      src = (r == O + A ? old_logp : adv) + mm;
-      dr = R0 + A + (r - O - A);
-    }
-    cp_async4(slot + dr * PU_LD + t, src, valid);
-  }
-}
-
 __global__ void __launch_bounds__(PU_THREADS, 1)
 ppo_grad_kernel(const int* __restrict__ glay, const float* __restrict__ gw,
                 const float* __restrict__ obs, const float* __restrict__ pre,
@@ -339,7 +263,6 @@ ppo_grad_kernel(const int* __restrict__ glay, const float* __restrict__ gw,
     *q = 0.0f;
   __syncthreads();
 
-  const float lo = 1.0f - clip, hi = 1.0f + clip;
   const int nT = (M + PU_TS - 1) / PU_TS;
   const int t0 = (int)((long long)g * nT / G);
   const int t1 = (int)((long long)(g + 1) * nT / G);
@@ -383,77 +306,9 @@ ppo_grad_kernel(const int* __restrict__ glay, const float* __restrict__ gw,
     __syncthreads();
 
     // ---- per-sample loss terms and the head's output gradient -------------
-    if (net == 0) {
-      for (int e = tid; e < A * PU_TS; e += PU_THREADS) {
-        const int i = e / PU_TS, t = e % PU_TS;
-        const float mu = hbuf[i * PU_LD + t];
-        const float ls = fminf(fmaxf(W[ls_woff + i], PU_LOG_STD_MIN),
-                               PU_LOG_STD_MAX);
-        const float sd = expf(ls);
-        const float pr = pres[i * PU_LD + t];
-        const float z = (pr - mu) / sd;
-        const float gg = -0.5f * (z * z + 2.0f * ls + PU_LOG_2PI);
-        const float corr = 2.0f * (PU_LN2 - pr - pu_softplus(-2.0f * pr));
-        term[i * PU_LD + t] = gg - corr;
-        zb[i * PU_LD + t] = z;
-      }
-      __syncthreads();
-      if (tid < PU_TS) {
-        const int t = tid;
-        const bool valid = m0 + t < M;
-        float lp = 0.0f, musq = 0.0f;
-        for (int i = 0; i < A; ++i) {
-          const float mu = hbuf[i * PU_LD + t];
-          lp += term[i * PU_LD + t];
-          musq = fmaf(mu, mu, musq);
-        }
-        const float olp = olps[t], ad = advs[t];
-        const float ratio = expf(lp - olp);
-        const float u = ratio * ad;
-        const float w = fminf(fmaxf(ratio, lo), hi) * ad;
-        const float loss_t =
-            -fminf(u, w) * inv_m + ent_coef * lp * inv_m + c_reg * musq;
-        // d loss / d logp: the clipped-surrogate branch plus the entropy bonus
-        const bool inside = ratio > lo && ratio < hi;
-        const float sel = u <= w ? ad : (inside ? ad : 0.0f);
-        dl[t] = valid ? (-sel * ratio + ent_coef) * inv_m : 0.0f;
-        lossbuf[t] = valid ? loss_t : 0.0f;
-      }
-      __syncthreads();
-      for (int e = tid; e < A * PU_TS; e += PU_THREADS) {
-        const int i = e / PU_TS, t = e % PU_TS;
-        const bool valid = m0 + t < M;
-        const float ls = fminf(fmaxf(W[ls_woff + i], PU_LOG_STD_MIN),
-                               PU_LOG_STD_MAX);
-        const float sd = expf(ls);
-        const float dlogp = dl[t];
-        const float z = zb[i * PU_LD + t];
-        const float mu = hbuf[i * PU_LD + t];
-        hbuf[i * PU_LD + t] = valid ? dlogp * z / sd + c_dreg * mu : 0.0f;
-        zb[i * PU_LD + t] = valid ? dlogp * (z * z - 1.0f) : 0.0f;
-      }
-    } else if (tid < PU_TS) {
-      const int t = tid;
-      const bool valid = m0 + t < M;
-      const float vres = hbuf[t] - rets[t];
-      lossbuf[t] = valid ? 0.5f * c_vf * vres * vres : 0.0f;
-      hbuf[t] = valid ? c_vf * vres : 0.0f;
-    }
-    __syncthreads();
-    if (tid < 32) {  // the tile's loss, a fixed shuffle tree
-      float v = lossbuf[tid] + lossbuf[tid + 32];
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        v += __shfl_xor_sync(0xffffffffu, v, off);
-      if (tid == 0) loss_acc += v;
-    }
-    if (net == 0 && tid < A) {
-      // log_std, through its clip gate: d logp / d ls = z^2 - 1
-      const float raw = W[ls_woff + tid];
-      float s = 0.0f;
-      for (int t = 0; t < PU_TS; ++t) s += zb[tid * PU_LD + t];
-      if (raw > PU_LOG_STD_MIN && raw < PU_LOG_STD_MAX) gls += s;
-    }
+    pu_tile_loss(net, A, W + ls_woff, hbuf, zb, term, pres, olps, advs, rets,
+                 m0, M, clip, inv_m, c_vf, ent_coef, c_reg, c_dreg, dl,
+                 lossbuf, loss_acc, gls);
 
     // ---- backward, from the head down ---------------------------------------
     const float* dY = hbuf;
@@ -514,16 +369,6 @@ ppo_grad_kernel(const int* __restrict__ glay, const float* __restrict__ gw,
   } else if (tid == 0) {
     row[P - 1] = loss_acc;
   }
-}
-
-// out[p] = sum_g part[g][p], g in order
-__global__ void ppo_reduce_kernel(const float* __restrict__ part, int G, int P,
-                                  float* __restrict__ out) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= P) return;
-  float s = 0.0f;
-  for (int g = 0; g < G; ++g) s += part[(size_t)g * P + p];
-  out[p] = s;
 }
 
 extern "C" int ppo_layout_ints() { return PU_LAYOUT_INTS; }

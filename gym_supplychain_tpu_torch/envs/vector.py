@@ -23,7 +23,8 @@ from ..core.step import EnvState, StepOutput, make_supplychain_kernels
 from ..rng.device import philox_uniform
 
 __all__ = ["VecState", "make_vec_env", "VecSupplyChainEnv",
-           "make_beergame_table_draw", "VecBeerGameEnv"]
+           "beergame_table_config", "make_beergame_table_draw",
+           "VecBeerGameEnv"]
 
 
 class VecState(NamedTuple):
@@ -115,6 +116,38 @@ def _is_range(x):
     """The reference's stochastic-range dispatch: a 2-element tuple/list is
     a ``randint(low, high)`` range, high exclusive."""
     return isinstance(x, tuple) or (isinstance(x, list) and len(x) == 2)
+
+
+def beergame_table_config(weeks: int, customer_demand, shipment_delays,
+                          device="cuda") -> dict:
+    """The beer game's episode tables as the JAX package's beer-game
+    trainer, evaluator and baseline read their arguments: a
+    2-element tuple (or list) is a ``randint(low, high)`` range drawn per
+    lane and episode; otherwise ``customer_demand`` is a scripted table
+    (default 4 for 4 weeks, then 8; its length sets the weeks) and
+    ``shipment_delays`` a constant delay, with the prepended initial delay
+    2.  Returns ``weeks``, ``max_delay`` (the ring's bound, at least 2),
+    ``max_demand`` (for the observation scale) and ``draw``, the int32
+    ``make_beergame_table_draw`` of these tables on ``device``."""
+    dem_range = customer_demand if _is_range(customer_demand) else None
+    delay_range = shipment_delays if _is_range(shipment_delays) else None
+    demand = delays = None
+    if dem_range is None:
+        demand = np.asarray(customer_demand if customer_demand is not None
+                            else [4] * 4 + [8] * (weeks - 4), np.int32)
+        weeks = len(demand)
+    if delay_range is None:
+        delays = np.full(weeks + 1, shipment_delays, np.int32)
+        delays[0] = 2
+        max_delay = int(delays.max())
+    else:
+        max_delay = max(2, int(delay_range[1]))
+    max_demand = (float(demand.max()) if demand is not None
+                  else float(dem_range[1] - 1))
+    draw = make_beergame_table_draw(weeks, dem_range, delay_range, demand,
+                                    delays, torch.int32, device)
+    return dict(weeks=weeks, max_delay=max_delay, max_demand=max_demand,
+                draw=draw)
 
 
 def make_beergame_table_draw(weeks: int, dem_range=None, delay_range=None,

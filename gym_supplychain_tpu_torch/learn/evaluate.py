@@ -7,7 +7,10 @@ reported as per-env episodic return statistics.  Two engines:
 * ``make_evaluator``: the scan evaluator, a loop over the batched env of
   ``envs/vector.py`` (plain PyTorch, one Philox draw per step);
 * ``make_fused_evaluator``: one launch of the greedy rollout kernel per
-  episode (``ops/supplychain_episode.py``), fed whole-episode tables.
+  episode (``ops/supplychain_episode.py``), fed whole-episode tables;
+* ``make_beergame_evaluator``: greedy (argmax-logits) beer-game episodes of
+  a ``make_beergame_ppo`` policy on the eager engine, fresh per-lane
+  tables each episode.
 
 Episode ``e`` of ``evaluate(params, key, episodes)`` plays the Philox
 episode key ``(seed, n + e)`` for ``key = (seed, n)`` (a seed ``s`` is
@@ -22,6 +25,7 @@ env draws step by step, so the two see the same inputs.  Pairs with
 runs on the card (``--device cuda``, the default; an error where there is
 none) with the kernel engine (``--engine kernel``, the JAX CLI's
 ``pallas``); ``--engine scan`` and ``--device cpu`` select the others.
+The CLI evaluates the supply chains, as the JAX CLI does.
 """
 from __future__ import annotations
 
@@ -30,10 +34,11 @@ import argparse
 import torch
 
 from ..core.compile import CompiledChain
-from ..envs.vector import _as_key, make_vec_env
-from ..models.policy import actor_critic_forward
+from ..envs.vector import _as_key, beergame_table_config, make_vec_env
+from ..models.policy import actor_critic_forward, discrete_forward
 
-__all__ = ["make_evaluator", "make_fused_evaluator", "main"]
+__all__ = ["make_evaluator", "make_fused_evaluator",
+           "make_beergame_evaluator", "main"]
 
 
 def _stats(per_env: torch.Tensor) -> dict:
@@ -106,6 +111,51 @@ def make_fused_evaluator(cc: CompiledChain, batch_size: int,
     return evaluate
 
 
+def make_beergame_evaluator(batch_size: int, levels: int = 4,
+                            weeks: int = 35, max_order: int = 16,
+                            customer_demand=None, shipment_delays=2,
+                            v2: bool = False, max_stock: int = 100,
+                            exceeded_capacity_penalty: int = 100,
+                            dtype=torch.float32, device="cuda"):
+    """Greedy (argmax-logits) evaluation of a ``make_beergame_ppo`` policy:
+    whole fresh episodes, the tables re-drawn per episode (the v2 ranges,
+    or scripted tables), the trainer's observation scale.  Episode ``e`` of
+    ``evaluate(params, key, episodes)`` draws its tables under the Philox
+    key ``(seed, n + e)`` for ``key = (seed, n)`` (a seed ``s`` is ``(s,
+    0)``).  Returns ``evaluate(params, key, episodes=1) -> {mean_return,
+    std_return, min_return, max_return}`` of the per-env episodic return.
+    """
+    from ..core.beergame import make_beergame_kernels
+
+    B, L = batch_size, levels
+    tables = beergame_table_config(weeks, customer_demand, shipment_delays,
+                                   device)
+    weeks, draw = tables["weeks"], tables["draw"]
+    reset_k, step_k, obs_k = make_beergame_kernels(
+        L, weeks, tables["max_delay"], v2=v2, max_stock=max_stock,
+        exceeded_capacity_penalty=exceeded_capacity_penalty,
+        itype=torch.int32, device=device)
+    obs_scale = 1.0 / (4.0 * tables["max_demand"])   # as make_beergame_ppo
+    inv0 = [12] * L
+
+    @torch.no_grad()
+    def evaluate(params, key, episodes: int = 1):
+        seed, n = _as_key(key)
+        per_env = []
+        for e in range(episodes):
+            st = reset_k(*draw((seed, n + e), B), inv0, 4, 4, B)
+            ret = torch.zeros((B,), dtype=torch.float32, device=device)
+            for _ in range(weeks):
+                obs = obs_k(st).to(dtype) * obs_scale
+                logits, _ = discrete_forward(params, obs, L, max_order)
+                st, (_, r, _) = step_k(st, torch.argmax(logits, dim=1))
+                ret += r.to(torch.float32)
+            per_env.append(ret)
+        return _stats(torch.stack(per_env))
+
+    return evaluate
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--env", default="supplychain-ntom-v0")
@@ -124,11 +174,13 @@ def main(argv=None):
                    help="cuda (default; an error where there is no card) or "
                         "cpu")
     args = p.parse_args(argv)
-    from .train import _UNPORTED, device_from_flag
+    from .train import device_from_flag
 
     if args.env.startswith("beergame"):
-        raise SystemExit(f"--env {args.env} (the beer game's evaluator) "
-                         f"{_UNPORTED}")
+        raise SystemExit(f"--env {args.env}: the evaluate CLI evaluates the "
+                         "supply chains, as the JAX package's does; evaluate "
+                         "a beer-game policy with learn.evaluate."
+                         "make_beergame_evaluator")
     device = device_from_flag(args.device)
 
     from .. import make_chain

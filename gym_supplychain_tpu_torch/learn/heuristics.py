@@ -18,7 +18,12 @@ mean_demand * reachable_retailers * (Lavg + 1)`` (times the processing
 ratio at factories), and ``best_base_stock`` grid-searches ``z``.  The
 policy reads the state, not the observation, so it runs as plain PyTorch
 over the batched env (as the JAX package runs it over its env): no kernel
-applies.  The beer game's baseline is not ported yet.
+applies.
+
+The beer game's order-up-to baseline (``make_beergame_base_stock_policy``,
+``beergame_base_stock_runner``, ``best_beergame_base_stock``) orders each
+level up to a target inventory position, reading the true
+``BeerGameState`` on the eager engine.
 """
 from __future__ import annotations
 
@@ -28,11 +33,12 @@ import numpy as np
 import torch
 
 from ..core.compile import CompiledChain
-from ..envs.vector import make_vec_env
+from ..envs.vector import _as_key, beergame_table_config, make_vec_env
 
 __all__ = ["mean_demand", "default_base_stock_targets",
            "make_base_stock_policy", "evaluate_state_policy",
-           "best_base_stock"]
+           "best_base_stock", "make_beergame_base_stock_policy",
+           "beergame_base_stock_runner", "best_beergame_base_stock"]
 
 
 def mean_demand(cc: CompiledChain) -> np.ndarray:
@@ -196,3 +202,101 @@ def best_base_stock(cc: CompiledChain, batch_size: int, key,
               for z in zs}
     best_z = max(scores, key=scores.get)
     return best_z, scores[best_z], scores
+
+
+# ---------------------------------------------------------------------------
+# The beer game's order-up-to baseline
+# ---------------------------------------------------------------------------
+
+def make_beergame_base_stock_policy(levels: int, max_order: int,
+                                    v2: bool = True):
+    """The scripted order-up-to policy over the true ``BeerGameState``: an
+    oracle that sees more than the learned policy's ``inventory - backlog``.
+
+    Per level the inventory position counts what the level owns or is owed:
+    ``inventory - backlog + in-transit shipments + orders_placed + the
+    upstream level's backlog`` (each level is its upstream's only customer;
+    the factory's self-supply pipeline plays the upstream).  The order is
+    ``clip(target - IP, 0, max_order - 1)``; v0 (orders = incoming +
+    action) first subtracts the pass-through incoming, known from the state,
+    v2 orders verbatim.  Returns ``policy(state, targets) -> action [L, B]``
+    with ``targets`` a scalar or ``[L]``; integer arithmetic throughout.
+    """
+    L = levels
+
+    def policy(state, targets):
+        inv = state.inventory                          # [L, B]
+        B = inv.shape[-1]
+        in_transit = state.shipments.sum(dim=0, dtype=inv.dtype)
+        owed = torch.cat([state.backlog[1:],
+                          torch.zeros((1, B), dtype=inv.dtype,
+                                      device=inv.device)], dim=0)
+        ip = inv - state.backlog + in_transit + state.orders_placed + owed
+        tgt = torch.as_tensor(targets, dtype=inv.dtype,
+                              device=inv.device).reshape(-1, 1)
+        want = tgt.expand(L, B) - ip
+        if not v2:
+            # v0 passes the incoming orders through: next week's incoming is
+            # the demand row of this week, then the downstream orders
+            incoming = torch.cat([state.customer_demand[state.week][None],
+                                  state.orders_placed[:-1]], dim=0)
+            want = want - incoming
+        return torch.clamp(want, 0, max_order - 1).to(inv.dtype)
+
+    return policy
+
+
+def beergame_base_stock_runner(batch_size: int, levels: int = 4,
+                               weeks: int = 35, max_order: int = 16,
+                               customer_demand=None, shipment_delays=2,
+                               v2: bool = True, max_stock: int = 100,
+                               exceeded_capacity_penalty: int = 100,
+                               episodes: int = 4, device="cuda"):
+    """``run(targets, key) -> (mean, std)`` of the per-env episodic return
+    of the order-up-to policy over ``episodes`` fresh episodes (tables
+    re-drawn per episode under the Philox keys ``(seed, n + e)``, as
+    ``make_beergame_evaluator`` draws them), shared by every point of a
+    target grid."""
+    from ..core.beergame import make_beergame_kernels
+
+    B, L = batch_size, levels
+    tables = beergame_table_config(weeks, customer_demand, shipment_delays,
+                                   device)
+    weeks, draw = tables["weeks"], tables["draw"]
+    reset_k, step_k, _ = make_beergame_kernels(
+        L, weeks, tables["max_delay"], v2=v2, max_stock=max_stock,
+        exceeded_capacity_penalty=exceeded_capacity_penalty,
+        itype=torch.int32, device=device)
+    policy = make_beergame_base_stock_policy(L, max_order, v2=v2)
+    inv0 = [12] * L
+
+    @torch.no_grad()
+    def run(targets, key):
+        seed, n = _as_key(key)
+        per_env = []
+        for e in range(episodes):
+            st = reset_k(*draw((seed, n + e), B), inv0, 4, 4, B)
+            ret = torch.zeros((B,), dtype=torch.float32, device=device)
+            for _ in range(weeks):
+                st, (_, r, _) = step_k(st, policy(st, targets))
+                ret += r.to(torch.float32)
+            per_env.append(ret)
+        per_env = torch.stack(per_env)
+        return per_env.mean(), per_env.std(correction=0)
+
+    return run
+
+
+def best_beergame_base_stock(batch_size: int, key,
+                             targets: Sequence[int] = tuple(range(4, 41, 2)),
+                             device="cuda", **kwargs):
+    """Grid-search the order-up-to target (one S for every level), every
+    point on the same episodes; returns ``(best_S, (mean, std), {S:
+    mean})``.  ``kwargs`` go to ``beergame_base_stock_runner``."""
+    run = beergame_base_stock_runner(batch_size, device=device, **kwargs)
+    scores, stds = {}, {}
+    for s in targets:
+        m, sd = run(int(s), key)
+        scores[s], stds[s] = float(m), float(sd)
+    best_s = max(scores, key=scores.get)
+    return best_s, (scores[best_s], stds[best_s]), scores

@@ -11,7 +11,14 @@ norm, then Adam with b1 0.9, b2 0.999, eps 1e-8, as optax does).
   gradients with the PPO update kernel (``ops/ppo_update.py``);
 * ``make_ppo`` is the scan trainer: a per-step rollout over the batched env
   of ``envs/vector.py`` with plain PyTorch ops, ``cfg.fused_update`` as
-  above.
+  above;
+* ``make_beergame_ppo`` is the beer game's: categorical heads over order
+  quantities (``DiscreteActorCritic``), a per-step rollout of the eager
+  beer-game engine with fresh per-lane episode tables, autograd updates.
+
+``cfg.learner_dtype = torch.bfloat16`` runs the continuous trainers'
+update in bf16: the trunks under autograd, or the update kernel's bf16
+mode with ``cfg.fused_update``.
 
 A trainer returns ``(init_fn, train_step)``: ``init_fn(seed)`` builds the
 state (an ``ActorCritic``, its ``torch.optim.Adam`` and a
@@ -21,8 +28,7 @@ phases are exposed as ``train_step.collect`` / ``.rollout``, ``.gae``,
 ``.prepare`` (GAE, normalization, update layout), ``.update`` and
 ``.loss``, so a test can feed two trainers the same tables.
 
-Not ported yet: the beer game's discrete trainer (``make_beergame_ppo``),
-the bf16 learner (``learner_dtype``) and the mesh forms of both trainers.
+Not ported yet: the mesh forms of the trainers (multi-process training).
 """
 from __future__ import annotations
 
@@ -31,16 +37,19 @@ from typing import Any, NamedTuple, Tuple
 import torch
 
 from ..core.compile import CompiledChain
-from ..envs.vector import VecState, make_vec_env
-from ..models.policy import (ActorCritic, MLPConfig, actor_critic_forward,
-                             flat_params, tanh_gaussian_logp)
+from ..envs.vector import (VecState, _split, beergame_table_config,
+                           make_vec_env)
+from ..models.policy import (ActorCritic, DiscreteActorCritic, MLPConfig,
+                             actor_critic_forward, categorical_logp_entropy,
+                             discrete_forward, tanh_gaussian_logp)
 from ..ops.ppo_update import fused_ppo_loss, make_ppo_update_grads
 from ..ops.supplychain_collect import (make_supplychain_collect,
                                        philox_tables,
                                        supplychain_collect_plain)
 
 __all__ = ["PPOConfig", "TrainState", "FusedTrainState", "Trajectory",
-           "make_ppo", "make_ppo_fused", "clip_by_global_norm_"]
+           "make_ppo", "make_ppo_fused", "make_beergame_ppo",
+           "clip_by_global_norm_"]
 
 
 class PPOConfig(NamedTuple):
@@ -63,8 +72,10 @@ class PPOConfig(NamedTuple):
     # axis in a fresh order per epoch; advantages are normalized over the
     # whole batch, so minibatches=1 is the full-batch update
     minibatches: int = 1
-    # update-phase trunk dtype; only None (the parameters' float32) is
-    # ported
+    # update-phase compute dtype: None (the parameters' float32) or
+    # torch.bfloat16 (the trunks in bf16 with float32 heads under autograd;
+    # bf16 products with float32 accumulation in the update kernel).  The
+    # rollout's forward is untouched
     learner_dtype: Any = None
     # the update's forward + loss + backward as one CUDA kernel
     # (ops/ppo_update.py); continuous-action trainers only
@@ -81,9 +92,9 @@ class Trajectory(NamedTuple):
 
 
 class TrainState(NamedTuple):
-    params: ActorCritic
+    params: ActorCritic     # DiscreteActorCritic for the beer game
     opt: torch.optim.Optimizer
-    env: VecState
+    env: VecState           # env a BeerGameState for the beer game
     gen: torch.Generator    # on the trainer's device: noise, minibatches
 
 
@@ -93,7 +104,7 @@ class FusedTrainState(NamedTuple):
     gen: torch.Generator    # on the CPU: kernel seeds, minibatches
 
 
-def _adam(params: ActorCritic, cfg: PPOConfig):
+def _adam(params, cfg: PPOConfig):
     return torch.optim.Adam(params.parameters(), lr=cfg.lr,
                             betas=(0.9, 0.999), eps=1e-8)
 
@@ -130,17 +141,22 @@ def _make_gae(cfg: PPOConfig):
     return gae
 
 
-def _make_cont_loss(cfg: PPOConfig):
+def _make_cont_loss(cfg: PPOConfig, forward=None):
     """Clipped-PPO loss for the continuous tanh-Gaussian policy over
     sample-trailing arrays (``obs [obs_dim, M]``, ``pre [A, M]``, the rest
     ``[M]``; advantages already normalized).  ``params`` is an
-    ``ActorCritic`` or its flat list."""
-    if cfg.learner_dtype is not None:
-        raise NotImplementedError("learner_dtype: only the float32 learner "
-                                  "is ported")
+    ``ActorCritic`` or its flat list.  ``forward(params, obs)`` defaults to
+    ``actor_critic_forward`` in ``cfg.learner_dtype``."""
+    if cfg.learner_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"learner_dtype {cfg.learner_dtype}: None or "
+                         "torch.bfloat16")
+    if forward is None:
+        def forward(params, obs):
+            return actor_critic_forward(params, obs,
+                                        compute_dtype=cfg.learner_dtype)
 
     def loss(params, obs, pre, old_logp, adv, ret):
-        mu, log_std, value = actor_critic_forward(params, obs)
+        mu, log_std, value = forward(params, obs)
         logp = tanh_gaussian_logp(pre, mu, log_std)
         ratio = torch.exp(logp - old_logp)
         pg = -torch.minimum(
@@ -199,14 +215,15 @@ def _make_update(cfg: PPOConfig, loss_fn, dims=None):
             grads_fns[sz] = make_ppo_update_grads(
                 dims[0], dims[1], cfg.hidden, sz, clip=cfg.clip,
                 vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef,
-                pre_tanh_reg=cfg.pre_tanh_reg)
+                pre_tanh_reg=cfg.pre_tanh_reg,
+                compute_dtype=cfg.learner_dtype)
         if generator is None or mb == 1:
             order = list(range(mb)) * cfg.epochs
         else:
             order = [i for _ in range(cfg.epochs)
                      for i in torch.randperm(mb, generator=generator,
                                              device=generator.device).tolist()]
-        leaves = flat_params(params)
+        leaves = params.flat()
         losses = []
         for i in order:
             chunk = data if mb == 1 else tuple(
@@ -395,3 +412,119 @@ def make_ppo_fused(cc: CompiledChain, batch_size: int,
     train_step.update = _update
     train_step.draw_seed = _draw_seed
     return init_fn, train_step
+
+
+def make_beergame_ppo(batch_size: int, cfg: PPOConfig = PPOConfig(),
+                      levels: int = 4, weeks: int = 35, max_order: int = 16,
+                      customer_demand=None, shipment_delays=2,
+                      initial_inventory: int = 12, v2: bool = False,
+                      max_stock: int = 100,
+                      exceeded_capacity_penalty: int = 100,
+                      dtype=torch.float32, reward_scale: float = 1e-2,
+                      device="cuda"):
+    """PPO for the beer game's MultiDiscrete action space: one categorical
+    head per level over ``max_order`` order quantities
+    (``DiscreteActorCritic``).
+
+    The rollout steps the eager beer-game engine (``core/beergame.py``)
+    ``cfg.rollout_steps`` weeks through continuous episodes; at each episode
+    boundary the lanes restart on fresh tables from
+    ``make_beergame_table_draw``, whose Philox key ``(seed, n)`` rides in
+    ``TrainState.env.key``.  ``customer_demand`` / ``shipment_delays`` take
+    the reference v2's 2-element ``randint`` ranges (per-lane tables each
+    episode) or scripted values.  Actions are drawn from the state's
+    generator (Gumbel-max); the update is autograd of the categorical PPO
+    loss (``cfg.fused_update`` and ``cfg.learner_dtype`` are the continuous
+    trainers'; they raise here).  ``init_fn(seed) -> TrainState``,
+    ``train_step`` as ``make_ppo``'s.
+    """
+    from ..core.beergame import make_beergame_kernels
+
+    if cfg.learner_dtype is not None:
+        raise ValueError("learner_dtype: the beer game's learner runs in "
+                         "float32 (its discrete forward has no compute "
+                         "dtype)")
+    device = torch.device(device)
+    B, L = batch_size, levels
+    tables = beergame_table_config(weeks, customer_demand, shipment_delays,
+                                   device)
+    weeks, draw = tables["weeks"], tables["draw"]
+    reset_k, step_k, obs_k = make_beergame_kernels(
+        L, weeks, tables["max_delay"], v2=v2, max_stock=max_stock,
+        exceeded_capacity_penalty=exceeded_capacity_penalty,
+        itype=torch.int32, device=device)
+    obs_scale = 1.0 / (4.0 * tables["max_demand"])     # keep obs O(1)
+    inv0 = [initial_inventory] * L
+    mcfg = MLPConfig(obs_dim=L, act_dim=L, hidden=cfg.hidden)
+
+    def _fresh(key):
+        dem, dly = draw(key, B)
+        return reset_k(dem, dly, inv0, 4, 4, B)
+
+    def _obs(st):
+        return obs_k(st).to(dtype) * obs_scale
+
+    def init_fn(seed) -> TrainState:
+        cpu = torch.Generator().manual_seed(int(seed))
+        params = DiscreteActorCritic(mcfg, max_order, cpu, device)
+        env_seed, noise_seed = torch.randint(0, 2 ** 62, (2,),
+                                             generator=cpu).tolist()
+        gen = torch.Generator(device=device).manual_seed(noise_seed)
+        key, sub = _split((env_seed, 0))
+        return TrainState(params=params, opt=_adam(params, cfg),
+                          env=VecState(key=key, env=_fresh(sub)), gen=gen)
+
+    @torch.no_grad()
+    def _rollout(params, env: VecState, gen: torch.Generator):
+        key, st = env
+        obs = _obs(st)
+        rows = {k: [] for k in Trajectory._fields}
+        for _ in range(cfg.rollout_steps):
+            logits, value = discrete_forward(params, obs, L, max_order)
+            u = torch.rand(logits.shape, generator=gen, device=device)
+            act = torch.argmax(logits - torch.log(-torch.log(u)), dim=1)
+            logp, _ = categorical_logp_entropy(logits, act)
+            st, (_, reward, done) = step_k(st, act)
+            if done:
+                key, sub = _split(key)
+                st = _fresh(sub)
+            for k, v in (("obs", obs), ("act_pre", act), ("logp", logp),
+                         ("reward", reward.to(dtype) * reward_scale),
+                         ("value", value)):
+                rows[k].append(v)
+            rows["done"].append(done)
+            obs = _obs(st)
+        _, last_value = discrete_forward(params, obs, L, max_order)
+        done = torch.tensor(rows.pop("done"), device=device)
+        traj = Trajectory(done=done,
+                          **{k: torch.stack(v) for k, v in rows.items()})
+        return VecState(key=key, env=st), traj, last_value
+
+    _gae = _make_gae(cfg)
+
+    def _loss(params, obs, act, old_logp, adv, ret):
+        logits, value = discrete_forward(params, obs, L, max_order)
+        logp, ent = categorical_logp_entropy(logits, act)
+        ratio = torch.exp(logp - old_logp)
+        pg = -torch.minimum(
+            ratio * adv,
+            torch.clamp(ratio, 1 - cfg.clip, 1 + cfg.clip) * adv).mean()
+        vf = 0.5 * ((value - ret) ** 2).mean()
+        return pg + cfg.vf_coef * vf - cfg.ent_coef * ent.mean(), (pg, vf)
+
+    _update = _make_update(cfg, _loss)
+
+    def train_step(state: TrainState):
+        env, traj, last_value = _rollout(state.params, state.env, state.gen)
+        adv, ret = _gae(traj, last_value)
+        losses = _update(state.params, state.opt,
+                         _flatten_traj(traj, adv, ret), state.gen)
+        return (state._replace(env=env),
+                _metrics(losses, traj, reward_scale))
+
+    train_step.rollout = _rollout
+    train_step.gae = _gae
+    train_step.loss = _loss
+    train_step.update = _update
+    return init_fn, train_step
+

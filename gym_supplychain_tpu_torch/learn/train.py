@@ -9,15 +9,20 @@ error where there is none; ``--device cpu`` asks for the CPU.  On a CUDA
 device the trainer defaults to fused collection (the collect kernel's
 policy mode, ``make_ppo_fused``) and the fused update (the PPO update
 kernel); ``--no-fused`` / ``--no-fused-update`` select the scan trainer and
-autograd.  On the CPU the scan trainer runs.  One JSON line of metrics
-every ``--log-every`` iterations.  ``--checkpoint-dir`` writes the train
-state after the last iteration (``step_<iters>.pt``); ``--restore`` loads
-one before the first (``utils/checkpoint.py``).
+autograd.  On the CPU the scan trainer runs.  ``--learner-dtype bf16``
+runs the update in bf16 (the update kernel's bf16 mode, or the bf16 trunks
+under autograd).  ``--env beergame-v0`` / ``beergame-v2`` trains the beer
+game's categorical policy (``make_beergame_ppo``, autograd updates;
+``--fused``, ``--fused-update`` and ``--learner-dtype`` are the supply
+chains' and stop with an error there).  One JSON line of metrics every
+``--log-every`` iterations.  ``--checkpoint-dir`` writes the train state
+after the last iteration (``step_<iters>.pt``); ``--restore`` loads one
+before the first (``utils/checkpoint.py``).
 
 The flags are those of ``gym_supplychain_tpu.learn.train``, plus
 ``--device``.  Those whose modules are not ported yet (multi-process and
-tensor-parallel training, traces, the bf16 learner, the beer game's
-trainer) stop with an error instead of being ignored.
+tensor-parallel training, traces) stop with an error instead of being
+ignored.
 """
 from __future__ import annotations
 
@@ -46,13 +51,17 @@ def _refuse(args):
         (args.multihost, "--multihost (multi-process training)"),
         (args.model_axis > 1, "--model-axis > 1 (tensor parallelism)"),
         (args.trace_dir, "--trace-dir (device traces)"),
-        (args.learner_dtype == "bf16", "--learner-dtype bf16"),
-        (args.env.startswith("beergame"),
-         f"--env {args.env} (the beer game's discrete trainer)"),
     ]
     for bad, what in checks:
         if bad:
             raise SystemExit(f"{what} {_UNPORTED}")
+    if args.env.startswith("beergame"):
+        for flag, value in (("--fused", args.fused),
+                            ("--fused-update", args.fused_update),
+                            ("--learner-dtype", args.learner_dtype)):
+            if value:
+                raise SystemExit(f"{flag} supports the continuous-action "
+                                 "supply-chain trainers only")
 
 
 def main(argv=None):
@@ -81,7 +90,8 @@ def main(argv=None):
                         "kernel (ops/ppo_update.py).  DEFAULT ON on a CUDA "
                         "device")
     p.add_argument("--learner-dtype", default=None, choices=[None, "bf16"],
-                   help="update-phase trunk compute dtype")
+                   help="update-phase compute dtype (the rollout is "
+                        "unaffected)")
     p.add_argument("--minibatches", type=int, default=1,
                    help="contiguous minibatches per PPO epoch")
     p.add_argument("--multihost", action="store_true")
@@ -100,32 +110,40 @@ def main(argv=None):
     from .. import make_chain
     from ..utils.checkpoint import restore_checkpoint, save_checkpoint
     from ..utils.profiling import Throughput, log_metrics
-    from .ppo import PPOConfig, make_ppo, make_ppo_fused
+    from .ppo import PPOConfig, make_beergame_ppo, make_ppo, make_ppo_fused
 
     device = device_from_flag(args.device)
-    on_cuda = device.type == "cuda"
+    supplychain = not args.env.startswith("beergame")
     if args.fused is None:
-        args.fused = on_cuda
+        args.fused = supplychain and device.type == "cuda"
     if args.fused_update is None:
-        args.fused_update = on_cuda
+        args.fused_update = supplychain and device.type == "cuda"
     cfg = PPOConfig(rollout_steps=args.rollout_steps, epochs=args.epochs,
                     lr=args.lr, hidden=tuple(args.hidden),
                     minibatches=args.minibatches,
+                    learner_dtype=(torch.bfloat16
+                                   if args.learner_dtype == "bf16" else None),
                     fused_update=args.fused_update)
     print(f"# engine: device={device} fused_collect={bool(args.fused)} "
-          f"fused_update={bool(args.fused_update)}")
-    cc = make_chain(args.env, total_time_steps=args.horizon)
-    if args.fused:
+          f"fused_update={bool(args.fused_update)} "
+          f"learner_dtype={args.learner_dtype or 'float32'}")
+    if not supplychain:
+        init_fn, train_step = make_beergame_ppo(
+            args.envs, cfg, v2=args.env.endswith("v2"), device=device)
+        steps_per_iter = cfg.rollout_steps
+    elif args.fused:
+        cc = make_chain(args.env, total_time_steps=args.horizon)
         init_fn, train_step = make_ppo_fused(cc, args.envs, cfg,
                                              episodes=args.fused_episodes,
                                              device=device)
         steps_per_iter = args.horizon * args.fused_episodes
     else:
+        cc = make_chain(args.env, total_time_steps=args.horizon)
         init_fn, train_step = make_ppo(cc, args.envs, cfg, device=device)
         steps_per_iter = cfg.rollout_steps
 
     def sync():
-        if on_cuda:
+        if device.type == "cuda":
             torch.cuda.synchronize(device)
 
     state = init_fn(args.seed)

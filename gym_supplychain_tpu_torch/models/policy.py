@@ -11,6 +11,10 @@ The flat order of ``ActorCritic.flat()`` is the JAX package's
 ``_flat_actor_critic`` (``ops/supplychain_pallas.py``): actor trunk
 ``(w, b)`` pairs and the ``mu`` head, critic trunk and the ``v`` head, then
 ``log_std``.  The CUDA kernels take their weights in that order.
+
+``DiscreteActorCritic`` is the beer game's MultiDiscrete counterpart
+(``init_discrete_actor_critic``): the same trunks with a ``logits`` head of
+``act_dim * n_choices`` rows in place of ``mu`` and ``log_std``.
 """
 from __future__ import annotations
 
@@ -22,9 +26,11 @@ import torch
 from torch import nn
 
 __all__ = ["MLPConfig", "ActorCritic", "actor_critic_forward",
-           "tanh_gaussian_logp", "tanh_gaussian_terms",
-           "sample_tanh_gaussian", "softplus", "flat_params", "split_params",
-           "params_from_jax", "params_to_numpy", "LOG_STD_MIN",
+           "DiscreteActorCritic", "discrete_forward",
+           "categorical_logp_entropy", "tanh_gaussian_logp",
+           "tanh_gaussian_terms", "sample_tanh_gaussian", "softplus",
+           "flat_params", "split_params", "params_from_jax",
+           "discrete_params_from_jax", "params_to_numpy", "LOG_STD_MIN",
            "LOG_STD_MAX"]
 
 LOG_STD_MIN, LOG_STD_MAX = -5.0, 2.0
@@ -61,24 +67,12 @@ class ActorCritic(nn.Module):
         self.cfg = MLPConfig(cfg.obs_dim, cfg.act_dim, tuple(cfg.hidden))
         if not self.cfg.hidden:
             raise ValueError("the actor-critic needs at least one hidden layer")
-        self.actor = nn.ModuleList()
-        n_in = cfg.obs_dim
-        for h in self.cfg.hidden:
-            self.actor.append(Dense(h, n_in))
-            n_in = h
+        self.actor, n_in = _trunk(cfg.obs_dim, self.cfg.hidden)
         self.mu = Dense(cfg.act_dim, n_in)
-        self.critic = nn.ModuleList()
-        n_in = cfg.obs_dim
-        for h in self.cfg.hidden:
-            self.critic.append(Dense(h, n_in))
-            n_in = h
+        self.critic, _ = _trunk(cfg.obs_dim, self.cfg.hidden)
         self.v = Dense(1, n_in)
         self.log_std = nn.Parameter(torch.full((cfg.act_dim, 1), -0.5))
-        with torch.no_grad():
-            for layer, scale in self._init_order():
-                n_out, n_in = layer.w.shape
-                w = torch.randn((n_out, n_in), generator=generator)
-                layer.w.copy_(w * scale / math.sqrt(n_in))
+        _init_dense(self._init_order(), generator)
         self.to(device)
 
     def _init_order(self):
@@ -97,6 +91,86 @@ class ActorCritic(nn.Module):
 
     def forward(self, obs):
         return actor_critic_forward(self, obs)
+
+
+def _trunk(n_in: int, hidden):
+    """Dense layers of widths ``hidden`` from ``n_in`` inputs -> (layers,
+    the last width)."""
+    layers = nn.ModuleList()
+    for h in hidden:
+        layers.append(Dense(h, n_in))
+        n_in = h
+    return layers, n_in
+
+
+def _init_dense(order, generator):
+    """``w ~ N(0, 1) * scale / sqrt(n_in)`` for each ``(layer, scale)``, in
+    order, from ``generator`` on the CPU."""
+    with torch.no_grad():
+        for layer, scale in order:
+            n_out, n_in = layer.w.shape
+            w = torch.randn((n_out, n_in), generator=generator)
+            layer.w.copy_(w * scale / math.sqrt(n_in))
+
+
+class DiscreteActorCritic(nn.Module):
+    """Actor-critic for a MultiDiscrete action space (the beer game's order
+    quantities): ``cfg.act_dim`` independent categoricals of ``n_choices``
+    options each from a ``logits`` head ``[act_dim * n_choices, n_in]`` on
+    the actor trunk, and the ``v`` head on the critic trunk.  The trunks may
+    be empty (``hidden=()``: the heads read the obs).
+
+    Initialised as ``init_discrete_actor_critic`` does: the trunks and ``v``
+    as ``ActorCritic``'s, ``logits.w ~ N(0, 1) * 0.01 / sqrt(n_in)``, zero
+    biases, from ``generator`` on the CPU.  ``flat()`` orders the
+    parameters actor trunk, ``logits``, critic trunk, ``v``.
+    """
+
+    def __init__(self, cfg: MLPConfig, n_choices: int,
+                 generator: torch.Generator = None, device="cuda"):
+        super().__init__()
+        self.cfg = MLPConfig(cfg.obs_dim, cfg.act_dim, tuple(cfg.hidden))
+        self.n_choices = int(n_choices)
+        self.actor, n_in = _trunk(cfg.obs_dim, self.cfg.hidden)
+        self.logits = Dense(cfg.act_dim * self.n_choices, n_in)
+        self.critic, _ = _trunk(cfg.obs_dim, self.cfg.hidden)
+        self.v = Dense(1, n_in)
+        order = [(layer, 1.0) for pair in zip(self.actor, self.critic)
+                 for layer in pair]
+        _init_dense(order + [(self.v, 1.0), (self.logits, 0.01)], generator)
+        self.to(device)
+
+    def flat(self):
+        flat = []
+        for layer in (*self.actor, self.logits, *self.critic, self.v):
+            flat += [layer.w, layer.b]
+        return flat
+
+    def forward(self, obs):
+        return discrete_forward(self, obs, self.cfg.act_dim, self.n_choices)
+
+
+def discrete_forward(params: DiscreteActorCritic, obs, act_dim: int,
+                     n_choices: int):
+    """obs [obs_dim, B] -> (logits [act_dim, n_choices, B], value [B])."""
+    a = c = obs
+    for layer in params.actor:
+        a = torch.tanh(layer.w @ a + layer.b)
+    for layer in params.critic:
+        c = torch.tanh(layer.w @ c + layer.b)
+    logits = params.logits.w @ a + params.logits.b
+    v = (params.v.w @ c + params.v.b)[0]
+    return logits.reshape(act_dim, n_choices, -1), v
+
+
+def categorical_logp_entropy(logits, act):
+    """logits [A, n, B], act [A, B] int -> (logp [B], entropy [B]): the
+    log-probability summed over the independent action dims, and the sum of
+    their exact categorical entropies."""
+    logp_all = torch.log_softmax(logits, dim=1)
+    logp_act = torch.gather(logp_all, 1, act.long()[:, None, :])[:, 0]
+    ent = -(torch.exp(logp_all) * logp_all).sum(dim=1)
+    return logp_act.sum(dim=0), ent.sum(dim=0)
 
 
 def flat_params(params):
@@ -120,20 +194,29 @@ def split_params(params):
             flat[-1])
 
 
-def actor_critic_forward(params, obs):
+def actor_critic_forward(params, obs, compute_dtype=None):
     """obs [obs_dim, B] -> (mu [A, B], log_std [A, 1], value [B]).
 
-    ``params`` is an ``ActorCritic`` or its flat list; every tensor is used
-    in its own dtype (the JAX package's ``compute_dtype=None``)."""
+    ``params`` is an ``ActorCritic`` or its flat list.  ``compute_dtype``
+    (``torch.bfloat16``) runs the trunks' products, biases and ``tanh`` in
+    that dtype and hands their outputs back in the parameters' dtype; the
+    ``mu`` and ``v`` heads and ``log_std`` stay in the parameters' dtype,
+    as the JAX package's XLA path keeps them (the update kernel's bf16 mode
+    rounds the heads' operands too: ``ops/ppo_update.py``).  ``None`` uses
+    every tensor in its own dtype (the rollout path)."""
     actor, mu_l, critic, v_l, log_std = split_params(params)
-    a = c = obs
+    a = c = obs if compute_dtype is None else obs.to(compute_dtype)
     for w, b in actor:
-        a = torch.tanh(w @ a + b)
+        a = torch.tanh(_cast(w, compute_dtype) @ a + _cast(b, compute_dtype))
     for w, b in critic:
-        c = torch.tanh(w @ c + b)
-    mu = mu_l[0] @ a + mu_l[1]
-    v = (v_l[0] @ c + v_l[1])[0]
+        c = torch.tanh(_cast(w, compute_dtype) @ c + _cast(b, compute_dtype))
+    mu = mu_l[0] @ a.to(mu_l[0].dtype) + mu_l[1]
+    v = (v_l[0] @ c.to(v_l[0].dtype) + v_l[1])[0]
     return mu, torch.clamp(log_std, LOG_STD_MIN, LOG_STD_MAX), v
+
+
+def _cast(x, dtype):
+    return x if dtype is None else x.to(dtype)
 
 
 def softplus(x):
@@ -167,6 +250,21 @@ def sample_tanh_gaussian(generator: torch.Generator, mu, log_std):
     return torch.tanh(pre), tanh_gaussian_logp(pre, mu, log_std)
 
 
+def _pairs(layers):
+    return [x for layer in layers for x in (layer["w"], layer["b"])]
+
+
+def _load(model, src):
+    """Copy the arrays ``src`` into ``model.flat()``, shape for shape."""
+    with torch.no_grad():
+        for p, x in zip(model.flat(), src, strict=True):
+            x = np.array(x, np.float32)
+            if x.shape != tuple(p.shape):
+                raise ValueError(f"shape {x.shape}, expected {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(x))
+    return model
+
+
 def params_from_jax(tree, device="cuda") -> ActorCritic:
     """An ``ActorCritic`` holding the values of an ``init_actor_critic``
     tree (numpy or JAX arrays: ``{"actor": [{"w", "b"}], "critic": [...],
@@ -175,30 +273,45 @@ def params_from_jax(tree, device="cuda") -> ActorCritic:
     obs_dim = int(np.shape(tree["actor"][0]["w"])[1])
     act_dim = int(np.shape(tree["mu"]["w"])[0])
     model = ActorCritic(MLPConfig(obs_dim, act_dim, hidden), device="cpu")
-    src = []
-    for layer in tree["actor"]:
-        src += [layer["w"], layer["b"]]
-    src += [tree["mu"]["w"], tree["mu"]["b"]]
-    for layer in tree["critic"]:
-        src += [layer["w"], layer["b"]]
-    src += [tree["v"]["w"], tree["v"]["b"], tree["log_std"]]
-    with torch.no_grad():
-        for p, x in zip(model.flat(), src):
-            x = np.array(x, np.float32)
-            if x.shape != tuple(p.shape):
-                raise ValueError(f"shape {x.shape}, expected {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(x))
-    return model.to(device)
+    src = (_pairs(tree["actor"]) + _pairs([tree["mu"]])
+           + _pairs(tree["critic"]) + _pairs([tree["v"]]) + [tree["log_std"]])
+    return _load(model, src).to(device)
+
+
+def discrete_params_from_jax(tree, n_choices: int,
+                             device="cuda") -> DiscreteActorCritic:
+    """A ``DiscreteActorCritic`` holding the values of an
+    ``init_discrete_actor_critic`` tree (``"logits"`` in place of ``"mu"``
+    and ``"log_std"``) of ``n_choices`` options an action dim."""
+    hidden = tuple(int(np.shape(layer["w"])[0]) for layer in tree["actor"])
+    rows, n_in = np.shape(tree["logits"]["w"])
+    obs_dim = int(np.shape(tree["actor"][0]["w"])[1]) if hidden else n_in
+    if rows % n_choices:
+        raise ValueError(f"{rows} logits rows is no multiple of "
+                         f"{n_choices} choices")
+    model = DiscreteActorCritic(
+        MLPConfig(obs_dim, rows // n_choices, hidden), n_choices,
+        device="cpu")
+    src = (_pairs(tree["actor"]) + _pairs([tree["logits"]])
+           + _pairs(tree["critic"]) + _pairs([tree["v"]]))
+    return _load(model, src).to(device)
 
 
 def params_to_numpy(params) -> dict:
-    """The JAX package's parameter tree, as float32 numpy arrays (copies,
+    """The JAX package's parameter tree of an ``ActorCritic`` (or its flat
+    list) or a ``DiscreteActorCritic``, as float32 numpy arrays (copies,
     not views of the parameters)."""
-    actor, mu_l, critic, v_l, log_std = split_params(params)
-
     def n(x):
         return x.detach().cpu().numpy().copy()
 
+    def dense(layer):
+        return {"w": n(layer.w), "b": n(layer.b)}
+
+    if isinstance(params, DiscreteActorCritic):
+        return {"actor": [dense(layer) for layer in params.actor],
+                "critic": [dense(layer) for layer in params.critic],
+                "logits": dense(params.logits), "v": dense(params.v)}
+    actor, mu_l, critic, v_l, log_std = split_params(params)
     return {"actor": [{"w": n(w), "b": n(b)} for w, b in actor],
             "critic": [{"w": n(w), "b": n(b)} for w, b in critic],
             "mu": {"w": n(mu_l[0]), "b": n(mu_l[1])},

@@ -6,10 +6,12 @@ and read with ``torch.load(..., weights_only=True)``, so it holds tensors
 and plain containers only:
 
     {"format": "gst-torch-ckpt-v1", "step": N, "kind": "TrainState" or
-     "FusedTrainState", "mlp": {"obs_dim", "act_dim", "hidden"},
+     "FusedTrainState", "mlp": {"obs_dim", "act_dim", "hidden"} and, for
+     the beer game's ``DiscreteActorCritic``, "n_choices",
      "params": the actor-critic's state dict, "opt": Adam's state dict,
      "gen": {"device", "state"}, "env": the scan trainer's ``VecState`` as
-     a dict (None for the fused trainer)}
+     a dict, its env an ``EnvState`` or the beer game's ``BeerGameState``
+     (None for the fused trainer)}
 
 The generator's state and the env's Philox keys (``VecState.key``,
 ``EnvState.ep_key``) are in it, so a resumed run continues the same random
@@ -22,9 +24,10 @@ from typing import Any
 
 import torch
 
+from ..core.beergame import BeerGameState
 from ..core.step import EnvState
 from ..envs.vector import VecState
-from ..models.policy import ActorCritic, MLPConfig
+from ..models.policy import ActorCritic, DiscreteActorCritic, MLPConfig
 
 __all__ = ["FORMAT", "save_checkpoint", "restore_checkpoint"]
 
@@ -43,9 +46,13 @@ def _env_from_dict(d: dict, device) -> VecState:
     for k, v in e.items():
         if isinstance(v, torch.Tensor):
             e[k] = v.to(device)
-    if e["ep_key"] is not None:
-        e["ep_key"] = tuple(int(x) for x in e["ep_key"])
-    return VecState(key=tuple(int(x) for x in d["key"]), env=EnvState(**e))
+    if "week" in e:                     # the beer game's state
+        env = BeerGameState(**e)
+    else:
+        if e["ep_key"] is not None:
+            e["ep_key"] = tuple(int(x) for x in e["ep_key"])
+        env = EnvState(**e)
+    return VecState(key=tuple(int(x) for x in d["key"]), env=env)
 
 
 def save_checkpoint(path: str, state: Any, step: int = 0) -> str:
@@ -53,10 +60,13 @@ def save_checkpoint(path: str, state: Any, step: int = 0) -> str:
     ``<path>/step_<step>.pt``; returns the written file."""
     cfg = state.params.cfg
     env = getattr(state, "env", None)
+    mlp = {"obs_dim": cfg.obs_dim, "act_dim": cfg.act_dim,
+           "hidden": list(cfg.hidden)}
+    if isinstance(state.params, DiscreteActorCritic):
+        mlp["n_choices"] = state.params.n_choices
     payload = {
         "format": FORMAT, "step": int(step), "kind": type(state).__name__,
-        "mlp": {"obs_dim": cfg.obs_dim, "act_dim": cfg.act_dim,
-                "hidden": list(cfg.hidden)},
+        "mlp": mlp,
         "params": {k: v.detach().cpu()
                    for k, v in state.params.state_dict().items()},
         "opt": state.opt.state_dict(),
@@ -92,9 +102,9 @@ def restore_checkpoint(path: str, like: Any = None) -> Any:
     same trainer) the parameters, the optimizer state and the generator are
     loaded into ``like``'s objects in place, and the state is returned with
     its env rebuilt on ``like``'s device.  Without it, the result is a dict:
-    ``params`` an ``ActorCritic`` on the CPU rebuilt from the stored
-    ``MLPConfig``, plus ``step``, ``mlp``, ``opt``, ``gen`` and ``env`` as
-    stored.
+    ``params`` an ``ActorCritic`` (a ``DiscreteActorCritic`` where the file
+    holds ``n_choices``) on the CPU rebuilt from the stored ``MLPConfig``,
+    plus ``step``, ``mlp``, ``opt``, ``gen`` and ``env`` as stored.
     """
     path = _resolve(path)
     payload = torch.load(path, map_location="cpu", weights_only=True)
@@ -102,20 +112,24 @@ def restore_checkpoint(path: str, like: Any = None) -> Any:
         raise ValueError(f"{path} is not a {FORMAT} checkpoint")
     mlp = MLPConfig(payload["mlp"]["obs_dim"], payload["mlp"]["act_dim"],
                     tuple(payload["mlp"]["hidden"]))
+    n_choices = payload["mlp"].get("n_choices")
     if like is None:
-        params = ActorCritic(mlp, device="cpu")
+        params = (ActorCritic(mlp, device="cpu") if n_choices is None else
+                  DiscreteActorCritic(mlp, n_choices, device="cpu"))
         params.load_state_dict(payload["params"])
         return {**payload, "params": params, "mlp": mlp}
     if type(like).__name__ != payload["kind"]:
         raise ValueError(f"{path} holds a {payload['kind']}, not a "
                          f"{type(like).__name__}")
-    if like.params.cfg != mlp:
-        raise ValueError(f"{path} holds an actor-critic {mlp}, not "
-                         f"{like.params.cfg}")
+    if (like.params.cfg != mlp
+            or getattr(like.params, "n_choices", None) != n_choices):
+        raise ValueError(f"{path} holds an actor-critic {mlp} with "
+                         f"{n_choices} choices, not {like.params.cfg} with "
+                         f"{getattr(like.params, 'n_choices', None)}")
     like.params.load_state_dict(payload["params"])
     like.opt.load_state_dict(payload["opt"])
     like.gen.set_state(payload["gen"]["state"])
     if payload["env"] is None:
         return like
-    device = like.params.log_std.device
+    device = like.params.v.w.device
     return like._replace(env=_env_from_dict(payload["env"], device))

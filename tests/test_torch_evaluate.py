@@ -202,7 +202,7 @@ def test_train_then_evaluate_cli_on_the_cpu(tmp_path, capsys):
     _stats_close(got["kernel"], got["scan"])
     with pytest.raises(SystemExit, match="trunk"):
         evaluate.main(["--restore", ck, "--hidden", "16", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="not ported"):
+    with pytest.raises(SystemExit, match="make_beergame_evaluator"):
         evaluate.main(["--restore", ck, "--env", "beergame-v0",
                        "--device", "cpu"])
 
@@ -252,7 +252,12 @@ def _constructors():
             supplychain_episode.make_supplychain_episode,
             supplychain_episode.make_supplychain_policy_rollout,
             evaluate.make_evaluator, evaluate.make_fused_evaluator,
-            heuristics.evaluate_state_policy, heuristics.best_base_stock]
+            heuristics.evaluate_state_policy, heuristics.best_base_stock,
+            ppo.make_beergame_ppo, policy.DiscreteActorCritic,
+            policy.discrete_params_from_jax, vector.beergame_table_config,
+            evaluate.make_beergame_evaluator,
+            heuristics.beergame_base_stock_runner,
+            heuristics.best_beergame_base_stock]
 
 
 @pytest.mark.parametrize("fn", _constructors(), ids=lambda f: f.__name__)

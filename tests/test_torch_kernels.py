@@ -335,6 +335,80 @@ def _check_ppo_update_kernel(O, A, hidden, M, model, data):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("O,A,hidden,M", [
+    (27, 14, (37,), 1000 + 37),             # one hidden layer, ragged tail
+    (13, 5, (33, 17, 9), 64 * 7 + 5),       # three odd widths
+    (27, 14, (128, 128), 64 * 40 + 63),     # the trainer's widths
+    (27, 14, (64, 32, 16, 8), 3000),        # four hidden layers
+])
+def test_ppo_update_bf16_kernel_matches_plain_and_repeats(O, A, hidden, M):
+    """The bf16 update kernel (tensor-core products) against its plain bf16
+    version on the same inputs: loss within 1e-3 relative, every gradient
+    tensor within 1e-2 * its max, flat cosine >= 0.9999, its cosine to the
+    float32 kernel no more than 1e-4 below the plain bf16 version's; two
+    launches give the same bits."""
+    from gym_supplychain_tpu_torch.models.policy import (
+        ActorCritic, MLPConfig, actor_critic_forward, tanh_gaussian_logp)
+    from gym_supplychain_tpu_torch.ops import ppo_update as pu
+
+    dev = _device()
+    g = torch.Generator().manual_seed(M)
+    model = ActorCritic(MLPConfig(O, A, hidden), g, device=dev)
+    with torch.no_grad():
+        model.mu.w.mul_(10.0)           # mu beyond +-1: the clip gates matter
+    obs = (torch.rand((O, M), generator=g) * 2 - 1).to(dev)
+    with torch.no_grad():
+        mu, log_std, _ = actor_critic_forward(model, obs)
+        pre = mu + log_std.exp() * torch.randn((A, M), generator=g).to(dev)
+        old = (tanh_gaussian_logp(pre, mu, log_std)
+               + 0.3 * torch.randn((M,), generator=g).to(dev))
+    adv = torch.randn((M,), generator=g).to(dev)
+    ret = torch.randn((M,), generator=g).to(dev)
+    data = (obs, pre, old, adv, ret)
+    gf = pu.make_ppo_update_grads(O, A, hidden, M,
+                                  compute_dtype=torch.bfloat16)
+    before = pu.launch_ppo_update_bf16.launches
+    lk, gk = gf(model, *data)
+    lk2, gk2 = gf(model, *data)
+    assert pu.launch_ppo_update_bf16.launches == before + 2
+    assert torch.equal(lk, lk2) and all(torch.equal(a, b)
+                                        for a, b in zip(gk, gk2))
+    lp, gp = pu.ppo_update_plain(model, *data, compute_dtype=torch.bfloat16)
+    _, g32 = pu.make_ppo_update_grads(O, A, hidden, M)(model, *data)
+    assert abs(float(lk) - float(lp)) <= 1e-3 * abs(float(lp))
+    for a, b in zip(gk, gp):
+        assert float((a - b).abs().max()) <= 1e-2 * float(b.abs().max())
+
+    def flat(gs):
+        return torch.cat([x.reshape(-1).double() for x in gs])
+
+    def cos(a, b):
+        return float(a @ b / (a.norm() * b.norm()))
+
+    assert cos(flat(gk), flat(gp)) >= 0.9999
+    # as near the float32 gradients as the bf16 computation itself
+    assert cos(flat(gk), flat(g32)) >= cos(flat(gp), flat(g32)) - 1e-4
+
+
+@pytest.mark.cuda
+def test_bf16_trainer_launches_the_bf16_update_kernel():
+    from gym_supplychain_tpu_torch.learn.ppo import PPOConfig, make_ppo_fused
+    from gym_supplychain_tpu_torch.ops import ppo_update as pu
+
+    _device()
+    cc = make_chain("supplychain-ntom-v0", total_time_steps=10)
+    init_fn, train_step = make_ppo_fused(
+        cc, 64, PPOConfig(hidden=(16, 16), epochs=2, fused_update=True,
+                          learner_dtype=torch.bfloat16), device="cuda")
+    k2 = pu.launch_ppo_update.launches
+    k2b = pu.launch_ppo_update_bf16.launches
+    state, metrics = train_step(init_fn(0))
+    assert pu.launch_ppo_update_bf16.launches == k2b + 2
+    assert pu.launch_ppo_update.launches == k2
+    assert bool(torch.isfinite(metrics["loss"]))
+
+
+@pytest.mark.cuda
 def test_fused_trainer_launches_both_kernels():
     from gym_supplychain_tpu_torch.learn.ppo import PPOConfig, make_ppo_fused
     from gym_supplychain_tpu_torch.ops import ppo_update as pu
