@@ -12,8 +12,9 @@ with the base-stock baseline beside it, the large-topology benchmark's
 three chains (26, 40 and 8 nodes) at 4096 envs, horizon 360, the
 beer-game episode sweep at 4096 envs, collection, training and
 evaluation on normal and seasonal demand drawn in the kernels, the bf16
-learner (the update kernel's tensor-core mode) and the beer game's
-trainer, evaluator and order-up-to baseline.
+learner (the update kernel's tensor-core mode), the beer game's
+trainer, evaluator and order-up-to baseline, and the host-parity MT19937
+streams with the reference-compatible single envs.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -93,6 +94,22 @@ Phases, in order; any failure exits nonzero:
      at 4096 envs, ``make_beergame_ppo`` on the v2 ranges timed an
      iteration, the greedy evaluator, the order-up-to grid and
      ``compare_baseline_beergame`` at 20 iterations
+  15. the host-parity MT19937 streams: (a) ``supplychain-ntom-v0`` on
+     4096 lanes seeded seed + lane, T = 360, 8 episodes: the native
+     generator's table fill (the phase fails on the NumPy fallback), the
+     eager ``VecSupplyChainEnv(rng_mode="host-lanes")`` and K1 ``actions``
+     on the same tables and scripted actions, at phase 2's gates, both
+     timed (K1 with the fill and upload counted in and without); (b) lanes
+     0, 1 and 4095 of (a)'s first two episodes against
+     ``SupplyChainNtoMEnv(seed=seed + lane)`` on the card (stock
+     bit-equal, obs atol 1e-6); (c) ``VecBeerGameEnv(v2=True,
+     rng_mode="host")`` at 1024 lanes (demand [0, 12), delays [0, 4), 35
+     weeks, 8 episodes) bit-exact against K3 on its tables, lane 0 against
+     ``BeerGameEnv2(seed=seed)``; (d) the committed reference recordings
+     (``tests/data``: the ntom and multiproduct scenarios, the beer game's)
+     through the strict-obs single envs on the card at
+     ``tests/test_recorded_trajectory.py``'s tolerances, single-env
+     steps/s
 The line before the last is a JSON summary of the kernels, each with its
 bound: the larger of the bytes it must move over 3.35 TB/s and the float32
 operations it must do over 67 TFLOP/s, the bf16 K2's over the tensor
@@ -137,6 +154,11 @@ EAGER_STEPS = 10           # phase 11: the eager env's slope, 10 vs 20 steps
 PEAK_FLOPS = 67e12         # H100 SXM float32 outside the tensor cores
 PEAK_BF16 = 989e12         # H100 SXM bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s
+HOST_EPISODES = 8          # phase 15: consecutive episodes of the host streams
+HOST_LANES = (0, 1, ENVS - 1)   # phase 15: lanes held against single envs
+BG_HOST_ENVS = 1024        # phase 15: the beer game's host mode
+REF_OBS_ATOL = 5e-7        # phase 15: the recorded reference's tolerances
+REF_REW_RTOL, REF_REW_ATOL = 1e-6, 1e-2
 
 
 def _cmd(args):
@@ -1551,8 +1573,346 @@ def phase_bf16_beergame(seed):
     return dict(upd=upd, counts=counts, phases=phases)
 
 
-def _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, sc_errs, bg_errs,
-                  pol_errs, pu_errs, ep_errs, dm_errs):
+# the recorded reference episodes phase 15 replays (tests/data/*.npz), with
+# the scenarios' classes, arguments and seeds of tests/fixture_scenarios.py
+# (which builds JAX envs, so it is not imported here)
+_RECORDED_SC = {
+    "ntom_stochastic": (3, "SupplyChainNtoMEnv", dict(total_time_steps=60)),
+    "multiproduct_constant_leadtimes": (
+        1, "SupplyChainMultiProduct", dict(total_time_steps=40)),
+}
+
+
+def _recorded_beergame():
+    """name -> (class, positional args, keyword args, actions per episode):
+    ``beergame_scenarios()`` of tests/fixture_scenarios.py."""
+    import numpy as np
+
+    demand = [3, 7, 1, 9, 5, 2, 8, 6, 4, 10] * 2
+    delays = [2, 0, 1, 3, 0, 2, 1, 0, 3, 2] * 2
+    custom = {'levels': 3, 'customer_demand': demand,
+              'shipment_delays': delays, 'initial_inventory': [5, 8, 11],
+              'inv_cost': 2, 'backlog_cost': 5, 'initial_shipment_value': 3,
+              'initial_orders_value': 2}
+    rs = np.random.RandomState(3)
+    return {
+        "v0_default": ("BeerGameEnv", (), {}, [
+            np.random.RandomState(0).randint(0, 16, size=(35, 4))]),
+        "v0_custom_zero_delays": ("BeerGameEnv", (custom,), {}, [
+            np.random.RandomState(7).randint(0, 12, size=(len(demand), 3))]),
+        "v2_stochastic_streams": ("BeerGameEnv2", (), dict(
+            customer_demand=(0, 12), shipment_delays=(0, 4), max_stock=40,
+            exceeded_capacity_penalty=37, seed=11), [
+            rs.randint(0, 20, size=(35, 4)) for _ in range(3)]),
+    }
+
+
+def _gate(what, ok):
+    if not ok:
+        raise RuntimeError(f"phase 15: {what}")
+
+
+def _host_lanes(B, seed, dev):
+    """Phase 15 (a), (b): ntom on B MT19937 lanes, eager and through K1."""
+    import numpy as np
+    import torch
+    import gym_supplychain_tpu_torch as sct
+    from gym_supplychain_tpu_torch import native
+    from gym_supplychain_tpu_torch.core.step import make_supplychain_kernels
+    from gym_supplychain_tpu_torch.envs.vector import VecSupplyChainEnv
+    from gym_supplychain_tpu_torch.ops import supplychain_collect as scc
+    from gym_supplychain_tpu_torch.ops.supplychain_dense import (
+        dense_descriptor)
+    from gym_supplychain_tpu_torch.rng.host import BatchHostRNG
+
+    cc = sct.make_chain("supplychain-ntom-v0")
+    T, E = cc.T, HOST_EPISODES
+    S = E * T
+    rng = BatchHostRNG(cc, [seed + b for b in range(B)])
+    _gate(f"the native MT19937 generator did not build: "
+          f"{native.build_error()}", rng.backend == "native")
+    tables, fill = [], []
+    for _ in range(E):
+        t0 = time.perf_counter()
+        tables.append(rng.episode_tables())
+        fill.append(1e3 * (time.perf_counter() - t0))
+    # K1 reads row s at step s: an episode's first T demand rows (row T
+    # only feeds the terminal obs, which the auto-reset replaces) and its T
+    # lead-time rows, episode after episode
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    dem = torch.cat([torch.as_tensor(d[:T]).to(dev) for d, _ in tables]
+                    ).to(torch.float32).contiguous()
+    lt = torch.cat([torch.as_tensor(lt).to(dev) for _, lt in tables]
+                   ).to(torch.int32).contiguous()
+    torch.cuda.synchronize(dev)
+    upload_ms = 1e3 * (time.perf_counter() - t0)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    act = 2 * torch.rand((S, cc.A, B), generator=g, device=dev) - 1
+    act[act < -0.5] = -1.0              # some supplies must not fire
+    fill_ms = statistics.mean(fill)
+    print(f"phase 15 (a): supplychain-ntom-v0, {B} MT19937 lanes (seed + "
+          f"lane), T={T}, {E} episodes; tables by the {rng.backend} "
+          f"generator: {fill_ms:.3f} ms an episode (mean of {E}; "
+          f"{', '.join(f'{x:.2f}' for x in fill)}), put on the card "
+          f"{upload_ms:.2f} ms for all {E}")
+
+    run = scc.make_supplychain_collect(cc, T, B, mode="actions", episodes=E,
+                                       device=dev)
+    k_ms, _ = _timed(lambda: run(dem, lt, act), REPS)
+    desc = torch.as_tensor(dense_descriptor(cc), device=dev)
+    k_obs, k_rew, k_stock = scc.launch_supplychain_collect(
+        desc, cc, S, B, "actions", demands=dem, leadtimes=lt, actions=act)
+
+    # the eager host-lanes env on the same streams and actions, its
+    # outputs kept on the card and held against K1's after the timed run
+    vec = VecSupplyChainEnv(cc=cc, batch_size=B, rng_mode="host-lanes",
+                            seed=seed, device=dev)
+    _gate("the host-lanes env's generator is not native",
+          vec.lane_rng.backend == "native")
+    _, step_k, _ = make_supplychain_kernels(cc, device=dev)
+    env_obs = torch.empty_like(k_obs)
+    env_rew = torch.empty_like(k_rew)
+    env_stock = torch.empty((2 * T,) + tuple(k_stock.shape), device=dev)
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    env_obs[0] = vec.reset()
+    for s in range(S - 1):
+        out = vec.step(act[s])
+        env_obs[s + 1] = out.obs
+        env_rew[s] = out.reward
+        if s < 2 * T:
+            env_stock[s] = vec.state.env.stock
+    # the last step through the engine itself: the env's auto-reset would
+    # replace the final stock K1 returns
+    env, out = step_k(vec.state.env, act[S - 1])
+    env_rew[S - 1] = out.reward
+    torch.cuda.synchronize(dev)
+    eager_ms = 1e3 * (time.perf_counter() - t0)
+    o_err, r_err, rew_rel, stock_lanes, finite = _compare(
+        (env_obs, env_rew, env.stock), (k_obs, k_rew, k_stock))
+    k_rate = S * B / k_ms * 1e3
+    with_fill = k_ms + E * fill_ms + upload_ms
+    print(f"  K1 'actions' on the host tables: {k_ms:.3f} ms (median of "
+          f"{REPS}) = {k_rate:.4e} env-steps/s; with the table fill and "
+          f"the upload counted in {with_fill:.3f} ms = "
+          f"{S * B / with_fill * 1e3:.4e} env-steps/s")
+    print(f"  eager host-lanes env: {eager_ms:.1f} ms for {E} episodes "
+          f"(its table fills and uploads included) = "
+          f"{S * B / eager_ms * 1e3:.4e} env-steps/s")
+    print(f"  env against K1: max obs err {o_err:.3e} (tol {OBS_ATOL:g}), "
+          f"max reward err / max|r| {rew_rel:.3e} (tol {REW_RTOL:g}), "
+          f"lanes with divergent stock {stock_lanes}, finite {finite}")
+    _gate("the host-lanes env disagrees with K1 on its tables",
+          o_err <= OBS_ATOL and rew_rel <= REW_RTOL and stock_lanes == 0
+          and finite)
+
+    # (b) lanes against single envs seeded seed + lane, two episodes; row
+    # s of the records is what the env returned after step s
+    scale = float(k_rew.abs().max())
+    lanes = torch.tensor(HOST_LANES, device=dev)
+    first = env_obs[0][:, lanes].cpu().numpy()
+    rec_obs = env_obs[1:2 * T + 1][:, :, lanes].cpu().numpy()
+    rec_rew = env_rew[:2 * T][:, lanes].cpu().numpy()
+    rec_stock = env_stock[..., lanes].cpu().numpy()       # [2T, N, P, lanes]
+    a_host = act[:2 * T][:, :, lanes].cpu().numpy()
+    worst = 0.0
+    n_single = 0
+    t0 = time.perf_counter()
+    for i, b in enumerate(HOST_LANES):
+        single = sct.SupplyChainNtoMEnv(seed=seed + b, dtype=torch.float32,
+                                        device=dev)
+        for ep in range(2):
+            o = single.reset()
+            want = first[:, i] if ep == 0 else rec_obs[T - 1, :, i]
+            worst = max(worst, float(np.abs(o - want).max()))
+            for t in range(T):
+                s = ep * T + t
+                o, r, done, _ = single.step(a_host[s, :, i])
+                n_single += 1
+                _gate(f"lane {b} step {s}: reward {r} against "
+                      f"{rec_rew[s, i]}",
+                      abs(r - rec_rew[s, i]) <= REW_RTOL * scale)
+                if t < T - 1:
+                    worst = max(worst,
+                                float(np.abs(o - rec_obs[s, :, i]).max()))
+                    _gate(f"lane {b} step {s}: stock differs from the "
+                          f"single env's", np.array_equal(
+                              single.state.stock[..., 0].cpu().numpy(),
+                              rec_stock[s, ..., i]))
+            _gate(f"lane {b}: the single env's episode did not end", done)
+    single_s = time.perf_counter() - t0
+    print(f"phase 15 (b): lanes {list(HOST_LANES)} of (a)'s first two "
+          f"episodes against SupplyChainNtoMEnv(seed=seed + lane) on the "
+          f"card: stock bit-equal, max obs err {worst:.3e} (tol "
+          f"{OBS_ATOL:g}); {n_single} single-env steps in {single_s:.2f} s "
+          f"= {n_single / single_s:.1f} steps/s")
+    _gate("a lane disagrees with its single env", worst <= OBS_ATOL)
+    bound = _bound(4 * B * (S * (cc.obs_dim + 1) + cc.N * cc.P)
+                   + 4 * S * B * (cc.R * cc.P + cc.K + cc.A), 0)
+    return dict(ms=k_ms, plain_ms=eager_ms, err=max(o_err, r_err),
+                bound=bound, fill_ms=fill_ms, rate=k_rate,
+                rate_fill=S * B / with_fill * 1e3,
+                eager_rate=S * B / eager_ms * 1e3,
+                single_rate=n_single / single_s)
+
+
+def _host_beergame(seed, dev):
+    """Phase 15 (c): the beer game v2 on per-lane MT19937 streams, eager
+    and through K3, and lane 0 against a single ``BeerGameEnv2``."""
+    import numpy as np
+    import torch
+    import gym_supplychain_tpu_torch as sct
+    from gym_supplychain_tpu_torch.envs.vector import VecBeerGameEnv
+    from gym_supplychain_tpu_torch.ops import beergame_collect as bgc
+
+    B, W, E, L = BG_HOST_ENVS, WEEKS, HOST_EPISODES, 4
+    S = E * W
+    ranges = dict(customer_demand=(0, 12), shipment_delays=(0, 4))
+    vec = VecBeerGameEnv(batch_size=B, v2=True, seed=seed, rng_mode="host",
+                         weeks=W, device=dev, **ranges)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    act = torch.randint(0, 20, (S, L, B), generator=g, device=dev,
+                        dtype=torch.int32)
+    env_obs = torch.empty((S, L, B), dtype=torch.int32, device=dev)
+    env_rew = torch.empty((S, B), dtype=torch.int32, device=dev)
+    dem, dls = [], []
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    first = vec.reset()
+    for e in range(E):
+        # this episode's tables, as the host streams drew them at its reset
+        dem.append(vec.customer_demand)
+        dls.append(vec.shipment_delays[1:])
+        for w in range(W):
+            o, r, _ = vec.step(act[e * W + w])
+            env_obs[e * W + w] = o
+            env_rew[e * W + w] = r
+    torch.cuda.synchronize(dev)
+    eager_ms = 1e3 * (time.perf_counter() - t0)
+    dem = torch.cat(dem).contiguous()
+    dls = torch.cat(dls).contiguous()
+    run = bgc.make_beergame_collect(W, L, B, E, mode="actions", delay=None,
+                                    max_delay=4, v2=True, max_stock=100,
+                                    exceeded_capacity_penalty=100, device=dev)
+    k_ms, (k_obs, k_rew) = _timed(lambda: run(dem, dls, act), REPS)
+    # the env's last week of an episode shows the next episode's first obs
+    inner = torch.arange(S, device=dev) % W != W - 1
+    exact = (torch.equal(k_rew, env_rew)
+             and torch.equal(k_obs[inner], env_obs[inner]))
+    err = float(max((k_rew - env_rew).abs().max(),
+                    (k_obs[inner] - env_obs[inner]).abs().max()))
+    single = sct.BeerGameEnv2(seed=seed, device=dev, **ranges)
+    h_obs, h_rew = env_obs[:, :, 0].cpu().numpy(), env_rew[:, 0].cpu().numpy()
+    first = first[:, 0].cpu().numpy()
+    lane0 = True
+    for e in range(E):
+        o = single.reset()
+        lane0 &= np.array_equal(o, first if e == 0 else h_obs[e * W - 1])
+        for w in range(W):
+            o, r, done, _ = single.step(act[e * W + w, :, 0].cpu().numpy())
+            lane0 &= r == h_rew[e * W + w]
+            if w < W - 1:
+                lane0 &= np.array_equal(o, h_obs[e * W + w])
+        lane0 &= done
+    print(f"phase 15 (c): beergame-v2, demand [0, 12), delays [0, 4), {B} "
+          f"MT19937 lanes (seed + lane), {W} weeks, {E} episodes: eager "
+          f"host env {eager_ms:.1f} ms (table draws included) = "
+          f"{S * B / eager_ms * 1e3:.4e} env-steps/s; K3 on its tables "
+          f"{k_ms:.4f} ms (median of {REPS}) = {S * B / k_ms * 1e3:.4e} "
+          f"env-steps/s; bit-exact {exact} (max err {err:g}); lane 0 equal "
+          f"to BeerGameEnv2(seed=seed) {bool(lane0)}")
+    _gate("the beer game's host env disagrees with K3 or with a single env",
+          exact and lane0)
+    # demand, delays, actions in; obs and reward out, int32
+    bound = _bound(4 * S * B * (3 + 2 * L), 0)
+    return dict(ms=k_ms, plain_ms=eager_ms, err=err, bound=bound,
+                eager_rate=S * B / eager_ms * 1e3, rate=S * B / k_ms * 1e3)
+
+
+def _recorded_on_card(dev):
+    """Phase 15 (d): the committed reference recordings through the port's
+    strict-obs single envs on the card, at the recorded tolerances."""
+    import numpy as np
+    import gym_supplychain_tpu_torch as sct
+
+    data = ROOT / "tests" / "data"
+    sc = np.load(data / "ref_trajectories.npz")
+    steps, worst_obs = 0, 0.0
+    t0 = time.perf_counter()
+    for name, (seed, cls, kw) in _RECORDED_SC.items():
+        env = getattr(sct, cls)(strict_obs=True, device=dev, **kw)
+        env.seed(seed)
+        for ep in range(2):
+            acts = sc[f"{name}/ep{ep}/actions"]
+            ref_obs = sc[f"{name}/ep{ep}/obs"]
+            ref_rew = sc[f"{name}/ep{ep}/rewards"]
+            worst_obs = max(worst_obs, float(np.abs(env.reset()
+                                                    - ref_obs[0]).max()))
+            for t in range(acts.shape[0]):
+                obs, r, done, _ = env.step(acts[t])
+                steps += 1
+                worst_obs = max(worst_obs,
+                                float(np.abs(obs - ref_obs[t + 1]).max()))
+                _gate(f"{name} ep{ep} t={t + 1}: reward {r} against the "
+                      f"recorded {ref_rew[t]}", np.allclose(
+                          r, ref_rew[t], rtol=REF_REW_RTOL,
+                          atol=REF_REW_ATOL))
+            _gate(f"{name} ep{ep}: the episode did not end", done)
+    single_s = time.perf_counter() - t0
+    _gate(f"recorded observations off by {worst_obs:.3e}",
+          worst_obs <= REF_OBS_ATOL)
+    bg = np.load(data / "ref_beergame.npz")
+    weeks = 0
+    for name, (cls, args, kw, episodes) in _recorded_beergame().items():
+        env = getattr(sct, cls)(*args, device=dev, **kw)
+        for ep, acts in enumerate(episodes):
+            key = f"{name}/ep{ep}"
+            _gate(f"{key} reset obs", np.array_equal(env.reset(),
+                                                     bg[f"{key}/obs"][0]))
+            for w in range(acts.shape[0]):
+                obs, r, _, _ = env.step(acts[w])
+                weeks += 1
+                _gate(f"{key} week {w + 1}", np.array_equal(
+                    obs, bg[f"{key}/obs"][w + 1])
+                    and r == bg[f"{key}/rewards"][w])
+            _gate(f"{key} final state", np.array_equal(
+                env.inventory, bg[f"{key}/inventory"]) and np.array_equal(
+                env.backlog, bg[f"{key}/backlog"]))
+    print(f"phase 15 (d): the recorded reference on the card: "
+          f"{', '.join(_RECORDED_SC)} through the strict-obs single envs "
+          f"(2 episodes each, {steps} steps): max obs err {worst_obs:.3e} "
+          f"(tol {REF_OBS_ATOL:g}), rewards within rtol {REF_REW_RTOL:g} "
+          f"atol {REF_REW_ATOL:g}; {steps / single_s:.1f} single-env "
+          f"steps/s; the beer game's {len(_recorded_beergame())} scenarios "
+          f"({weeks} weeks) exact")
+
+
+def phase_host_streams(B, seed, dev="cuda"):
+    """Phase 15: the host-parity MT19937 streams on the card."""
+    import torch
+    from gym_supplychain_tpu_torch.ops import beergame_collect as bgc
+    from gym_supplychain_tpu_torch.ops import supplychain_collect as scc
+
+    dev = torch.device(dev)
+    t0 = time.perf_counter()
+    scc.launch_supplychain_collect.launches = 0
+    bgc.launch_beergame_collect.launches = 0
+    sc = _host_lanes(B, seed, dev)
+    bg = _host_beergame(seed, dev)
+    _recorded_on_card(dev)
+    sc["launches"] = scc.launch_supplychain_collect.launches
+    bg["launches"] = bgc.launch_beergame_collect.launches
+    print(f"  launch counts of phase 15: supplychain_collect "
+          f"{sc['launches']}, beergame_collect {bg['launches']}; phase "
+          f"{time.perf_counter() - t0:.1f} s")
+    _gate("K1 or K3 was not launched",
+          sc["launches"] > 0 and bg["launches"] > 0)
+    return dict(sc=sc, bg=bg)
+
+
+def _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, hs, sc_errs,
+                  bg_errs, pol_errs, pu_errs, ep_errs, dm_errs):
     """The ``kernels`` summary: each kernel with its main-path launches,
     its error against plain, its time, its plain version's and its bound
     at the main path's shapes (no single PyTorch call computes any of these
@@ -1640,6 +2000,16 @@ def _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, sc_errs, bg_errs,
                  "gym_supplychain_tpu/ops/supplychain_pallas_dense.py:470",
                  r["launches"], dm["dense_err"], r["ms"], r["plain_ms"],
                  r["bound"])
+    # phase 15: K1 `actions` and K3 on the host MT19937 tables; the plain
+    # time is the eager host env's over the same episodes
+    r = hs["sc"]
+    line("supplychain_collect[host-lanes supplychain-ntom-v0]",
+         "supplychain_lanes.cu", f"{sc_pallas}:791", r["launches"], r["err"],
+         r["ms"], r["plain_ms"], r["bound"])
+    r = hs["bg"]
+    line("beergame_collect[host beergame-v2]", "beergame_collect.cu",
+         "gym_supplychain_tpu/ops/beergame_pallas.py:149", r["launches"],
+         r["err"], r["ms"], r["plain_ms"], r["bound"])
     return lines
 
 
@@ -1707,9 +2077,11 @@ def main(argv=None) -> int:
     dm_errs = []
     dm = phase_demand(B, args.seed, dm_errs)
     bf = phase_bf16_beergame(args.seed)
+    hs = phase_host_streams(B, args.seed)
 
-    kernels = _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, sc_errs,
-                            bg_errs, pol_errs, pu_errs, ep_errs, dm_errs)
+    kernels = _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, hs,
+                            sc_errs, bg_errs, pol_errs, pu_errs, ep_errs,
+                            dm_errs)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

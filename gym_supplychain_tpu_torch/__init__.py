@@ -1,7 +1,7 @@
 """gym-supplychain-tpu-torch: gym-supplychain-tpu on PyTorch, with
 hand-written CUDA kernels for Hopper (H100).
 
-Six slices are ported.  Rollouts: batched supply-chain and beer-game
+Seven slices are ported.  Rollouts: batched supply-chain and beer-game
 environments stepped in lockstep with auto-reset (``envs.vector``), their
 eager step engines (``core``), Philox random streams (``rng.device``) and
 whole-episode trajectory collection (``ops``).  Training: the tanh-Gaussian
@@ -24,9 +24,15 @@ The bf16 learner and the beer game's learning: ``PPOConfig.learner_dtype``
 (the update kernel's tensor-core bf16 mode, ``ops.ppo_update``), the beer
 game's categorical PPO, greedy evaluator and order-up-to baseline
 (``learn.ppo.make_beergame_ppo``, ``learn.evaluate``,
-``learn.heuristics``, ``learn.compare_baseline_beergame``).  Entry points run on the card (``device="cuda"``) unless the caller asks
-for the CPU.  The JAX package ``gym_supplychain_tpu`` is the reference the
-port is tested against; this package never imports it, nor jax.
+``learn.heuristics``, ``learn.compare_baseline_beergame``).  The
+reference-compatible surface: the host MT19937 streams (``rng.host``, the
+native generator ``native``, ``rng.gym_compat``), the vec envs' host modes,
+the single envs with strict observations (``envs.single``,
+``envs.presets``, ``envs.beergame``), ``make`` over every id and the
+gymnasium adapters (``envs.gym_registry``).  Entry points run on the card
+(``device="cuda"``) unless the caller asks for the CPU.  The JAX package
+``gym_supplychain_tpu`` is the reference the port is tested against; this
+package never imports it, nor jax.
 
 >>> import gym_supplychain_tpu_torch as sct
 >>> from gym_supplychain_tpu_torch.ops.supplychain_collect import (
@@ -37,27 +43,45 @@ port is tested against; this package never imports it, nor jax.
 >>> obs, reward = run(0)            # obs [8*360, obs_dim, 4096]
 """
 from .core.compile import CompiledChain, DemandConfig, compile_chain
-from .envs.presets import (BeerGameSpec, beergame_v0, linear_chain,
-                           multiproduct_chain, multiproduct_inccosts_chain,
-                           multiproduct_v1_chain,
-                           multiproduct_v1_inccosts_chain, nperstage_chain,
-                           ntom_chain, oneonen_chain, supplychain_chain,
-                           twoperstage_chain, twoperstage_seasonal_chain)
+from .envs.beergame import BeerGameEnv, BeerGameEnv2
+from .envs.presets import (
+    BeerGameSpec, SupplyChain2perStageEnv, SupplyChain2perStageSeasonalEnv,
+    SupplyChainLinearEnv, SupplyChainMultiProduct,
+    SupplyChainMultiProduct_DemConfigByProd,
+    SupplyChainMultiProduct_DemConfigByProd_IncCosts,
+    SupplyChainMultiProduct_IncreasingCosts, SupplyChainNPerStage,
+    SupplyChainNtoMEnv, SupplyChainOneOneNEnv, beergame_v0, beergame_v2,
+    linear_chain, multiproduct_chain, multiproduct_inccosts_chain,
+    multiproduct_v1_chain, multiproduct_v1_inccosts_chain, nperstage_chain,
+    ntom_chain, oneonen_chain, supplychain_chain, twoperstage_chain,
+    twoperstage_seasonal_chain)
+from .envs.single import SupplyChainEnv
+from .rng.host import generate_demand
 
+# id -> (configuration builder, env class), in the JAX registry's order
 _REGISTRY = {
-    "supplychain-linear-v0": linear_chain,
-    "supplychain-ntom-v0": ntom_chain,
-    "supplychain-2perstage-v0": twoperstage_chain,
-    "sc-2perstage-v0": twoperstage_chain,
-    "sc-2perstage-multiproduct-v0": multiproduct_chain,
-    "sc-Nperstage-multiproduct-v0": nperstage_chain,
-    "sc-2perstage-multiproduct-inccosts-v0": multiproduct_inccosts_chain,
-    "beergame-v0": beergame_v0,
-    "supplychain-v0": supplychain_chain,
-    "sc-2perstage-seasonal-v0": twoperstage_seasonal_chain,
-    "sc-2perstage-multiproduct-v1": multiproduct_v1_chain,
-    "sc-2perstage-multiproduct-inccosts-v1": multiproduct_v1_inccosts_chain,
-    "supplychain-oneonen-v0": oneonen_chain,
+    # reference ids
+    "beergame-v0": (beergame_v0, BeerGameEnv),
+    "beergame-v2": (beergame_v2, BeerGameEnv2),
+    "supplychain-v0": (supplychain_chain, SupplyChainEnv),
+    "sc-2perstage-v0": (twoperstage_chain, SupplyChain2perStageEnv),
+    "sc-2perstage-seasonal-v0": (twoperstage_seasonal_chain,
+                                 SupplyChain2perStageSeasonalEnv),
+    "sc-2perstage-multiproduct-v0": (multiproduct_chain,
+                                     SupplyChainMultiProduct),
+    "sc-Nperstage-multiproduct-v0": (nperstage_chain, SupplyChainNPerStage),
+    "sc-2perstage-multiproduct-inccosts-v0": (
+        multiproduct_inccosts_chain, SupplyChainMultiProduct_IncreasingCosts),
+    "sc-2perstage-multiproduct-v1": (
+        multiproduct_v1_chain, SupplyChainMultiProduct_DemConfigByProd),
+    "sc-2perstage-multiproduct-inccosts-v1": (
+        multiproduct_v1_inccosts_chain,
+        SupplyChainMultiProduct_DemConfigByProd_IncCosts),
+    # the reference README's topology names
+    "supplychain-linear-v0": (linear_chain, SupplyChainLinearEnv),
+    "supplychain-oneonen-v0": (oneonen_chain, SupplyChainOneOneNEnv),
+    "supplychain-ntom-v0": (ntom_chain, SupplyChainNtoMEnv),
+    "supplychain-2perstage-v0": (twoperstage_chain, SupplyChain2perStageEnv),
 }
 
 
@@ -66,15 +90,34 @@ def registry():
     return tuple(_REGISTRY)
 
 
+def _entry(env_id: str):
+    try:
+        return _REGISTRY[env_id]
+    except KeyError:
+        raise KeyError(f"Unknown env id {env_id!r}; known: "
+                       f"{sorted(_REGISTRY)}") from None
+
+
 def make_chain(env_id: str, **kw):
     """The configuration of ``env_id``: a ``CompiledChain`` for the supply
     chains, a ``BeerGameSpec`` for the beer game."""
-    try:
-        build = _REGISTRY[env_id]
-    except KeyError:
-        raise KeyError(f"Unknown env id {env_id!r}; known: {sorted(_REGISTRY)}")
-    return build(**kw)
+    return _entry(env_id)[0](**kw)
 
 
-__all__ = ["make_chain", "registry", "compile_chain", "CompiledChain",
-           "DemandConfig", "BeerGameSpec"]
+def make(env_id: str, **kw):
+    """A single environment of ``env_id`` (the ``gym.make`` equivalent): the
+    env class's keyword arguments, ``device="cpu"`` for the CPU."""
+    return _entry(env_id)[1](**kw)
+
+
+__all__ = [
+    "make", "make_chain", "registry", "compile_chain", "CompiledChain",
+    "DemandConfig", "BeerGameSpec", "BeerGameEnv", "BeerGameEnv2",
+    "generate_demand", "SupplyChainEnv", "SupplyChain2perStageEnv",
+    "SupplyChain2perStageSeasonalEnv", "SupplyChainMultiProduct",
+    "SupplyChainMultiProduct_IncreasingCosts",
+    "SupplyChainMultiProduct_DemConfigByProd",
+    "SupplyChainMultiProduct_DemConfigByProd_IncCosts",
+    "SupplyChainNPerStage", "SupplyChainLinearEnv", "SupplyChainOneOneNEnv",
+    "SupplyChainNtoMEnv",
+]

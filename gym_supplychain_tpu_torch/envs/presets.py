@@ -1,4 +1,4 @@
-"""Configurations of the ported slices, as compiled chains.
+"""Configurations of the ported slices, as compiled chains and env classes.
 
 The topology builders of the JAX package's ``SupplyChainLinearEnv``,
 ``SupplyChainOneOneNEnv``, ``SupplyChainNtoMEnv``,
@@ -12,6 +12,10 @@ game's defaults.  Values are those of the JAX presets, which mirror the
 reference's README topologies, its ``__main__`` demo, its
 ``SupplyChain2perStageEnv`` (and seasonal variant), its multi-product
 environments and its N-per-stage environment.
+
+The single-env classes of the JAX presets (same names, same keyword
+arguments) are thin subclasses of ``envs/single.py``'s ``SupplyChainEnv``
+that take their chain from these builders.
 """
 from __future__ import annotations
 
@@ -19,12 +23,19 @@ import dataclasses
 from typing import Tuple
 
 from ..core.compile import CompiledChain, compile_chain
+from .single import SupplyChainEnv
 
 __all__ = ["supplychain_chain", "linear_chain", "oneonen_chain",
            "ntom_chain", "twoperstage_chain", "twoperstage_seasonal_chain",
            "multiproduct_chain", "multiproduct_inccosts_chain",
            "multiproduct_v1_chain", "multiproduct_v1_inccosts_chain",
-           "nperstage_chain", "BeerGameSpec", "beergame_v0"]
+           "nperstage_chain", "BeerGameSpec", "beergame_v0", "beergame_v2",
+           "SupplyChain2perStageEnv", "SupplyChain2perStageSeasonalEnv",
+           "SupplyChainMultiProduct", "SupplyChainMultiProduct_IncreasingCosts",
+           "SupplyChainMultiProduct_DemConfigByProd",
+           "SupplyChainMultiProduct_DemConfigByProd_IncCosts",
+           "SupplyChainNPerStage", "SupplyChainLinearEnv",
+           "SupplyChainOneOneNEnv", "SupplyChainNtoMEnv"]
 
 
 def supplychain_chain(nodes_info, **kw) -> CompiledChain:
@@ -496,7 +507,8 @@ def nperstage_chain(nodes_per_echelon=3, num_products=2, initial_stocks=None,
 
 @dataclasses.dataclass(frozen=True)
 class BeerGameSpec:
-    """A beer game configuration: the arguments its collectors take."""
+    """A beer game configuration: the arguments its collectors take (the
+    last four are the revised game's, ``v2``)."""
     levels: int
     weeks: int
     demand: Tuple[int, ...]
@@ -506,6 +518,10 @@ class BeerGameSpec:
     init_orders: int
     inv_cost: int
     backlog_cost: int
+    v2: bool = False
+    max_stock: int = 0
+    max_order: int = 0
+    exceeded_capacity_penalty: int = 0
 
 
 def beergame_v0(weeks: int = 35, **kw) -> BeerGameSpec:
@@ -517,3 +533,79 @@ def beergame_v0(weeks: int = 35, **kw) -> BeerGameSpec:
                 backlog_cost=2)
     spec.update(kw)
     return BeerGameSpec(**spec)
+
+
+def beergame_v2(weeks: int = 35, **kw) -> BeerGameSpec:
+    """``beergame-v2``: the revised game's defaults (reference
+    beergame2_env.py): ``beergame-v0``'s, with orders in [0, 30), stock
+    observed against 100 and a penalty of 100 a unit of inventory or
+    backlog past it."""
+    spec = dict(v2=True, max_stock=100, max_order=30,
+                exceeded_capacity_penalty=100)
+    spec.update(kw)
+    return beergame_v0(weeks, **spec)
+
+
+class _PresetEnv(SupplyChainEnv):
+    """A single env whose chain comes from a builder of this module: the
+    builder's keyword arguments, then the single env's own."""
+
+    _chain = None
+
+    def __init__(self, seed=None, build_info=False, dtype=None,
+                 strict_obs=False, device="cuda", **kw):
+        super().__init__(cc=type(self)._chain(**kw), seed=seed,
+                         build_info=build_info, dtype=dtype,
+                         strict_obs=strict_obs, device=device)
+
+
+class SupplyChain2perStageEnv(_PresetEnv):
+    """``sc-2perstage-v0``: ``twoperstage_chain``."""
+    _chain = staticmethod(twoperstage_chain)
+
+
+class SupplyChain2perStageSeasonalEnv(_PresetEnv):
+    """``sc-2perstage-seasonal-v0``: ``twoperstage_seasonal_chain``."""
+    _chain = staticmethod(twoperstage_seasonal_chain)
+
+
+class SupplyChainMultiProduct(_PresetEnv):
+    """``sc-2perstage-multiproduct-v0``: ``multiproduct_chain``."""
+    _chain = staticmethod(multiproduct_chain)
+
+
+class SupplyChainMultiProduct_IncreasingCosts(_PresetEnv):
+    """``sc-2perstage-multiproduct-inccosts-v0``:
+    ``multiproduct_inccosts_chain``."""
+    _chain = staticmethod(multiproduct_inccosts_chain)
+
+
+class SupplyChainMultiProduct_DemConfigByProd(_PresetEnv):
+    """``sc-2perstage-multiproduct-v1``: ``multiproduct_v1_chain``."""
+    _chain = staticmethod(multiproduct_v1_chain)
+
+
+class SupplyChainMultiProduct_DemConfigByProd_IncCosts(_PresetEnv):
+    """``sc-2perstage-multiproduct-inccosts-v1``:
+    ``multiproduct_v1_inccosts_chain``."""
+    _chain = staticmethod(multiproduct_v1_inccosts_chain)
+
+
+class SupplyChainNPerStage(_PresetEnv):
+    """``sc-Nperstage-multiproduct-v0``: ``nperstage_chain``."""
+    _chain = staticmethod(nperstage_chain)
+
+
+class SupplyChainLinearEnv(_PresetEnv):
+    """``supplychain-linear-v0``: ``linear_chain``."""
+    _chain = staticmethod(linear_chain)
+
+
+class SupplyChainOneOneNEnv(_PresetEnv):
+    """``supplychain-oneonen-v0``: ``oneonen_chain``."""
+    _chain = staticmethod(oneonen_chain)
+
+
+class SupplyChainNtoMEnv(_PresetEnv):
+    """``supplychain-ntom-v0``: ``ntom_chain``."""
+    _chain = staticmethod(ntom_chain)

@@ -1,15 +1,20 @@
 """Batched environments with auto-reset: thousands of lockstep envs.
 
-The counterpart of ``gym_supplychain_tpu/envs/vector.py`` in its device
-mode.  All tensors keep the env batch as the trailing axis.  Episodes are
-fixed-length, so the whole batch shares one clock and auto-reset happens for
-every lane at once: the terminal observation of the finished episode is
-replaced by the first observation of the next one, and ``done`` still flags
-the boundary.
+The counterpart of ``gym_supplychain_tpu/envs/vector.py``.  All tensors
+keep the env batch as the trailing axis.  Episodes are fixed-length, so the
+whole batch shares one clock and auto-reset happens for every lane at once:
+the terminal observation of the finished episode is replaced by the first
+observation of the next one, and ``done`` still flags the boundary.
 
-Random streams are Philox keyed ``(seed, n)``: ``n`` counts the episodes (or
-the resets) drawn so far, so consecutive episodes play fresh streams and a
-seed reproduces them on the CPU and the card alike.
+Two kinds of random streams feed them:
+
+* device streams (the default): Philox keyed ``(seed, n)``, where ``n``
+  counts the episodes (or the resets) drawn so far, so consecutive episodes
+  play fresh streams and a seed reproduces them on the CPU and the card
+  alike;
+* host streams (``rng_mode="host"`` / ``"host-lanes"``): the reference's
+  MT19937 streams (``rng/host.py``), whole-episode tables drawn on the host
+  at every episode boundary and put on the env's device once an episode.
 """
 from __future__ import annotations
 
@@ -20,7 +25,8 @@ import torch
 
 from ..core.compile import CompiledChain, compile_chain
 from ..core.step import EnvState, StepOutput, make_supplychain_kernels
-from ..rng.device import philox_uniform
+from ..rng.device import device_episode_tables, philox_uniform
+from ..rng.host import BatchHostRNG, HostEpisodeRNG
 
 __all__ = ["VecState", "make_vec_env", "VecSupplyChainEnv",
            "beergame_table_config", "make_beergame_table_draw",
@@ -45,23 +51,33 @@ def _split(key):
 
 
 def make_vec_env(cc: CompiledChain, batch_size: int, dtype=torch.float32,
-                 device="cuda"):
+                 rng: str = "stateless", device="cuda"):
     """Functional batched env over a compiled chain.
 
     Returns ``(init_fn, step_fn, obs_fn)``: ``init_fn(key) -> VecState``
     (``key`` a seed or a ``(seed, n)`` pair) and
     ``step_fn(state, action[A, B]) -> (VecState, StepOutput)`` with batched
-    auto-reset.  Each step draws its demand and lead-time rows from the
-    episode's Philox key (the JAX package's ``rng='stateless'``; its
-    whole-episode ``'table'`` mode is not ported).
+    auto-reset.  ``rng="stateless"`` (the default) draws each step's demand
+    and lead-time rows from the episode's Philox key; ``rng="table"`` draws
+    whole-episode tables at every reset (``device_episode_tables``, whose
+    rows are the stateless rows of the same key, so the two modes play the
+    same episodes).
     """
+    if rng not in ("stateless", "table"):
+        raise ValueError(f"rng {rng!r}: 'stateless' or 'table'")
     B = batch_size
+    stateless = rng == "stateless"
     reset_k, step_k, obs_k = make_supplychain_kernels(
-        cc, dtype=dtype, stateless_rng=True, device=device)
+        cc, dtype=dtype, stateless_rng=stateless, device=device)
+
+    def _fresh(key) -> EnvState:
+        if stateless:
+            return reset_k(key, B)
+        return reset_k(*device_episode_tables(key, cc, B, dtype, device), B)
 
     def init_fn(key) -> VecState:
         key, sub = _split(_as_key(key))
-        return VecState(key=key, env=reset_k(sub, B))
+        return VecState(key=key, env=_fresh(sub))
 
     def obs_fn(state: VecState):
         return obs_k(state.env)
@@ -71,7 +87,7 @@ def make_vec_env(cc: CompiledChain, batch_size: int, dtype=torch.float32,
         key = state.key
         if out.done:
             key, sub = _split(key)
-            env = reset_k(sub, B)
+            env = _fresh(sub)
             out = out._replace(obs=obs_k(env))
         return VecState(key=key, env=env), out
 
@@ -79,32 +95,71 @@ def make_vec_env(cc: CompiledChain, batch_size: int, dtype=torch.float32,
 
 
 class VecSupplyChainEnv:
-    """Object-style wrapper over the functional batched API: the JAX
-    package's device mode, the episode streams drawn by the engine itself
-    (its host MT19937 modes are not ported)."""
+    """Object-style wrapper over the functional batched API.
+
+    ``rng_mode="device"`` (the default) draws the episode streams on the
+    env's device (Philox); ``rng_mode="host"`` uses the MT19937 parity
+    generator (each batch lane plays consecutive episodes of the single-env
+    reference stream seeded ``seed``); ``rng_mode="host-lanes"`` gives each
+    lane its own MT19937 stream seeded ``seed + lane`` (B independent
+    reference envs), drawn by the native multithreaded batch generator when
+    it builds (``lane_rng.backend``).  The host modes step the table-mode
+    engine and draw the next episode's tables at each boundary; the tables
+    reach the device once an episode.
+    """
 
     def __init__(self, nodes_info=None, batch_size: int = 1024, cc=None,
-                 dtype=torch.float32, seed: int = 0, device="cuda",
-                 **env_kwargs):
+                 dtype=torch.float32, rng_mode: str = "device", seed: int = 0,
+                 device="cuda", **env_kwargs):
+        if rng_mode not in ("device", "host", "host-lanes"):
+            raise ValueError(f"rng_mode {rng_mode!r}: 'device', 'host' or "
+                             "'host-lanes'")
         if cc is None:
             cc = compile_chain(nodes_info, **env_kwargs)
         self.cc = cc
         self.B = batch_size
         self.dtype = dtype
-        self._init_fn, self._step_fn, self._obs_fn = make_vec_env(
-            cc, batch_size, dtype, device=device)
+        self.rng_mode = rng_mode
         self._key = (int(seed), 0)
         self.state: Optional[VecState] = None
+        if rng_mode == "device":
+            self._init_fn, self._step_fn, self._obs_fn = make_vec_env(
+                cc, batch_size, dtype, device=device)
+            return
+        # the host modes step without the engine's auto-reset, so that each
+        # boundary draws the next tables from the MT19937 streams; episodes
+        # are fixed-length, so the boundary is the shared clock's
+        self._reset_k, self._step_k, self._obs_k = make_supplychain_kernels(
+            cc, dtype=dtype, device=device)
+        if rng_mode == "host":
+            self._host_rng = HostEpisodeRNG(cc, seed)
+        else:
+            self.lane_rng = BatchHostRNG(cc, [seed + b for b in range(self.B)])
 
     def reset(self):
-        """Start fresh episodes; consecutive resets continue the stream."""
-        if self.state is not None:
-            self._key = self.state.key
-        self.state = self._init_fn(self._key)
-        return self._obs_fn(self.state)
+        """Start fresh episodes; consecutive resets continue the streams
+        (in the host modes, exactly like consecutive reference episodes)."""
+        if self.rng_mode == "device":
+            if self.state is not None:
+                self._key = self.state.key
+            self.state = self._init_fn(self._key)
+            return self._obs_fn(self.state)
+        if self.rng_mode == "host-lanes":
+            demands, leadtimes = self.lane_rng.episode_tables()
+        else:
+            demands, leadtimes = self._host_rng.batch_tables(self.B)
+        self.state = VecState(key=self._key,
+                              env=self._reset_k(demands, leadtimes, self.B))
+        return self._obs_k(self.state.env)
 
     def step(self, action) -> StepOutput:
-        self.state, out = self._step_fn(self.state, action)
+        if self.rng_mode == "device":
+            self.state, out = self._step_fn(self.state, action)
+            return out
+        env, out = self._step_k(self.state.env, action)
+        self.state = self.state._replace(env=env)
+        if out.done:
+            out = out._replace(obs=self.reset())
         return out
 
     @property
@@ -187,10 +242,17 @@ def make_beergame_table_draw(weeks: int, dem_range=None, delay_range=None,
 
 
 class VecBeerGameEnv:
-    """Batched beer game (v0 semantics by default, v2 via flags), the JAX
-    package's device mode: stochastic 2-element ranges for
-    ``customer_demand`` or ``shipment_delays`` draw fresh per-lane tables at
-    every reset (its host MT19937 mode is not ported)."""
+    """Batched beer game (v0 semantics by default, v2 via flags).
+
+    Lockstep batch; actions are ``[levels, B]`` ints.  ``customer_demand``
+    and ``shipment_delays`` accept the reference v2's stochastic 2-element
+    ranges: fresh per-lane tables are then drawn at every reset.
+    ``rng_mode="device"`` draws them from Philox (``make_beergame_table_draw``);
+    ``rng_mode="host"`` gives each lane its own MT19937 stream seeded
+    ``seed + lane`` with the reference's draw order (demand first, then
+    delays, per reset), so lane b is bit-exact with a single
+    ``BeerGameEnv2(seed=seed + b)`` across consecutive episodes.
+    """
 
     def __init__(self, batch_size: int = 1024, levels: int = 4,
                  customer_demand=None, shipment_delays: int = 2,
@@ -198,11 +260,15 @@ class VecBeerGameEnv:
                  initial_shipment: int = 4, initial_orders: int = 4,
                  v2: bool = False, max_stock: int = 100,
                  exceeded_capacity_penalty: int = 100, seed: int = 0,
-                 weeks: int = 35, itype=torch.int32, device="cuda"):
+                 rng_mode: str = "device", weeks: int = 35,
+                 itype=torch.int32, device="cuda"):
         from ..core.beergame import make_beergame_kernels
 
+        if rng_mode not in ("device", "host"):
+            raise ValueError(f"rng_mode {rng_mode!r}: 'device' or 'host'")
         self.B = batch_size
         self.levels = levels
+        self.rng_mode = rng_mode
         if customer_demand is None:
             customer_demand = [4] * 4 + [8] * 31
         self._dem_range = customer_demand if _is_range(customer_demand) else None
@@ -234,24 +300,59 @@ class VecBeerGameEnv:
             itype=itype, device=device)
         self._stochastic = (self._dem_range is not None
                             or self._delay_range is not None)
-        if self._stochastic:
+        if self._stochastic and rng_mode == "device":
             self._draw = make_beergame_table_draw(
                 self.max_weeks, self._dem_range, self._delay_range,
                 self._demand, self._delays, itype, device)
+        if self._stochastic and rng_mode == "host":
+            self._lane_rs = [np.random.RandomState(seed + b)
+                             for b in range(self.B)]
         self._key = (int(seed), 0)
         self._t = 0
         self.state = None
 
+    def _host_tables(self):
+        """Per-lane MT19937 tables, the reference's draw order per reset
+        (demand before delays): ``(demand [weeks, B], delays [weeks+1, B])``."""
+        dem_cols, delay_cols = [], []
+        for rs in self._lane_rs:
+            if self._dem_range is not None:
+                dem_cols.append(rs.randint(self._dem_range[0],
+                                           self._dem_range[1],
+                                           size=self.max_weeks))
+            else:
+                dem_cols.append(self._demand)
+            if self._delay_range is not None:
+                d = rs.randint(self._delay_range[0], self._delay_range[1],
+                               size=self.max_weeks)
+                delay_cols.append(np.insert(d, 0, 2))
+            else:
+                delay_cols.append(self._delays)
+        return np.stack(dem_cols, -1), np.stack(delay_cols, -1)
+
     def reset(self):
         self._t = 0
-        if self._stochastic:
+        if not self._stochastic:
+            demand, delays = self._demand, self._delays
+        elif self.rng_mode == "host":
+            demand, delays = self._host_tables()
+        else:
             self._key, sub = _split(self._key)
             demand, delays = self._draw(sub, self.B)
-        else:
-            demand, delays = self._demand, self._delays
         self.state = self._reset_fn(demand, delays, self._inv0, self._ship0,
                                     self._orders0, self.B)
         return self._obs_fn(self.state)
+
+    @property
+    def customer_demand(self):
+        """This episode's demand table ``[weeks, B]``."""
+        return self.state.customer_demand
+
+    @property
+    def shipment_delays(self):
+        """This episode's delays ``[weeks + 1, B]`` (slot 0 the initial
+        delay)."""
+        return self.state.shipment_delays
 
     def step(self, action):
         """action [levels, B] int -> (obs [levels, B], reward [B], done);

@@ -7,9 +7,10 @@ Usage:
 It runs on the card (``--device cuda``, the default) and stops with an
 error where there is none; ``--device cpu`` asks for the CPU.  On a CUDA
 device the trainer defaults to fused collection (the collect kernel's
-policy mode, ``make_ppo_fused``) and the fused update (the PPO update
-kernel); ``--no-fused`` / ``--no-fused-update`` select the scan trainer and
-autograd.  On the CPU the scan trainer runs.  ``--learner-dtype bf16``
+policy mode, ``make_ppo_fused``) and, with it, the fused update (the PPO
+update kernel), as the JAX CLI ties them; ``--no-fused`` selects the scan
+trainer and autograd, ``--no-fused-update`` autograd alone.  On the CPU
+the scan trainer runs.  ``--learner-dtype bf16``
 runs the update in bf16 (the update kernel's bf16 mode, or the bf16 trunks
 under autograd).  ``--env beergame-v0`` / ``beergame-v2`` trains the beer
 game's categorical policy (``make_beergame_ppo``, autograd updates;
@@ -43,6 +44,17 @@ def device_from_flag(name: str):
     if device.type not in ("cuda", "cpu"):
         raise SystemExit(f"--device {name}: the port runs on cuda or cpu")
     return device
+
+
+def resolve_engine_flags(args, supplychain: bool, device) -> None:
+    """Fill the unset ``--fused`` / ``--fused-update``: fused collection
+    for the supply chains on a CUDA device, and the fused update only with
+    fused collection (JAX ``learn/train.py``)."""
+    if args.fused is None:
+        args.fused = supplychain and device.type == "cuda"
+    if args.fused_update is None:
+        args.fused_update = (args.fused and supplychain
+                             and device.type == "cuda")
 
 
 def _refuse(args):
@@ -87,8 +99,8 @@ def main(argv=None):
     p.add_argument("--fused-update", action=argparse.BooleanOptionalAction,
                    default=None,
                    help="run the update's forward+loss+backward as one CUDA "
-                        "kernel (ops/ppo_update.py).  DEFAULT ON on a CUDA "
-                        "device")
+                        "kernel (ops/ppo_update.py).  DEFAULT: on with fused "
+                        "collection on a CUDA device")
     p.add_argument("--learner-dtype", default=None, choices=[None, "bf16"],
                    help="update-phase compute dtype (the rollout is "
                         "unaffected)")
@@ -114,10 +126,7 @@ def main(argv=None):
 
     device = device_from_flag(args.device)
     supplychain = not args.env.startswith("beergame")
-    if args.fused is None:
-        args.fused = supplychain and device.type == "cuda"
-    if args.fused_update is None:
-        args.fused_update = supplychain and device.type == "cuda"
+    resolve_engine_flags(args, supplychain, device)
     cfg = PPOConfig(rollout_steps=args.rollout_steps, epochs=args.epochs,
                     lr=args.lr, hidden=tuple(args.hidden),
                     minibatches=args.minibatches,

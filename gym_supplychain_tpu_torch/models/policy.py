@@ -198,25 +198,88 @@ def actor_critic_forward(params, obs, compute_dtype=None):
     """obs [obs_dim, B] -> (mu [A, B], log_std [A, 1], value [B]).
 
     ``params`` is an ``ActorCritic`` or its flat list.  ``compute_dtype``
-    (``torch.bfloat16``) runs the trunks' products, biases and ``tanh`` in
-    that dtype and hands their outputs back in the parameters' dtype; the
-    ``mu`` and ``v`` heads and ``log_std`` stay in the parameters' dtype,
-    as the JAX package's XLA path keeps them (the update kernel's bf16 mode
-    rounds the heads' operands too: ``ops/ppo_update.py``).  ``None`` uses
-    every tensor in its own dtype (the rollout path)."""
+    (``torch.bfloat16``) runs the trunks' products and biases in that dtype
+    and rounds forward and backward where the JAX package's jitted XLA:CPU
+    graph of its XLA path rounds (``_LowPrecisionTanhLayer``); the ``mu``
+    and ``v`` heads and ``log_std`` stay in the parameters' dtype, as that
+    path keeps them (the update kernel's bf16 mode rounds the heads'
+    operands too: ``ops/ppo_update.py``).  ``None`` uses every tensor in its
+    own dtype (the rollout path)."""
     actor, mu_l, critic, v_l, log_std = split_params(params)
-    a = c = obs if compute_dtype is None else obs.to(compute_dtype)
-    for w, b in actor:
-        a = torch.tanh(_cast(w, compute_dtype) @ a + _cast(b, compute_dtype))
-    for w, b in critic:
-        c = torch.tanh(_cast(w, compute_dtype) @ c + _cast(b, compute_dtype))
+    if compute_dtype is None:
+        a = c = obs
+        for w, b in actor:
+            a = torch.tanh(w @ a + b)
+        for w, b in critic:
+            c = torch.tanh(w @ c + b)
+    else:
+        a, c = _low_precision_trunk(obs, actor, compute_dtype), \
+            _low_precision_trunk(obs, critic, compute_dtype)
     mu = mu_l[0] @ a.to(mu_l[0].dtype) + mu_l[1]
     v = (v_l[0] @ c.to(v_l[0].dtype) + v_l[1])[0]
     return mu, torch.clamp(log_std, LOG_STD_MIN, LOG_STD_MAX), v
 
 
-def _cast(x, dtype):
-    return x if dtype is None else x.to(dtype)
+_XLA_WINDOW = 32
+
+
+def _xla_cpu_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x [R, n]`` summed over its rows in ``x``'s dtype the way XLA:CPU
+    sums a bf16 reduction: while a row is longer than 32, windows of 32
+    (the row zero-padded at both ends, the lower pad the smaller) are
+    summed in order, each add rounded to the dtype; then the last row of at
+    most 32 the same way."""
+    while x.shape[1] > _XLA_WINDOW:
+        n = x.shape[1]
+        windows = -(-n // _XLA_WINDOW)
+        pad = windows * _XLA_WINDOW - n
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = x.view(x.shape[0], windows, _XLA_WINDOW)
+        acc = x[..., 0]
+        for j in range(1, _XLA_WINDOW):
+            acc = acc + x[..., j]
+        x = acc
+    acc = x[:, 0]
+    for j in range(1, x.shape[1]):
+        acc = acc + x[:, j]
+    return acc
+
+
+def _low_precision_trunk(x, layers, dtype):
+    """A trunk in ``dtype`` as the JAX package's jitted XLA:CPU path runs
+    it: each layer's input rounded to ``dtype``, the last layer's float32
+    ``tanh`` handed to the head unrounded (XLA drops that rounding)."""
+    y = x.to(dtype)
+    for w, b in layers:
+        y = _LowPrecisionTanhLayer.apply(y.to(dtype), w, b)
+    return y
+
+
+class _LowPrecisionTanhLayer(torch.autograd.Function):
+    """``tanh(w @ x + b)`` for ``x`` in a low precision (bf16), rounded
+    where the JAX package's jitted XLA:CPU graph rounds: forward, the
+    product and the bias add in ``x``'s dtype, ``tanh`` in float32 (its
+    output unrounded); backward, the incoming gradient rounded to the
+    dtype, tanh's derivative as ``dq = g * (1 - y)``, ``dq + dq * y`` with
+    each op rounded, the bias gradient summed by ``_xla_cpu_row_sum``, the
+    input gradient rounded once, the weight gradient left in float32."""
+
+    @staticmethod
+    def forward(ctx, x, w, b):
+        wl = w.to(x.dtype)
+        y = torch.tanh((wl @ x + b.to(x.dtype)).float())
+        ctx.save_for_backward(x, wl, y.to(x.dtype))
+        ctx.dtypes = (w.dtype, b.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, wl, y = ctx.saved_tensors
+        dq = g.to(y.dtype) * (1 - y)
+        ds = dq + dq * y
+        db = _xla_cpu_row_sum(ds)[:, None]
+        return (wl.t() @ ds, (ds.float() @ x.float().t()).to(ctx.dtypes[0]),
+                db.to(ctx.dtypes[1]))
 
 
 def softplus(x):

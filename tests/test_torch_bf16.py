@@ -2,10 +2,11 @@
 
 * ``actor_critic_forward(..., compute_dtype=torch.bfloat16)`` (the XLA
   path: bf16 trunks, float32 heads) against JAX's on the same weights:
-  ``mu`` and ``value`` at O(1) scale within atol 2e-2, the bound for bf16
-  rounding at other places in the two frameworks.  Observed on the CPU:
-  the trunks and ``mu`` bit-equal, ``value`` within 2.4e-7 (its float32
-  head's sum order).
+  ``mu`` and ``value`` at O(1) scale within atol 2e-2 of JAX's op-by-op
+  forward, which rounds the trunks' output to bf16 before the heads
+  (observed 2.2e-3), and within 1e-6 of its jitted forward, whose XLA:CPU
+  graph hands the heads the float32 ``tanh`` as the port does (observed
+  2.4e-7, the float32 heads' sum order).
 * The plain bf16 update (``ppo_update_plain(..., compute_dtype=bf16)``,
   what ``make_ppo_update_grads(compute_dtype=bf16)`` runs for CPU tensors)
   against the TPU kernel ``make_ppo_update_grads(compute_dtype=bfloat16,
@@ -14,17 +15,15 @@
   2.1e-6 * max|g|; the products are exact on bf16 operands, so only the
   sums' order differs).
 * One ``_make_update`` (2 epochs) of the port against the JAX one on the
-  same data, both with ``learner_dtype`` bf16.  Through the update kernel
-  (its plain version against the TPU kernel in interpret mode):
-  parameter-delta cosine >= 0.999 (observed 1 - 2e-11).  Under autograd
-  (the XLA path): the loss gradients' cosine >= 0.9999 (observed
-  0.999998) and the parameter-delta cosine >= 0.99 (observed 0.9984).
-  The autograd gradients differ element by element by up to 4% of a
-  tensor's largest (bias gradients most: XLA sums the bf16 bias gradient
-  in bf16 and rounds otherwise than PyTorch), and Adam's first steps move
-  each weight by about ``lr * sign(g)``, which turns those differences
-  into sign flips on the weights whose gradient is near zero; 0.999 is
-  not a bound this path meets.
+  same data, both with ``learner_dtype`` bf16: parameter-delta cosine
+  >= 0.999.  Through the update kernel (its plain version against the TPU
+  kernel in interpret mode) observed 1 - 2e-11.  Under autograd (the XLA
+  path) the port's bf16 trunk rounds where JAX's jitted XLA:CPU graph
+  rounds (``models/policy.py``: the bias gradient summed in bf16 in
+  XLA:CPU's windows of 32, tanh's derivative rounded op by op, the weight
+  gradients and the head's input left in float32): observed 1 - 2e-13,
+  and the loss gradients' cosine >= 0.9999 against JAX's op-by-op
+  (unjitted) gradient, which rounds at every op (observed 0.9999987).
 * The port's form of ``test_ppo_improves_bf16_learner``
   (``tests/test_vector_learn.py``): the bf16 update moves the parameters
   along the float32 one, cosine > 0.9, at the same sizes.
@@ -91,12 +90,33 @@ def test_bf16_forward_matches_jax(hidden):
     np.testing.assert_allclose(v.detach().numpy(), np.asarray(jv), rtol=0,
                                atol=2e-2)
     np.testing.assert_array_equal(log_std.detach().numpy(), np.asarray(jls))
+    jmu, _, jv = jax.jit(lambda t, o: j_forward(t, o, jnp.bfloat16))(
+        tree, jnp.asarray(obs))
+    np.testing.assert_allclose(mu.detach().numpy(), np.asarray(jmu),
+                               rtol=0, atol=1e-6)
+    np.testing.assert_allclose(v.detach().numpy(), np.asarray(jv), rtol=0,
+                               atol=1e-6)
     # None keeps the float32 path
     mu32, _, v32 = actor_critic_forward(params_from_jax(tree, device="cpu"),
                                         torch.from_numpy(obs))
     jmu32, _, jv32 = j_forward(tree, jnp.asarray(obs))
     np.testing.assert_allclose(mu32.detach().numpy(), np.asarray(jmu32),
                                rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("n", [7, 32, 33, 100, 2048, 40000])
+def test_bf16_row_sum_matches_xla(n):
+    """The bias gradient's bf16 sum, bit for bit XLA:CPU's bf16 reduction
+    (the transpose of the bias broadcast; ``jnp.sum`` would sum in
+    float32)."""
+    from gym_supplychain_tpu_torch.models.policy import _xla_cpu_row_sum
+
+    x = np.random.RandomState(n).standard_normal((6, n)).astype(np.float32)
+    want = jax.jit(lambda a: jax.lax.reduce(
+        a, jnp.bfloat16(0), jax.lax.add, (1,)))(jnp.asarray(x, jnp.bfloat16))
+    got = _xla_cpu_row_sum(torch.from_numpy(x).to(BF16))
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
 
 
 @pytest.mark.parametrize("O,A,hidden,M,tile,seed", [
@@ -153,10 +173,9 @@ def test_update_step_matches_jax_bf16(fused_update):
     got = _vec(p.detach().numpy() for p in model.flat()) - _vec(_leaves(tree))
     ref = _vec(_leaves(jax.tree.map(np.asarray, want))) - _vec(_leaves(tree))
     assert np.linalg.norm(ref) > 0
+    assert _cos(got, ref) >= 0.999
     if fused_update:
-        assert _cos(got, ref) >= 0.999
         return
-    assert _cos(got, ref) >= 0.99
     jg = jax.grad(lambda p: jloss(p, *map(jnp.asarray, flat_data))[0])(jtree)
     model = params_from_jax(tree, device="cpu")
     g = torch.autograd.grad(loss(model, *map(torch.from_numpy, flat_data))[0],

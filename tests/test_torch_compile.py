@@ -21,6 +21,7 @@ from gym_supplychain_tpu_torch import make_chain, registry  # noqa: E402
 from gym_supplychain_tpu_torch.core.compile import compile_chain  # noqa: E402
 
 from .fixture_scenarios import SC_SCENARIOS  # noqa: E402
+from .utils import simple_chain  # noqa: E402
 
 
 def _assert_chains_equal(got, want):
@@ -71,20 +72,30 @@ def test_vendored_compile_matches_jax_on_fixture_chains(name, monkeypatch):
 
 
 def test_registry_and_beergame_spec():
-    assert registry() == ("supplychain-linear-v0", "supplychain-ntom-v0",
-                          "supplychain-2perstage-v0", "sc-2perstage-v0",
-                          "sc-2perstage-multiproduct-v0",
-                          "sc-Nperstage-multiproduct-v0",
-                          "sc-2perstage-multiproduct-inccosts-v0",
-                          "beergame-v0", "supplychain-v0",
-                          "sc-2perstage-seasonal-v0",
-                          "sc-2perstage-multiproduct-v1",
-                          "sc-2perstage-multiproduct-inccosts-v1",
-                          "supplychain-oneonen-v0")
-    # every id of the JAX registry but the beer game's v2
-    assert set(jsct.registry()) - set(registry()) == {"beergame-v2"}
+    # the registries of make_chain and make are the JAX registry, in order
+    assert registry() == jsct.registry()
+    import gym_supplychain_tpu_torch as sct
+    for env_id in registry():
+        kw = {"nodes_info": simple_chain()} if env_id == "supplychain-v0" else {}
+        make_chain(env_id, **kw)
+        assert (type(sct.make(env_id, device="cpu", **kw)).__name__
+                == type(jsct.make(env_id, **kw)).__name__), env_id
     spec = make_chain("beergame-v0")
     assert (spec.levels, spec.weeks, spec.delay) == (4, 35, 2)
     assert list(spec.demand) == [4] * 4 + [8] * 31
+    assert not spec.v2
+    # beergame-v2 field by field against the JAX BeerGameEnv2's defaults
+    v2, ref = make_chain("beergame-v2"), jsct.make("beergame-v2")
+    assert v2.v2 and (v2.levels, v2.weeks) == (ref.levels, ref.max_weeks)
+    assert list(v2.demand) == list(ref.customer_demand)
+    assert [2] + [v2.delay] * v2.weeks == list(ref.shipment_delays)
+    assert [v2.init_inv] * v2.levels == list(ref.initial_inventory)
+    assert (v2.init_ship, v2.init_orders, v2.inv_cost, v2.backlog_cost,
+            v2.max_stock, v2.exceeded_capacity_penalty) == (
+        ref.initial_shipment_value, ref.initial_orders_value, ref.inv_cost,
+        ref.backlog_cost, ref.max_stock, ref.exceeded_capacity_penalty)
+    assert [v2.max_order] * v2.levels == list(ref.action_space.nvec)
     with pytest.raises(KeyError):
         make_chain("supplychain-v9")
+    with pytest.raises(KeyError):
+        sct.make("supplychain-v9")

@@ -231,8 +231,9 @@ def test_clis_stop_without_a_card(cli, argv, monkeypatch):
 
 
 def _constructors():
+    import gym_supplychain_tpu_torch as sct
     from gym_supplychain_tpu_torch.core import beergame, step
-    from gym_supplychain_tpu_torch.envs import vector
+    from gym_supplychain_tpu_torch.envs import gym_registry, vector
     from gym_supplychain_tpu_torch.learn import ppo
     from gym_supplychain_tpu_torch.models import policy
     from gym_supplychain_tpu_torch.ops import (beergame_collect,
@@ -257,7 +258,9 @@ def _constructors():
             policy.discrete_params_from_jax, vector.beergame_table_config,
             evaluate.make_beergame_evaluator,
             heuristics.beergame_base_stock_runner,
-            heuristics.best_beergame_base_stock]
+            heuristics.best_beergame_base_stock, sct.SupplyChainEnv,
+            sct.SupplyChainNtoMEnv, sct.BeerGameEnv, sct.BeerGameEnv2,
+            gym_registry.GymnasiumVectorAdapter]
 
 
 @pytest.mark.parametrize("fn", _constructors(), ids=lambda f: f.__name__)

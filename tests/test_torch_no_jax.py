@@ -1,6 +1,6 @@
 """The port imports no jax: every module of ``gym_supplychain_tpu_torch``
-(the evaluation, large-topology and beer-game learning slices' among them)
-and ``chip_smoke.py`` load in a fresh interpreter without it."""
+(the evaluation, large-topology, beer-game learning and host-stream slices'
+among them) and ``chip_smoke.py`` load in a fresh interpreter without it."""
 import os
 import subprocess
 import sys
@@ -24,6 +24,7 @@ bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
 print(len(names), bad)
 print(" ".join(names))
 assert not bad, bad
+assert "gymnasium" not in sys.modules   # imported only by the adapters
 """
 
 
@@ -33,12 +34,14 @@ def test_port_imports_no_jax():
                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 32, res.stdout
+    assert n_modules >= 39, res.stdout
     loaded = set(res.stdout.splitlines()[1].split())
     for name in ("ops.supplychain_episode", "learn.evaluate",
                  "learn.heuristics", "learn.compare_baseline",
                  "utils.checkpoint", "ops.supplychain_dense",
                  "ops.beergame_episode", "benchmarks.large_topologies",
                  "ops.ppo_update", "learn.ppo", "models.policy",
-                 "learn.compare_baseline_beergame"):
+                 "learn.compare_baseline_beergame", "native", "rng.host",
+                 "rng.gym_compat", "envs.strict_obs", "envs.single",
+                 "envs.beergame", "envs.gym_registry"):
         assert "gym_supplychain_tpu_torch." + name in loaded, name

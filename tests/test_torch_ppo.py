@@ -14,6 +14,8 @@
   its phase hooks, against the JAX kernel collection and update.
 * Smoke runs of both trainers and of the train CLI.
 """
+import argparse
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -415,6 +417,35 @@ def test_train_cli_runs_the_scan_trainer_on_the_cpu(capsys):
     assert "fused_collect=False" in out and '"env_steps_per_s"' in out
     assert np.isfinite(float(metrics["loss"]))
     assert isinstance(state, ppo.TrainState)
+
+
+@pytest.mark.parametrize("flags, fused, fused_update", [
+    ([], False, False), (["--no-fused"], False, False),
+    (["--fused"], True, False)])
+def test_train_cli_resolves_the_engine_flags(flags, fused, fused_update,
+                                            capsys):
+    """On the CPU ``--fused`` alone turns fused collection on; the fused
+    update follows fused collection on a CUDA device only, as in the JAX
+    CLI, so ``--no-fused`` there trains with autograd."""
+    train.main(flags + ["--envs", "4", "--hidden", "8", "--horizon", "6",
+                        "--rollout-steps", "6", "--iters", "1",
+                        "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert (f"fused_collect={fused} fused_update={fused_update}") in out
+    cuda = torch.device("cuda")
+    for given, want in (([], (True, True)), (["--no-fused"], (False, False)),
+                        (["--fused"], (True, True)),
+                        (["--no-fused-update"], (True, False))):
+        args = argparse.Namespace(fused=None, fused_update=None)
+        if given:
+            flag = given[0]
+            setattr(args, "fused_update" if "update" in flag else "fused",
+                    not flag.startswith("--no-"))
+        train.resolve_engine_flags(args, True, cuda)
+        assert (args.fused, args.fused_update) == want, given
+    args = argparse.Namespace(fused=None, fused_update=None)
+    train.resolve_engine_flags(args, False, cuda)
+    assert (args.fused, args.fused_update) == (False, False)
 
 
 @pytest.mark.parametrize("flags", [
