@@ -41,7 +41,8 @@ Phases, in order; any failure exits nonzero:
      default one; the policy lane kernel's lanes, envs a block and grid
   7. the PPO update kernel against plain, both against float64 autograd,
      at M = 60 * 4096 samples; two launches must give the same bits; its
-     time a call alone and back to back (card and host apart)
+     time a call alone and back to back behind a sleep kernel (card and
+     host apart)
   8. the trainer's path: the train CLI, then ``make_ppo_fused`` timed per
      phase (collect / gae / update) against the plain trainer, whose first
      iteration must match the kernel trainer's; then K1 ``policy`` alone at
@@ -87,7 +88,9 @@ Phases, in order; any failure exits nonzero:
      two launches bit-identical; cosine to the float32 K2 >= 0.999 from
      the trainer's weights, and no more than 1e-4 below the plain bf16
      version's from phase 7's, whose x100 mu head amplifies bf16's
-     rounding), timed beside the float32 K2 in turns; the train CLI with ``--learner-dtype bf16``
+     rounding), timed beside the float32 K2 and the same bf16 products
+     unfused through ``torch.matmul`` (a yardstick the port never calls)
+     in turns; the train CLI with ``--learner-dtype bf16``
      at phase 8's shape (K1 ``policy`` and the bf16 K2 launched) and both
      learners' phases, the first iteration's parameter change against the
      float32 learner's (cosine >= 0.9); the train CLI on ``beergame-v2``
@@ -153,6 +156,8 @@ DENSE_REPS = 3             # phase 11: timed calls of the dense kernel (median)
 EAGER_STEPS = 10           # phase 11: the eager env's slope, 10 vs 20 steps
 PEAK_FLOPS = 67e12         # H100 SXM float32 outside the tensor cores
 PEAK_BF16 = 989e12         # H100 SXM bf16 tensor cores, dense
+SLEEP_CYCLES = 200_000_000  # ~0.1 s: longer than the host takes to enqueue
+                            # the back-to-back calls
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bytes/s
 HOST_EPISODES = 8          # phase 15: consecutive episodes of the host streams
 HOST_LANES = (0, 1, ENVS - 1)   # phase 15: lanes held against single envs
@@ -629,13 +634,16 @@ def _update_data(cc, model, M, seed, dev):
 
 def _back_to_back(fn, n):
     """(the card's ms a call, the host's ms to enqueue one) over ``n``
-    calls enqueued without a sync: the host runs ahead, so the first is
-    the card's time apart from the host's (a call timed alone holds some
-    of both)."""
+    calls enqueued without a sync behind a sleep kernel: the host gets
+    ahead while the card sleeps, so the first is the card's time apart
+    from the host's even for a call the host takes longer to enqueue than
+    the card to run (a call timed alone holds some of both)."""
     import torch
 
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SLEEP_CYCLES)
     t0 = time.perf_counter()
     start.record()
     for _ in range(n):
@@ -1401,6 +1409,34 @@ def phase_demand(B, seed, errs):
                 train_counts=counts)
 
 
+def _bf16_products(model, obs):
+    """The bf16 products of one K2 call, unfused, through ``torch.matmul``
+    on bf16 operands (float32 accumulation, bf16 results): each net's
+    forward, every weight gradient and the input gradients past layer 0,
+    with the head's output standing for its gradient.  A yardstick of what
+    a library does with the same products; the port never calls it."""
+    import torch
+    from gym_supplychain_tpu_torch.models.policy import split_params
+
+    actor, mu, critic, v, _ = split_params(model)
+    nets = [[w.detach().to(torch.bfloat16) for w, _ in layers + [head]]
+            for layers, head in ((actor, mu), (critic, v))]
+    x = obs.to(torch.bfloat16)
+
+    def run():
+        for ws in nets:
+            acts = [x]
+            for w in ws:
+                acts.append(torch.matmul(w, acts[-1]))
+            dy = acts[-1]
+            for l in range(len(ws) - 1, -1, -1):
+                torch.matmul(dy, acts[l].t())
+                if l:
+                    dy = torch.matmul(ws[l].t(), dy)
+
+    return run
+
+
 def phase_bf16_beergame(seed):
     """Phase 14: K2's bf16 mode against its plain version at phase 7's
     shape and beside the float32 K2; the train CLI with the bf16 learner at
@@ -1470,20 +1506,28 @@ def phase_bf16_beergame(seed):
     ms, _ = _timed(lambda: gf(model, *data), REPS)
     plain_ms, _ = _timed(lambda: pu.ppo_update_plain(
         model, *data, compute_dtype=bf16), REPS)
-    b2b = {"float32": [], "bf16": []}
-    for name in ("float32", "bf16", "bf16", "float32"):        # in turns
-        fn = gf if name == "bf16" else gf32
-        b2b[name].append(_back_to_back(lambda: fn(model, *data),
-                                       BACK_TO_BACK))
+    fns = {"float32": lambda: gf32(model, *data),
+           "bf16": lambda: gf(model, *data),
+           "matmul": _bf16_products(model, data[0])}
+    b2b = {name: [] for name in fns}
+    fns["matmul"]()                        # the library's first-call set-up
+    for name in ("float32", "bf16", "matmul", "matmul", "bf16",
+                 "float32"):                                   # in turns
+        b2b[name].append(_back_to_back(fns[name], BACK_TO_BACK))
     turns = {k: [(round(c, 4), round(h, 4)) for c, h in v]
              for k, v in b2b.items()}
+    med = {k: statistics.median(c for c, _ in v) for k, v in b2b.items()}
     lay = MlpLayout(O, A, HIDDEN)
     macs = 3 * _macs(lay, [0, 1]) - O * 2 * HIDDEN[0]
     n_bytes = 4 * (M * (O + A + 3) + 2 * lay.n_params)
     bound = _bound(n_bytes, 2 * macs * M, PEAK_BF16)
     print(f"  (a) bf16 kernel {ms:.3f} ms, plain bf16 autograd "
           f"{plain_ms:.3f} ms per call (median of {REPS}); {BACK_TO_BACK} "
-          f"back to back, in turns (card ms, host ms a call): {turns}")
+          f"back to back, in turns (card ms, host ms a call; matmul: the "
+          f"same bf16 products unfused through torch.matmul): {turns}; "
+          f"medians on the card: bf16 kernel {med['bf16']:.4f} ms, "
+          f"torch.matmul yardstick {med['matmul']:.4f} ms, float32 kernel "
+          f"{med['float32']:.4f} ms")
     print(f"  (a) bounds: {2 * macs * M / 1e9:.2f} GFLOP over 989 TFLOP/s "
           f"bf16 = {1e3 * 2 * macs * M / PEAK_BF16:.4f} ms; {n_bytes / 1e6:.1f}"
           f" MB over 3.35 TB/s = {1e3 * n_bytes / PEAK_BYTES:.4f} ms; the "
@@ -1969,7 +2013,7 @@ def _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, hs, sc_errs,
          _bound(4 * (M * (cc.obs_dim + cc.A + 3) + 2 * lay.n_params),
                 2 * macs * M))
     # its bf16 mode: the same work, its operations on the tensor cores
-    line("ppo_update[bf16]", "ppo_update_bf16.cu",
+    line("ppo_update[bf16]", "ppo_update_bf16.cuh",
          "gym_supplychain_tpu/ops/ppo_update_pallas.py:91",
          bf["counts"]["ppo_update_bf16"], bf["upd"]["err"], bf["upd"]["ms"],
          bf["upd"]["plain_ms"], bf["upd"]["bound"])
@@ -2059,6 +2103,10 @@ def main(argv=None) -> int:
             print(f"  ptxas {r['function']}: {r['registers']} registers, "
                   f"spill stores {r['spill_stores']} B, spill loads "
                   f"{r['spill_loads']} B, stack {r['stack']} B a thread")
+            # the bf16 K2's budget holds everything in registers
+            if kernel == "ppo_grad_bf16_kernel" and (
+                    r["spill_stores"] or r["spill_loads"] or r["stack"]):
+                raise RuntimeError(f"{r['function']} spills or uses a stack")
 
     B = ENVS
     chains = {env_id: sct.make_chain(env_id)

@@ -1,8 +1,9 @@
 // What the two forms of the fused clipped-PPO update share: the layout of
 // the packed weights (ops/_mlp.py), the input slot a tile is fetched into,
-// the per-sample loss and the head's output gradient, and the fixed-order
-// sum of the blocks' partial rows.  ppo_update.cu (float32 products) and
-// ppo_update_bf16.cu (bf16 tensor-core products) include it.
+// the per-sample loss and the head's output gradient (each for a group of
+// threads: the float32 kernel's block, a warpgroup of the bf16 kernel), and
+// the fixed-order sum of the blocks' partial rows.  ppo_update.cu (float32
+// products) and ppo_update_bf16.cuh (bf16 products on wgmma) include it.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,6 +46,12 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                "l"(src), "r"(valid ? 4 : 0));
 }
 
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -53,35 +60,83 @@ __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
 
+// A barrier over the block, for the helpers below that a group of NT
+// threads runs (the whole block, or a warpgroup with a named barrier).
+struct PuBlockSync {
+  __device__ __forceinline__ void operator()() const { __syncthreads(); }
+};
+
+// Input row r of a fetch (obs rows, then pre, old_logp, adv for the actor,
+// ret for the critic) at sample m: its source and its slot row.
+__device__ __forceinline__ const float* pu_src(int r, int net, int O, int A,
+                                               int R0, size_t m, int M,
+                                               const float* obs,
+                                               const float* pre,
+                                               const float* old_logp,
+                                               const float* adv,
+                                               const float* ret, int& dr) {
+  if (r < O) {
+    dr = r;
+    return obs + (size_t)r * M + m;
+  }
+  if (net) {
+    dr = R0 + A + 2;
+    return ret + m;
+  }
+  if (r < O + A) {
+    dr = R0 + r - O;
+    return pre + (size_t)(r - O) * M + m;
+  }
+  dr = R0 + A + (r - O - A);
+  return (r == O + A ? old_logp : adv) + m;
+}
+
 // Input slot of a tile: obs rows [0, O), pre rows [R0, R0 + A), then
 // old_logp, adv, ret rows; ragged samples (m >= M) are zero-filled.
+// Fetched by the NT threads of a group, thread tid of it: 16 bytes (4
+// samples) a copy where the whole tile lies inside M and every row starts
+// 16-byte aligned, else 4.
+template <int NT>
+__device__ __forceinline__ void pu_fetch_n(int tid, float* slot, int net,
+                                           int O, int A, int R0, int m0,
+                                           int M, const float* obs,
+                                           const float* pre,
+                                           const float* old_logp,
+                                           const float* adv,
+                                           const float* ret) {
+  const int rows = net ? O + 1 : O + A + 2;
+  const bool quads =
+      (M & 3) == 0 && m0 + PU_TS <= M &&
+      ((reinterpret_cast<size_t>(obs) | reinterpret_cast<size_t>(pre) |
+        reinterpret_cast<size_t>(old_logp) | reinterpret_cast<size_t>(adv) |
+        reinterpret_cast<size_t>(ret)) & 15) == 0;
+  if (quads) {
+    for (int e = tid; e < rows * PU_TQ; e += NT) {
+      const int r = e / PU_TQ, t = (e % PU_TQ) * 4;
+      int dr;
+      const float* src = pu_src(r, net, O, A, R0, (size_t)(m0 + t), M, obs,
+                                pre, old_logp, adv, ret, dr);
+      cp_async16(slot + dr * PU_LD + t, src);
+    }
+    return;
+  }
+  for (int e = tid; e < rows * PU_TS; e += NT) {
+    const int r = e / PU_TS, t = e % PU_TS, m = m0 + t;
+    const bool valid = m < M;
+    int dr;
+    const float* src = pu_src(r, net, O, A, R0, valid ? (size_t)m : 0, M,
+                              obs, pre, old_logp, adv, ret, dr);
+    cp_async4(slot + dr * PU_LD + t, src, valid);
+  }
+}
+
 __device__ __forceinline__ void pu_fetch(float* slot, int net, int O, int A,
                                          int R0, int m0, int M,
                                          const float* obs, const float* pre,
                                          const float* old_logp,
                                          const float* adv, const float* ret) {
-  const int rows = net ? O + 1 : O + A + 2;
-  for (int e = threadIdx.x; e < rows * PU_TS; e += PU_THREADS) {
-    const int r = e / PU_TS, t = e % PU_TS, m = m0 + t;
-    const bool valid = m < M;
-    const size_t mm = valid ? (size_t)m : 0;
-    const float* src;
-    int dr;
-    if (r < O) {
-      src = obs + (size_t)r * M + mm;
-      dr = r;
-    } else if (net) {
-      src = ret + mm;
-      dr = R0 + A + 2;
-    } else if (r < O + A) {
-      src = pre + (size_t)(r - O) * M + mm;
-      dr = R0 + r - O;
-    } else {
-      src = (r == O + A ? old_logp : adv) + mm;
-      dr = R0 + A + (r - O - A);
-    }
-    cp_async4(slot + dr * PU_LD + t, src, valid);
-  }
+  pu_fetch_n<PU_THREADS>(threadIdx.x, slot, net, O, A, R0, m0, M, obs, pre,
+                         old_logp, adv, ret);
 }
 
 // The tile's per-sample loss terms and the head's output gradient.  hbuf
@@ -89,17 +144,18 @@ __device__ __forceinline__ void pu_fetch(float* slot, int net, int O, int A,
 // critic) and leaves holding d loss / d output, zero for ragged samples;
 // zb and term ([A][PU_LD], actor) are scratch, ls_raw the unclipped
 // log_std.  The tile's loss is added to loss_acc (thread 0) by a fixed
-// shuffle tree, the log_std gradient to gls (threads < A).
-__device__ __forceinline__ void pu_tile_loss(
-    int net, int A, const float* ls_raw, float* hbuf, float* zb, float* term,
-    const float* pres, const float* olps, const float* advs,
-    const float* rets, int m0, int M, float clip, float inv_m, float c_vf,
-    float ent_coef, float c_reg, float c_dreg, float* dl, float* lossbuf,
-    float& loss_acc, float& gls) {
-  const int tid = threadIdx.x;
+// shuffle tree, the log_std gradient to gls (threads < A).  Run by the NT
+// threads of a group (thread tid of it, NT >= PU_TS), `sync` its barrier.
+template <int NT, class Sync>
+__device__ __forceinline__ void pu_tile_loss_n(
+    int tid, Sync sync, int net, int A, const float* ls_raw, float* hbuf,
+    float* zb, float* term, const float* pres, const float* olps,
+    const float* advs, const float* rets, int m0, int M, float clip,
+    float inv_m, float c_vf, float ent_coef, float c_reg, float c_dreg,
+    float* dl, float* lossbuf, float& loss_acc, float& gls) {
   const float lo = 1.0f - clip, hi = 1.0f + clip;
   if (net == 0) {
-    for (int e = tid; e < A * PU_TS; e += PU_THREADS) {
+    for (int e = tid; e < A * PU_TS; e += NT) {
       const int i = e / PU_TS, t = e % PU_TS;
       const float mu = hbuf[i * PU_LD + t];
       const float ls = fminf(fmaxf(ls_raw[i], PU_LOG_STD_MIN), PU_LOG_STD_MAX);
@@ -111,7 +167,7 @@ __device__ __forceinline__ void pu_tile_loss(
       term[i * PU_LD + t] = gg - corr;
       zb[i * PU_LD + t] = z;
     }
-    __syncthreads();
+    sync();
     if (tid < PU_TS) {
       const int t = tid;
       const bool valid = m0 + t < M;
@@ -133,8 +189,8 @@ __device__ __forceinline__ void pu_tile_loss(
       dl[t] = valid ? (-sel * ratio + ent_coef) * inv_m : 0.0f;
       lossbuf[t] = valid ? loss_t : 0.0f;
     }
-    __syncthreads();
-    for (int e = tid; e < A * PU_TS; e += PU_THREADS) {
+    sync();
+    for (int e = tid; e < A * PU_TS; e += NT) {
       const int i = e / PU_TS, t = e % PU_TS;
       const bool valid = m0 + t < M;
       const float ls = fminf(fmaxf(ls_raw[i], PU_LOG_STD_MIN), PU_LOG_STD_MAX);
@@ -152,7 +208,7 @@ __device__ __forceinline__ void pu_tile_loss(
     lossbuf[t] = valid ? 0.5f * c_vf * vres * vres : 0.0f;
     hbuf[t] = valid ? c_vf * vres : 0.0f;
   }
-  __syncthreads();
+  sync();
   if (tid < 32) {  // the tile's loss, a fixed shuffle tree
     float v = lossbuf[tid] + lossbuf[tid + 32];
 #pragma unroll
@@ -167,6 +223,18 @@ __device__ __forceinline__ void pu_tile_loss(
     for (int t = 0; t < PU_TS; ++t) s += zb[tid * PU_LD + t];
     if (raw > PU_LOG_STD_MIN && raw < PU_LOG_STD_MAX) gls += s;
   }
+}
+
+__device__ __forceinline__ void pu_tile_loss(
+    int net, int A, const float* ls_raw, float* hbuf, float* zb, float* term,
+    const float* pres, const float* olps, const float* advs,
+    const float* rets, int m0, int M, float clip, float inv_m, float c_vf,
+    float ent_coef, float c_reg, float c_dreg, float* dl, float* lossbuf,
+    float& loss_acc, float& gls) {
+  pu_tile_loss_n<PU_THREADS>(threadIdx.x, PuBlockSync(), net, A, ls_raw,
+                             hbuf, zb, term, pres, olps, advs, rets, m0, M,
+                             clip, inv_m, c_vf, ent_coef, c_reg, c_dreg, dl,
+                             lossbuf, loss_acc, gls);
 }
 
 // out[p] = sum_g part[g][p], g in order

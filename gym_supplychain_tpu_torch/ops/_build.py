@@ -45,9 +45,14 @@ _SIGNATURES = {
        for name in ("sc_dense_launch", "sc_lane_launch", "sc_episode_launch")},
     "bg_collect_launch": [_I] * 27 + [_P, _P, _P, _U, _U, _P, _P, _P],
     "bg_episode_launch": [_I] * 12 + [_P] * 5,
-    **{name: [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F, _F, _F, _F, _F,
-              _P, _P, _I, _P]
-       for name in ("ppo_update_launch", "ppo_update_bf16_launch")},
+    "ppo_update_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F,
+                          _F, _F, _F, _F, _P, _P, _I, _P],
+    # the bf16 mode's entry takes its instance, (H, hidden layers, obs
+    # rows, head rows), last
+    "ppo_update_bf16_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _F,
+                               _F, _F, _F, _F, _F, _P, _P, _I, _P, _I, _I,
+                               _I, _I],
+    "ppo_bf16_smem_bytes": [_I, _I, _I, _I],
     "dn_chain_bytes": [],
     "dn_edges_bytes": [],
     "mlp_layout_ints": [],

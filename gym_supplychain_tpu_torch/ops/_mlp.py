@@ -1,7 +1,8 @@
 """The actor-critic weights as the CUDA kernels read them.
 
 Both kernels that run the MLP (the collect kernel's policy modes and the
-PPO update kernel) take one packed float32 buffer and an int32 layout.  The
+PPO update kernel, whose bf16 mode rounds the weights to bf16 itself) take
+one packed float32 buffer and an int32 layout.  The
 buffer holds the actor section (each layer's ``w`` transposed to
 ``[K, Jp]`` then its bias ``[Jp]``, with ``J`` padded to ``Jp``, a multiple
 of 8, so a thread loads 8 rows of a column as two float4; then ``log_std``)
@@ -116,85 +117,4 @@ class MlpLayout:
             out.append(row[off:off + p.numel()].view(p.shape))
             off += p.numel()
         assert off == self.n_params
-        return out
-
-
-def _pad16(n: int) -> int:
-    return -(-n // 16) * 16
-
-
-class MlpLayoutBf16(MlpLayout):
-    """The layout of the update kernel's bf16 mode
-    (``csrc/ppo_update_bf16.cu``).
-
-    Each net's section, in 32-bit words, holds every layer's ``w`` as
-    bfloat16 ``[Jp, ldw]`` (rows padded to ``Jp = pad16(J)``, columns to
-    ``ldw = pad16(K) + 8``: 16-byte rows whose 8 rows of an ``ldmatrix``
-    fall in distinct bank quads), zero past ``[J, K]``; then the float32
-    biases (``Jp`` each) and, in the actor's, ``log_std`` (``pad8(A)``); the
-    section is padded to a multiple of 4 words.  The layout ints keep
-    ``MlpLayout``'s format and gradient offsets; per layer ``Jp`` is the
-    16-padded count, ``w_off`` counts bfloat16 elements and ``b_off`` words
-    from the section's start, and ``wsec`` and ``ls_woff`` count words.
-    """
-
-    def __init__(self, obs_dim: int, act_dim: int, hidden):
-        super().__init__(obs_dim, act_dim, hidden)
-        self.layers_bf16, wsec = [], []
-        for net, rows in enumerate(self.layers):
-            out, w_el = [], 0
-            for K, J, _, _, _, gw, gb in rows:
-                Jp = _pad16(J)
-                out.append([K, J, Jp, w_el, 0, gw, gb])
-                w_el += Jp * (_pad16(K) + 8)
-            words = w_el // 2
-            for row in out:
-                row[4] = words
-                words += row[2]
-            if net == 0:
-                self.ls_woff = words
-                words += _pad8(self.A)
-            self.layers_bf16.append(out)
-            wsec.append(-(-words // 4) * 4)
-        self.wsec = wsec
-        ints = self.ints.copy()
-        ints[3:6] = [wsec[0], wsec[1], self.ls_woff]
-        for net, rows in enumerate(self.layers_bf16):
-            for l, row in enumerate(rows):
-                base = HEADER + (net * (MAX_LAYERS + 1) + l) * PER_LAYER
-                ints[base:base + PER_LAYER] = row
-        self.ints = ints
-
-    @property
-    def head_rows(self):
-        return self.layers_bf16[0][-1][2], self.layers_bf16[1][-1][2]
-
-    def pack(self, flat) -> torch.Tensor:
-        """Flat parameters -> the packed buffer (float32 words, bfloat16
-        weights inside), on the parameters' device."""
-        flat = [p.detach() for p in flat]
-        if len(flat) != 4 * self.nL + 5:
-            raise ValueError(f"{len(flat)} tensors for {self.nL} hidden "
-                             "layers")
-        actor, mu, critic, v, log_std = split_params(flat)
-        nets = (actor + [mu], critic + [v])
-        out = torch.zeros(sum(self.wsec), dtype=torch.float32,
-                          device=flat[0].device)
-        start = 0
-        for net, rows in enumerate(self.layers_bf16):
-            sec = out[start:start + self.wsec[net]]
-            half = sec.view(torch.bfloat16)
-            for (K, J, Jp, w_off, b_off, *_), (w, b) in zip(rows, nets[net]):
-                if tuple(w.shape) != (J, K) or tuple(b.shape) != (J, 1):
-                    raise ValueError(f"layer of net {net}: w "
-                                     f"{tuple(w.shape)}, b {tuple(b.shape)};"
-                                     f" expected ({J}, {K}), ({J}, 1)")
-                ldw = _pad16(K) + 8
-                half[w_off:w_off + Jp * ldw].view(Jp, ldw)[:J, :K] = (
-                    w.to(torch.bfloat16))
-                sec[b_off:b_off + J] = b.reshape(-1).to(torch.float32)
-            if net == 0:
-                sec[self.ls_woff:self.ls_woff + self.A] = (
-                    log_std.reshape(-1).to(torch.float32))
-            start += self.wsec[net]
         return out

@@ -18,11 +18,15 @@ registers (4x4 blocks a thread, ``ppo_update_slots``), prefetches the next
 tile with cp.async, writes per-block partial gradients and sums them in a
 fixed order, so two launches on the same inputs give the
 same gradients.  Its plain version is autograd of the PyTorch loss.
-The bf16 mode is a second kernel (``csrc/ppo_update_bf16.cu``) of the same
-shape whose products run on the tensor cores (``mma.sync`` m16n8k16, bf16
-operands, float32 accumulation; weights packed by ``MlpLayoutBf16``); its
-plain version is autograd of the loss over ``kernel_forward``, each
-product's operands and incoming gradient rounded to bf16.
+The bf16 mode is a second kernel (``csrc/ppo_update_bf16.cuh``) whose
+products run on Hopper's warpgroup tensor cores (``wgmma`` m64nNk16, bf16
+operands from swizzled shared memory, float32 accumulation): two
+warpgroups a block, each carrying 64 samples of a 128-sample tile through
+the forward, the loss and the input gradients, meeting for the weight
+gradients; it reads the same float32 weights and rounds them itself
+(``ppo_update_bf16_plan``).  Its plain version is autograd of the loss over
+``kernel_forward``, each product's operands and incoming gradient rounded
+to bf16.
 ``PPOLossFn`` wraps either as a ``torch.autograd.Function``: its forward
 computes the loss and the gradients at once and its backward hands the
 gradients back, so an update loop calls ``loss.backward()`` whichever ran.
@@ -35,22 +39,24 @@ import torch
 
 from ..models.policy import (LOG_STD_MAX, LOG_STD_MIN, flat_params,
                              split_params)
-from ._mlp import LAYOUT_INTS, SMEM_MAX, MlpLayout, MlpLayoutBf16, _pad16
+from ._mlp import LAYOUT_INTS, SMEM_MAX, MlpLayout
 
 __all__ = ["make_ppo_update_grads", "launch_ppo_update",
            "launch_ppo_update_bf16", "ppo_update_plain", "kernel_forward",
            "ppo_update_smem_bytes", "ppo_update_slots",
-           "ppo_update_bf16_smem_bytes", "ppo_update_bf16_tiles",
-           "PPOLossFn", "fused_ppo_loss"]
+           "ppo_update_bf16_plan", "PPOLossFn", "fused_ppo_loss"]
 
 _THREADS = 512             # threads a block (PU_THREADS)
 _TS, _LD = 64, 68          # samples a tile, row stride of the tile buffers
 _MAXQ, _MAXB = 3, 2        # gradient register slots a thread (PU_MAXQ, PU_MAXB)
 _STATIC = 4 * (LAYOUT_INTS + 2 * _TS)   # static shared memory
 _MAX_BLOCKS = 66           # blocks per net: 2 * 66 fill the H100's 132 SMs
-_BF16_MAXQ = 12            # 16x8 weight-gradient tiles a warp (PB_MAXQ)
-_BF16_LDB = 72             # row stride (bf16) of the bf16 tile buffers
-_WARPS = _THREADS // 32
+_BF16_THREADS = 256        # threads a bf16 block: two warpgroups (PB_THREADS)
+_BF16_TS = 128             # samples a bf16 tile, 64 a warpgroup (PB_TS)
+# the bf16 kernel's instances: (H, obs rows KP, head rows HA) -> hidden
+# layers (csrc/ppo_update_bf16*.cu)
+_BF16_INSTANCES = {(128, 32, 16): (1, 2), (64, 32, 16): (1, 2, 3, 4),
+                   (128, 64, 32): (1,), (64, 64, 32): (1, 2)}
 
 
 def _pad8(n: int) -> int:
@@ -103,51 +109,24 @@ def ppo_update_smem_bytes(layout: MlpLayout) -> int:
     return dyn
 
 
-def ppo_update_bf16_tiles(layout: MlpLayout):
-    """16x8 weight-gradient tiles of the bf16 kernel, per net (actor,
-    critic): ``ceil(J/16) * ceil(K/8)`` a layer, dealt round-robin over the
-    block's 16 warps.  Raises where a warp would hold more than its register
-    slots, or a net more biases than its bias slots cover."""
-    out = []
-    for net, rows in enumerate(layout.layers):
-        tiles = sum(-(-J // 16) * -(-K // 8) for K, J, *_ in rows)
-        biases = sum(J for _, J, *_ in rows)
-        if -(-tiles // _WARPS) > _BF16_MAXQ or biases > _MAXB * _THREADS:
-            raise NotImplementedError(
-                f"actor-critic O={layout.O}, A={layout.A}, hidden="
-                f"{layout.hidden}: the {('actor', 'critic')[net]}'s gradient "
-                f"needs {tiles} tiles and {biases} bias slots a block; the "
-                f"bf16 update kernel holds {_BF16_MAXQ * _WARPS} and "
-                f"{_MAXB * _THREADS}")
-        out.append(tiles)
-    return tuple(out)
-
-
-def ppo_update_bf16_smem_bytes(layout: MlpLayoutBf16) -> int:
-    """Dynamic shared memory of the bf16 kernel's larger block: its net's
-    section (``MlpLayoutBf16``), the bf16 tiles ``[pad16(rows)][72]`` of the
-    obs and each hidden layer's output, their float32 copies
-    ``[pad16(rows)][68]``, the head's output (float32) and gradient (bf16),
-    z and the log-prob terms, and two input slots.  Raises where a block
-    would exceed the card's shared memory or a warp's gradient registers
-    (``ppo_update_bf16_tiles``)."""
-    ppo_update_bf16_tiles(layout)
-    slot_rows = _pad8(layout.O) + layout.A + 3
-    widths = [_pad16(h) for h in layout.hidden]
-    sizes = []
-    for net in (0, 1):
-        head = layout.head_rows[net]
-        sizes.append(4 * layout.wsec[net]
-                     + 2 * _BF16_LDB * (_pad16(layout.O) + sum(widths) + head)
-                     + 4 * _LD * (sum(widths) + head + 2 * _pad8(layout.A)
-                                  + 2 * slot_rows))
-    dyn = max(sizes)
-    if dyn + _STATIC > SMEM_MAX:
+def ppo_update_bf16_plan(layout: MlpLayout) -> dict:
+    """The bf16 kernel's instance for ``layout``: every hidden layer padded
+    to ``H`` = 64 or 128 units (``layers`` of them), the obs to ``KP`` = 32
+    or 64 rows and the heads to ``HA`` = 16 or 32 (``_BF16_INSTANCES``).
+    Its shared memory is the library's (``ppo_bf16_smem_bytes``).  Raises
+    where no instance takes the net."""
+    O, A, hidden = layout.O, layout.A, tuple(layout.hidden)
+    NL = len(hidden)            # 1 to 4: MlpLayout refuses the rest
+    H = 64 if max(hidden) <= 64 else 128
+    KP, HA = (32, 16) if O <= 32 and A <= 16 else (64, 32)
+    if (max(hidden) > 128 or O > 64 or A > 32
+            or NL not in _BF16_INSTANCES[(H, KP, HA)]):
         raise NotImplementedError(
-            f"actor-critic O={layout.O}, A={layout.A}, hidden="
-            f"{layout.hidden} needs {dyn + _STATIC} bytes of shared memory "
-            f"per block; the bf16 update kernel has {SMEM_MAX}")
-    return dyn
+            f"actor-critic O={O}, A={A}, hidden={hidden}: the bf16 update "
+            "kernel takes O <= 32 and A <= 16 with 1-4 hidden layers of at "
+            "most 64 units or 1-2 of at most 128, and O <= 64 and A <= 32 "
+            "with 1-2 hidden layers of at most 64 units or 1 of at most 128")
+    return dict(H=H, layers=NL, KP=KP, HA=HA)
 
 
 def _rounded(x, dtype):
@@ -222,59 +201,90 @@ def ppo_update_plain(flat, obs, pre, old_logp, adv, ret, clip: float = 0.2,
     return loss.detach(), list(grads)
 
 
-def _launch(entry, consts_fn, plan, smem, layout, layout_dev, flat, obs,
-            pre, old_logp, adv, ret, clip, vf_coef, ent_coef, pre_tanh_reg):
-    """Check the inputs and the library's constants, pack the weights and
-    launch ``entry`` on the current stream; returns ``(loss, grads)``."""
+class _Launch:
+    """What a launch of either mode needs that does not change from call
+    to call, checked once against the library: its layout size and
+    constants against the wrapper's plan, and for the bf16 mode the
+    instance's shared memory, which the library reports; the layout ints
+    on the card."""
+
+    def __init__(self, layout: MlpLayout, M: int, bf16: bool, device):
+        from ._build import library
+
+        # the plan before the library: it refuses a net no kernel takes
+        if bf16:
+            plan = ppo_update_bf16_plan(layout)
+            self.entry = "ppo_update_bf16_launch"
+            self.extra = (plan["H"], plan["layers"], plan["KP"], plan["HA"])
+            consts_fn, tile = "ppo_bf16_kernel_consts", _BF16_TS
+            want, names = (_BF16_THREADS, _BF16_TS), "threads, tile"
+        else:
+            self.entry = "ppo_update_launch"
+            self.smem, self.extra = ppo_update_smem_bytes(layout), ()
+            consts_fn, tile = "ppo_kernel_consts", _TS
+            want = (_THREADS, _TS, _MAXQ, _MAXB)
+            names = "threads, tile, slots, bias slots"
+        self.G = min(_MAX_BLOCKS, -(-M // tile))
+        lib = library()
+        if lib.ppo_layout_ints() != LAYOUT_INTS:
+            raise RuntimeError("MLP layout differs from the kernel's")
+        consts = (ctypes.c_int * len(want))()
+        getattr(lib, consts_fn)(consts)
+        if tuple(consts) != want:
+            raise RuntimeError(f"update kernel built with {tuple(consts)} "
+                               f"({names}); the wrapper plans for {want}")
+        if bf16:
+            self.smem = lib.ppo_bf16_smem_bytes(*self.extra)
+            if not 0 < self.smem <= SMEM_MAX:
+                raise RuntimeError(
+                    f"bf16 update kernel instance {self.extra}: shared "
+                    f"memory {self.smem} (-1: not built); the card has "
+                    f"{SMEM_MAX}")
+        self.layout = layout
+        self.layout_dev = torch.as_tensor(layout.ints, device=device)
+
+
+def _launch(prep: _Launch, flat, obs, pre, old_logp, adv, ret, clip,
+            vf_coef, ent_coef, pre_tanh_reg):
+    """Check the inputs, pack the weights and launch ``prep``'s entry on
+    the current stream; returns ``(loss, grads)``."""
     from ._build import check, library
     from .supplychain_collect import _check
 
-    device = obs.device
-    if device.type != "cuda":
-        raise ValueError("the update kernel runs on a CUDA device")
+    layout, device = prep.layout, obs.device
+    if device.type != "cuda" or prep.layout_dev.device != device:
+        raise ValueError("the update kernel runs on the CUDA device it was "
+                         "prepared for")
     O, A, M = layout.O, layout.A, obs.shape[-1]
     f32 = torch.float32
-    _check(layout_dev, "layout", torch.int32, (LAYOUT_INTS,), device)
     _check(obs, "obs", f32, (O, M), device)
     _check(pre, "pre", f32, (A, M), device)
     for name, x in (("old_logp", old_logp), ("adv", adv), ("ret", ret)):
         _check(x, name, f32, (M,), device)
-    lib = library()
-    if lib.ppo_layout_ints() != LAYOUT_INTS:
-        raise RuntimeError("MLP layout differs from the kernel's")
-    consts = (ctypes.c_int * 4)()
-    getattr(lib, consts_fn)(consts)
-    if tuple(consts) != plan:
-        raise RuntimeError(f"update kernel built with {tuple(consts)} "
-                           "(threads, tile, slots, bias slots); the wrapper "
-                           f"plans for {plan}")
     flat = flat_params(flat)
     weights = layout.pack(flat)
-    G = min(_MAX_BLOCKS, -(-M // _TS))
-    part = torch.empty((G, layout.P), dtype=f32, device=device)
+    part = torch.empty((prep.G, layout.P), dtype=f32, device=device)
     out = torch.empty((layout.P,), dtype=f32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        code = getattr(lib, entry)(
-            layout_dev.data_ptr(), weights.data_ptr(), smem, G,
-            obs.data_ptr(), pre.data_ptr(), old_logp.data_ptr(),
+        code = getattr(library(), prep.entry)(
+            prep.layout_dev.data_ptr(), weights.data_ptr(), prep.smem,
+            prep.G, obs.data_ptr(), pre.data_ptr(), old_logp.data_ptr(),
             adv.data_ptr(), ret.data_ptr(), M, clip, 1.0 / M, vf_coef / M,
             ent_coef, pre_tanh_reg / (A * M), 2.0 * pre_tanh_reg / (A * M),
-            part.data_ptr(), out.data_ptr(), layout.P, stream)
-    check(code, entry)
+            part.data_ptr(), out.data_ptr(), layout.P, stream, *prep.extra)
+    check(code, prep.entry)
     return out[-2] + out[-1], layout.unflat_grads(out, flat)
 
 
-def launch_ppo_update(layout: MlpLayout, layout_dev: torch.Tensor,
-                      flat, obs, pre, old_logp, adv, ret, clip: float,
-                      vf_coef: float, ent_coef: float, pre_tanh_reg: float):
-    """Launch the CUDA update kernel on the current stream.  ``layout_dev``
-    is ``layout.ints`` on the card.  Returns ``(loss, grads)``, grads as
-    views of one buffer, shaped like ``flat``."""
-    out = _launch("ppo_update_launch", "ppo_kernel_consts",
-                  (_THREADS, _TS, _MAXQ, _MAXB), ppo_update_smem_bytes(layout),
-                  layout, layout_dev, flat, obs, pre, old_logp, adv, ret,
-                  clip, vf_coef, ent_coef, pre_tanh_reg)
+def launch_ppo_update(prep: _Launch, flat, obs, pre, old_logp, adv, ret,
+                      clip: float, vf_coef: float, ent_coef: float,
+                      pre_tanh_reg: float):
+    """Launch the CUDA update kernel on the current stream, as ``prep``
+    (made once by ``make_ppo_update_grads``) plans it.  Returns ``(loss,
+    grads)``, grads as views of one buffer, shaped like ``flat``."""
+    out = _launch(prep, flat, obs, pre, old_logp, adv, ret, clip, vf_coef,
+                  ent_coef, pre_tanh_reg)
     launch_ppo_update.launches += 1
     return out
 
@@ -282,18 +292,13 @@ def launch_ppo_update(layout: MlpLayout, layout_dev: torch.Tensor,
 launch_ppo_update.launches = 0
 
 
-def launch_ppo_update_bf16(layout: MlpLayoutBf16, layout_dev: torch.Tensor,
-                           flat, obs, pre, old_logp, adv, ret, clip: float,
-                           vf_coef: float, ent_coef: float,
+def launch_ppo_update_bf16(prep: _Launch, flat, obs, pre, old_logp, adv, ret,
+                           clip: float, vf_coef: float, ent_coef: float,
                            pre_tanh_reg: float):
-    """Launch the bf16 update kernel (tensor-core products) on the current
-    stream; as ``launch_ppo_update`` with ``layout.ints`` of an
-    ``MlpLayoutBf16``."""
-    out = _launch("ppo_update_bf16_launch", "ppo_bf16_kernel_consts",
-                  (_THREADS, _TS, _BF16_MAXQ, _MAXB),
-                  ppo_update_bf16_smem_bytes(layout), layout, layout_dev,
-                  flat, obs, pre, old_logp, adv, ret, clip, vf_coef, ent_coef,
-                  pre_tanh_reg)
+    """Launch the bf16 update kernel (warpgroup tensor-core products) on the
+    current stream; as ``launch_ppo_update``."""
+    out = _launch(prep, flat, obs, pre, old_logp, adv, ret, clip, vf_coef,
+                  ent_coef, pre_tanh_reg)
     launch_ppo_update_bf16.launches += 1
     return out
 
@@ -318,7 +323,7 @@ def make_ppo_update_grads(obs_dim: int, act_dim: int, hidden, M: int,
         raise ValueError(f"compute_dtype {compute_dtype}: the update kernel "
                          "takes None (float32) or torch.bfloat16")
     bf16 = compute_dtype is not None
-    layout = (MlpLayoutBf16 if bf16 else MlpLayout)(obs_dim, act_dim, hidden)
+    layout = MlpLayout(obs_dim, act_dim, hidden)
     launch = launch_ppo_update_bf16 if bf16 else launch_ppo_update
     consts = dict(clip=float(clip), vf_coef=float(vf_coef),
                   ent_coef=float(ent_coef), pre_tanh_reg=float(pre_tanh_reg))
@@ -330,11 +335,10 @@ def make_ppo_update_grads(obs_dim: int, act_dim: int, hidden, M: int,
         if obs.device.type == "cpu":
             return ppo_update_plain(params, obs, pre, old_logp, adv, ret,
                                     compute_dtype=compute_dtype, **consts)
-        if obs.device not in cache:
-            cache[obs.device] = torch.as_tensor(layout.ints,
-                                                device=obs.device)
-        return launch(layout, cache[obs.device], params, obs, pre, old_logp,
-                      adv, ret, **consts)
+        if obs.device not in cache:        # the library checked once
+            cache[obs.device] = _Launch(layout, M, bf16, obs.device)
+        return launch(cache[obs.device], params, obs, pre, old_logp, adv,
+                      ret, **consts)
 
     return grads
 

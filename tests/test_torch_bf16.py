@@ -47,9 +47,9 @@ from gym_supplychain_tpu_torch.core.compile import compile_chain  # noqa: E402
 from gym_supplychain_tpu_torch.learn import ppo  # noqa: E402
 from gym_supplychain_tpu_torch.models.policy import (  # noqa: E402
     actor_critic_forward, params_from_jax)
-from gym_supplychain_tpu_torch.ops._mlp import MlpLayoutBf16  # noqa: E402
+from gym_supplychain_tpu_torch.ops._mlp import MlpLayout  # noqa: E402
 from gym_supplychain_tpu_torch.ops.ppo_update import (  # noqa: E402
-    make_ppo_update_grads, ppo_update_bf16_smem_bytes, ppo_update_bf16_tiles)
+    _BF16_INSTANCES, make_ppo_update_grads, ppo_update_bf16_plan)
 
 from . import test_torch_ppo as ppo_tests  # noqa: E402
 from .test_torch_ppo import _leaves, _update_data  # noqa: E402
@@ -221,53 +221,37 @@ def test_ppo_improves_bf16_learner():
     assert np.linalg.norm(delta(initmb, stepmb)) > 0
 
 
-@pytest.mark.parametrize("O,A,hidden,tiles,smem", [
-    (27, 14, (128, 128), (176, 176), 203680),   # ntom, the trainer's widths
-    (6, 3, (32, 32), (14, 14), 53280),
+@pytest.mark.parametrize("O,A,hidden,instance", [
+    (27, 14, (128, 128), (128, 2, 32, 16)),     # ntom, the trainer's widths
+    (6, 3, (32, 32), (64, 2, 32, 16)),          # a small width pads to 64
+    (27, 14, (37,), (64, 1, 32, 16)),
+    (13, 5, (33, 17, 9), (64, 3, 32, 16)),
+    (27, 14, (64, 32, 16, 8), (64, 4, 32, 16)),
+    (27, 14, (65,), (128, 1, 32, 16)),          # one unit past 64
+    # the multi-product chains: 64 obs rows, 32 head rows
+    (53, 28, (64, 64), (64, 2, 64, 32)),
+    (53, 28, (128,), (128, 1, 64, 32)),
+    (33, 3, (48,), (64, 1, 64, 32)),            # obs alone past 32
+    (6, 17, (16, 16), (64, 2, 64, 32)),         # actions alone past 16
 ])
-def test_bf16_update_kernel_plan(O, A, hidden, tiles, smem):
-    """The bf16 kernel's 16x8 weight-gradient tiles (at most 12 a warp of
-    16) and its shared memory: the net's section, bf16 tiles [pad16][72],
-    float32 copies [pad16][68], the head, z and log-prob terms, two input
-    slots."""
-    layout = MlpLayoutBf16(O, A, hidden)
-    assert ppo_update_bf16_tiles(layout) == tiles
-    assert ppo_update_bf16_smem_bytes(layout) == smem
+def test_bf16_update_kernel_plan(O, A, hidden, instance):
+    """The bf16 kernel's instance: hidden layers padded to H = 64 or 128,
+    the obs to 32 or 64 rows, the heads to 16 or 32, one of the instances
+    the wrapper knows (their shared memory and registers are held on the
+    card: ``test_bf16_instances_fit_the_card``)."""
+    plan = ppo_update_bf16_plan(MlpLayout(O, A, hidden))
+    assert (plan["H"], plan["layers"], plan["KP"], plan["HA"]) == instance
+    assert instance[1] in _BF16_INSTANCES[instance[0], instance[2],
+                                          instance[3]]
 
 
-@pytest.mark.parametrize("O,hidden,what", [
-    (27, (128, 256), "tiles"),          # 8*4 + 8*32 + 1*32 > 12 * 16
-    (300, (16,), "shared memory"),      # the obs slots alone: 175 KB
+@pytest.mark.parametrize("O,A,hidden", [
+    (27, 14, (128, 128, 128)),      # three layers wider than 64
+    (27, 14, (256,)),               # wider than 128
+    (53, 28, (64, 64, 64)),         # multiproduct: three layers, wide obs
+    (53, 28, (128, 128)),           # multiproduct: two layers past 64
+    (79, 60, (64,)),                # obs past 64 rows, actions past 32
 ])
-def test_bf16_update_kernel_plan_refuses_what_does_not_fit(O, hidden, what):
-    with pytest.raises(NotImplementedError, match=what):
-        ppo_update_bf16_smem_bytes(MlpLayoutBf16(O, 14, hidden))
-
-
-def test_bf16_layout_packs_rounded_padded_weights():
-    """``MlpLayoutBf16.pack``: each layer's w as bfloat16 ``[pad16(J),
-    pad16(K) + 8]`` (zero past [J, K]), then its float32 bias, log_std in
-    the actor's section."""
-    O, A, hidden = 6, 3, (20,)
-    tree = _tree(O, A, hidden, 3, mu_scale=10.0)
-    model = params_from_jax(tree, device="cpu")
-    layout = MlpLayoutBf16(O, A, hidden)
-    buf = layout.pack(model.flat())
-    assert buf.dtype == torch.float32 and buf.numel() == sum(layout.wsec)
-    start = 0
-    for net, (head, trunk) in enumerate(((tree["mu"], tree["actor"]),
-                                         (tree["v"], tree["critic"]))):
-        sec = buf[start:start + layout.wsec[net]]
-        for (K, J, Jp, w_off, b_off, *_), layer in zip(
-                layout.layers_bf16[net], trunk + [head]):
-            ldw = -(-K // 16) * 16 + 8
-            w = sec.view(BF16)[w_off:w_off + Jp * ldw].view(Jp, ldw).float()
-            want = torch.from_numpy(layer["w"]).to(BF16).float()
-            assert torch.equal(w[:J, :K], want)
-            assert not w[J:].any() and not w[:, K:].any()
-            np.testing.assert_array_equal(sec[b_off:b_off + J].numpy(),
-                                          layer["b"].ravel())
-        start += layout.wsec[net]
-    np.testing.assert_array_equal(
-        buf[layout.ls_woff:layout.ls_woff + A].numpy(),
-        tree["log_std"].ravel())
+def test_bf16_update_kernel_plan_refuses_what_does_not_fit(O, A, hidden):
+    with pytest.raises(NotImplementedError, match="bf16 update kernel takes"):
+        ppo_update_bf16_plan(MlpLayout(O, A, hidden))

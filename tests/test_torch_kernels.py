@@ -340,6 +340,16 @@ def _check_ppo_update_kernel(O, A, hidden, M, model, data):
     (13, 5, (33, 17, 9), 64 * 7 + 5),       # three odd widths
     (27, 14, (128, 128), 64 * 40 + 63),     # the trainer's widths
     (27, 14, (64, 32, 16, 8), 3000),        # four hidden layers
+    # ragged: the last 128-sample tile's second warpgroup has no sample
+    (27, 14, (128, 128), 128 * 20 + 17),
+    # the instances <128,1> (two 64-feature chunks held in registers) and
+    # <64,2>, ragged
+    (27, 14, (128,), 128 * 13 + 77),
+    (27, 14, (64, 64), 128 * 9 + 100),
+    # 64 obs rows and 32 head rows: the multi-product chains (O 53, A 28)
+    (53, 28, (64, 64), 128 * 11 + 45),
+    (53, 28, (128,), 128 * 12 + 64),
+    (33, 17, (48,), 128 * 5 + 3),
 ])
 def test_ppo_update_bf16_kernel_matches_plain_and_repeats(O, A, hidden, M):
     """The bf16 update kernel (tensor-core products) against its plain bf16
@@ -388,6 +398,32 @@ def test_ppo_update_bf16_kernel_matches_plain_and_repeats(O, A, hidden, M):
     assert cos(flat(gk), flat(gp)) >= 0.9999
     # as near the float32 gradients as the bf16 computation itself
     assert cos(flat(gk), flat(g32)) >= cos(flat(gp), flat(g32)) - 1e-4
+
+
+@pytest.mark.cuda
+def test_bf16_instances_fit_the_card():
+    """Every instance of the bf16 update kernel the wrapper plans for is
+    built: its shared memory (the library's figure) fits a block, and
+    ptxas gives it at most 255 registers, no spill and no stack."""
+    import re
+
+    from gym_supplychain_tpu_torch.ops import _build
+    from gym_supplychain_tpu_torch.ops._mlp import SMEM_MAX
+    from gym_supplychain_tpu_torch.ops.ppo_update import _BF16_INSTANCES
+
+    _device()
+    want = {(H, NL, KP, HA) for (H, KP, HA), layers in _BF16_INSTANCES.items()
+            for NL in layers}
+    lib = _build.library()
+    for inst in want:
+        assert 0 < lib.ppo_bf16_smem_bytes(*inst) <= SMEM_MAX, inst
+    rows = _build.ptxas_report("ppo_grad_bf16_kernel")
+    built = {tuple(int(x) for x in re.findall(
+        r"-?\d+", r["function"].partition("<")[2])) for r in rows}
+    assert built == want
+    for r in rows:
+        assert r["registers"] <= 255, r
+        assert r["spill_stores"] == r["spill_loads"] == r["stack"] == 0, r
 
 
 @pytest.mark.cuda
