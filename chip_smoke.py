@@ -13,8 +13,9 @@ three chains (26, 40 and 8 nodes) at 4096 envs, horizon 360, the
 beer-game episode sweep at 4096 envs, collection, training and
 evaluation on normal and seasonal demand drawn in the kernels, the bf16
 learner (the update kernel's tensor-core mode), the beer game's
-trainer, evaluator and order-up-to baseline, and the host-parity MT19937
-streams with the reference-compatible single envs.
+trainer, evaluator and order-up-to baseline, the host-parity MT19937
+streams with the reference-compatible single envs, and data-parallel
+training over processes with the bf16 update on every net it takes.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -113,6 +114,20 @@ Phases, in order; any failure exits nonzero:
      through the strict-obs single envs on the card at
      ``tests/test_recorded_trajectory.py``'s tolerances, single-env
      steps/s
+  16. (a) K2's bf16 mode on every net of ``RESTORED_NETS`` (the packed-dH
+     wgmma instance and the mma.sync kernel), at the trainer's M against
+     its plain bf16 version at phase 14's gates, timed; the train CLI with
+     ``--learner-dtype bf16`` on two of them (both bf16 kernels launched);
+     (b) ``benchmarks/multihost_scaling.py`` on ``supplychain-ntom-v0`` at
+     8192 global envs (``BASELINE.json``'s north-star config), 1 process,
+     then 2 ranks of 4096 sharing ``cuda:0`` over gloo: the first
+     iteration's loss, mean reward and mean value within 1e-4 x max(1,
+     |v|) of 1 process's, the ranks' parameters bit-equal, a checkpoint
+     the 2 ranks wrote resuming bit for bit, global train env-steps/s of
+     both (two processes time-sharing one card: not a scaling figure) and
+     the all-reduce's ms an iteration; (c) one ``ppo-ntom-fused``
+     iteration traced by ``utils/profiling.py::trace``, the card's busy
+     share of the traced window (the union of its kernels' intervals)
 The line before the last is a JSON summary of the kernels, each with its
 bound: the larger of the bytes it must move over 3.35 TB/s and the float32
 operations it must do over 67 TFLOP/s, the bf16 K2's over the tensor
@@ -164,6 +179,20 @@ HOST_LANES = (0, 1, ENVS - 1)   # phase 15: lanes held against single envs
 BG_HOST_ENVS = 1024        # phase 15: the beer game's host mode
 REF_OBS_ATOL = 5e-7        # phase 15: the recorded reference's tolerances
 REF_REW_RTOL, REF_REW_ATOL = 1e-6, 1e-2
+# phase 16: the nets of K2's bf16 mode that the wgmma kernel's first
+# instances did not hold (the packed-dH instance <64,3,64,32> or the mma.sync
+# kernel runs them): the chain whose obs and actions they take, and their
+# hidden widths
+RESTORED_NETS = (("sc-2perstage-multiproduct-v0", (64, 64, 64)),
+                 ("sc-2perstage-multiproduct-v0", (32, 32, 32)),
+                 ("sc-2perstage-multiproduct-v0", (64, 128)),
+                 ("sc-2perstage-multiproduct-v0", (128, 64)),
+                 ("sc-Nperstage-multiproduct-v0", (64,)),
+                 ("sc-Nperstage-multiproduct-v0", (32, 32)),
+                 ("supplychain-ntom-v0", (256,)))
+MULTI_ENVS = 2 * ENVS      # phase 16: BASELINE.json's ntom at 8192 envs
+MULTI_ITERS = 5            # phase 16: timed iterations a process count
+MULTI_TOL = 1e-4           # phase 16: 2 ranks against 1 process, x max(1, |v|)
 
 
 def _cmd(args):
@@ -1955,7 +1984,157 @@ def phase_host_streams(B, seed, dev="cuda"):
     return dict(sc=sc, bg=bg)
 
 
-def _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, hs, sc_errs,
+def _bf16_net(env_id, hidden, seed, dev):
+    """Phase 16 (a): K2's bf16 mode on one net against its plain bf16
+    version at phase 14's gates, on phase 7's kind of inputs at the
+    trainer's M; timed.  Returns the net's row."""
+    import torch
+    import gym_supplychain_tpu_torch as sct
+    from gym_supplychain_tpu_torch.models.policy import ActorCritic, MLPConfig
+    from gym_supplychain_tpu_torch.ops import ppo_update as pu
+    from gym_supplychain_tpu_torch.ops._mlp import MlpLayout
+
+    bf16 = torch.bfloat16
+    cc = sct.make_chain(env_id, total_time_steps=TRAIN_T)
+    O, A, M = cc.obs_dim, cc.A, TRAIN_T * ENVS
+    lay = MlpLayout(O, A, hidden)
+    plan = pu.ppo_update_bf16_plan(lay)
+    model = ActorCritic(MLPConfig(O, A, hidden),
+                        torch.Generator().manual_seed(seed), dev)
+    data = _update_data(cc, model, M, seed, dev)
+    gf = pu.make_ppo_update_grads(O, A, hidden, M, compute_dtype=bf16)
+    lk, gk = gf(model, *data)
+    lk2, gk2 = gf(model, *data)
+    lp, gp = pu.ppo_update_plain(model, *data, compute_dtype=bf16)
+    torch.cuda.synchronize()
+    rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    per = max(float((a - b).abs().max()) / float(b.abs().max())
+              for a, b in zip(gk, gp))
+    err = max(float((a - b).abs().max()) for a, b in zip(gk, gp))
+    cos = _flat_cos(gk, gp)
+    same = torch.equal(lk, lk2) and all(torch.equal(a, b)
+                                        for a, b in zip(gk, gk2))
+    card = statistics.median(_back_to_back(lambda: gf(model, *data),
+                                           BACK_TO_BACK)[0] for _ in range(3))
+    plain_ms, _ = _timed(lambda: pu.ppo_update_plain(
+        model, *data, compute_dtype=bf16), 2)
+    macs = 3 * _macs(lay, [0, 1]) - O * 2 * hidden[0]
+    bound = _bound(4 * (M * (O + A + 3) + 2 * lay.n_params), 2 * macs * M,
+                   PEAK_BF16)
+    name = (f"wgmma <{plan['H']},{plan['layers']},{plan['KP']},{plan['HA']}>"
+            if plan["kernel"] == "wgmma" else "mma.sync")
+    ok = rel <= 1e-3 and per <= 1e-2 and cos >= 0.9999 and same
+    print(f"  (a) {env_id} (O {O}, A {A}), hidden {hidden}, M={M}: {name}; "
+          f"loss {float(lk):.8f} / plain {float(lp):.8f} ({rel:.3e} "
+          f"relative, tol 1e-3); largest tensor error / its max {per:.3e} "
+          f"(tol 1e-2); flat cosine {cos:.8f} (>= 0.9999); two launches "
+          f"bit-identical {same}; {card:.4f} ms a call on the card "
+          f"({BACK_TO_BACK} back to back, median of 3), plain bf16 autograd "
+          f"{plain_ms:.3f} ms; bound {bound[0]:.4f} ms ({bound[1]}: "
+          f"{2 * macs * M / 1e9:.2f} GFLOP at 989 TFLOP/s bf16)")
+    if not ok:
+        raise RuntimeError(f"ppo_update bf16 {name} on {env_id} {hidden}: "
+                           "kernel disagrees with its plain version or does "
+                           "not repeat")
+    return dict(env=env_id, hidden=hidden, kernel=plan["kernel"], err=err,
+                ms=card, plain_ms=plain_ms, bound=bound)
+
+
+def phase_multihost(seed):
+    """Phase 16: (a) K2's bf16 mode on every net of ``RESTORED_NETS``,
+    then the train CLI with the bf16 learner on two of them; (b) the
+    data-parallel trainer at BASELINE.json's ntom 8192 envs on 2 ranks of
+    4096 sharing the card over gloo, against 1 process at 8192
+    (``benchmarks/multihost_scaling.py``); (c) one traced ``ppo-ntom-fused``
+    iteration and the card's busy share of it."""
+    import tempfile
+
+    import torch
+    import gym_supplychain_tpu_torch as sct
+    from gym_supplychain_tpu_torch.benchmarks import multihost_scaling
+    from gym_supplychain_tpu_torch.learn import ppo, train
+    from gym_supplychain_tpu_torch.ops import ppo_update as pu
+    from gym_supplychain_tpu_torch.ops import supplychain_collect as scc
+    from gym_supplychain_tpu_torch.utils.profiling import (kernel_busy_share,
+                                                           trace)
+
+    dev = torch.device("cuda")
+    print("phase 16: the nets K2's bf16 mode takes again; data-parallel "
+          "training over processes; a traced iteration")
+    nets = [_bf16_net(env_id, hidden, seed, dev)
+            for env_id, hidden in RESTORED_NETS]
+    # the user's path: the train CLI with the bf16 learner on the restored
+    # mma.sync kernel's net and on the new wgmma instance's
+    launchers = (scc.launch_supplychain_policy, pu.launch_ppo_update_bf16,
+                 pu.launch_ppo_update_bf16_mma)
+    for fn in launchers:
+        fn.launches = 0
+    for hidden in ((64, 128), (64, 64, 64)):
+        _, m = train.main(["--env", "sc-2perstage-multiproduct-v0", "--envs",
+                           str(ENVS), "--horizon", str(TRAIN_T), "--hidden",
+                           *map(str, hidden), "--learner-dtype", "bf16",
+                           "--iters", "2", "--log-every", "1", "--seed",
+                           str(seed)])
+        if not math.isfinite(float(m["loss"])):
+            raise RuntimeError(f"train CLI bf16 {hidden}: loss not finite")
+    counts = {fn.__name__: fn.launches for fn in launchers}
+    print(f"  (a) launch counts of the two CLI runs: {counts}")
+    if min(counts.values()) < 1:
+        raise RuntimeError("phase 16 (a): a kernel of the bf16 path was not "
+                           "launched")
+
+    # (b) 1 process at 8192, then 2 ranks of 4096 on cuda:0 over gloo
+    smi = _cmd(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"])
+    r1, r2 = multihost_scaling.run((1, 2), envs=MULTI_ENVS, horizon=TRAIN_T,
+                                   hidden=HIDDEN, epochs=2,
+                                   iters=MULTI_ITERS, seed=seed,
+                                   device="cuda")
+    diffs = {k: abs(r2["first"][k] - r1["first"][k])
+             / max(1.0, abs(r1["first"][k])) for k in r1["first"]}
+    print(f"  (b) supplychain-ntom-v0, {MULTI_ENVS} global envs, hidden "
+          f"{HIDDEN}, T={TRAIN_T}, epochs 2, 1 minibatch: 1 process against "
+          f"2 ranks of {MULTI_ENVS // 2} on one card over {r2['backend']}")
+    print(f"  (b) first iteration, 1 process {r1['first']}, 2 ranks "
+          f"{r2['first']}; |diff| / max(1, |v|) {diffs} (tol {MULTI_TOL:g}); "
+          f"parameters bit-equal on the ranks {r2['replicated']}; the 2-rank "
+          f"checkpoint resumes bit for bit {r2['resume_bit_exact']} (1 "
+          f"process: {r1['resume_bit_exact']}); launches over the ranks "
+          f"{r2['launches']}")
+    print(f"  (b) {smi}: global train env-steps/s, 1 process "
+          f"{r1['train_env_steps_per_s']:.1f} ({r1['iter_ms']:.3f} ms an "
+          f"iteration); 2 processes sharing one card "
+          f"{r2['train_env_steps_per_s']:.1f} ({r2['iter_ms']:.3f} ms; one "
+          f"card time-shared by two processes, not a scaling figure); "
+          f"all-reduce {r2['allreduce_ms_per_call']:.4f} ms a call x "
+          f"{r2['allreduce_calls_per_iter']:g} calls = "
+          f"{r2['allreduce_ms_per_iter']:.4f} ms an iteration")
+    if not (max(diffs.values()) <= MULTI_TOL and r2["replicated"]
+            and r2["resume_bit_exact"] and r1["resume_bit_exact"]
+            and min(r2["launches"].values()) >= 1):
+        raise RuntimeError("phase 16 (b): the 2-rank run disagrees with 1 "
+                           "process, the ranks differ, the resume is not "
+                           "exact or a kernel was not launched")
+
+    # (c) one traced iteration of ppo-ntom-fused (after a warm one)
+    cc = sct.make_chain("supplychain-ntom-v0", total_time_steps=TRAIN_T)
+    cfg = ppo.PPOConfig(epochs=2, hidden=HIDDEN, fused_update=True)
+    init_fn, step = ppo.make_ppo_fused(cc, ENVS, cfg, device=dev)
+    state, _ = step(init_fn(seed))
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            state, m = step(state)
+            torch.cuda.synchronize()
+        busy = kernel_busy_share(f"{tmp}/trace.rank0.json")
+    print(f"  (c) one traced ppo-ntom-fused iteration (B={ENVS}): "
+          f"{busy['kernels']} kernel events, the card busy "
+          f"{busy['busy_ms']:.3f} ms of a {busy['window_ms']:.3f} ms window: "
+          f"busy share {busy['share']:.4f}, idle {1 - busy['share']:.4f}")
+    return dict(nets=nets, bf16_counts=counts, r1=r1, r2=r2, busy=busy)
+
+
+def _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, hs, mh, sc_errs,
                   bg_errs, pol_errs, pu_errs, ep_errs, dm_errs):
     """The ``kernels`` summary: each kernel with its main-path launches,
     its error against plain, its time, its plain version's and its bound
@@ -2054,6 +2233,28 @@ def _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, hs, sc_errs,
     line("beergame_collect[host beergame-v2]", "beergame_collect.cu",
          "gym_supplychain_tpu/ops/beergame_pallas.py:149", r["launches"],
          r["err"], r["ms"], r["plain_ms"], r["bound"])
+    # phase 16: the bf16 mode's mma.sync kernel (its first net's time and
+    # bound, the largest error over its nets), launched by the train CLI
+    mma = [n for n in mh["nets"] if n["kernel"] == "mma"]
+    n = mma[0]
+    line(f"ppo_update[bf16 mma.sync, {n['env']} {list(n['hidden'])}]",
+         "ppo_update_bf16_mma.cu",
+         "gym_supplychain_tpu/ops/ppo_update_pallas.py:91",
+         mh["bf16_counts"]["launch_ppo_update_bf16_mma"],
+         max(x["err"] for x in mma), n["ms"], n["plain_ms"], n["bound"])
+    # phase 16 (b): K1 `policy` and K2 on each of 2 ranks of 4096 lanes
+    # (phases 6-8's shape and times); launches summed over the ranks
+    r2 = mh["r2"]["launches"]
+    for name, source, replaces, key, err, ms, plain_ms, base in (
+            ("supplychain_collect[policy, 2 ranks]", "supplychain_policy.cu",
+             f"{sc_pallas}:791", "supplychain_collect[policy]",
+             max(pol_errs), tr["k1"]["ms"], tr["k1"]["plain_ms"],
+             lines[len(res)]),
+            ("ppo_update[2 ranks]", "ppo_update.cu",
+             "gym_supplychain_tpu/ops/ppo_update_pallas.py:91", "ppo_update",
+             max(pu_errs), upd["ms"], upd["plain_ms"], lines[len(res) + 1])):
+        line(name, source, replaces, r2[key], err, ms, plain_ms,
+             (base["bound_ms"], base["bound_by"]))
     return lines
 
 
@@ -2094,8 +2295,8 @@ def main(argv=None) -> int:
     print(f"kernel build {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
     for kernel in ("ppo_grad_kernel", "ppo_grad_bf16_kernel",
-                   "sc_lane_kernel", "sc_policy_lane_kernel",
-                   "bg_collect_kernel"):
+                   "ppo_grad_bf16_mma_kernel", "sc_lane_kernel",
+                   "sc_policy_lane_kernel", "bg_collect_kernel"):
         rows = _build.ptxas_report(kernel)
         if not rows:
             raise RuntimeError(f"no ptxas report for {kernel}")
@@ -2103,9 +2304,12 @@ def main(argv=None) -> int:
             print(f"  ptxas {r['function']}: {r['registers']} registers, "
                   f"spill stores {r['spill_stores']} B, spill loads "
                   f"{r['spill_loads']} B, stack {r['stack']} B a thread")
-            # the bf16 K2's budget holds everything in registers
-            if kernel == "ppo_grad_bf16_kernel" and (
-                    r["spill_stores"] or r["spill_loads"] or r["stack"]):
+            # the bf16 K2s spill nothing; the wgmma kernel's budget holds
+            # everything in registers (the mma.sync kernel indexes its
+            # layers' tile pointers from a stack frame)
+            if kernel.startswith("ppo_grad_bf16") and (
+                    r["spill_stores"] or r["spill_loads"]
+                    or (r["stack"] and kernel == "ppo_grad_bf16_kernel")):
                 raise RuntimeError(f"{r['function']} spills or uses a stack")
 
     B = ENVS
@@ -2126,8 +2330,9 @@ def main(argv=None) -> int:
     dm = phase_demand(B, args.seed, dm_errs)
     bf = phase_bf16_beergame(args.seed)
     hs = phase_host_streams(B, args.seed)
+    mh = phase_multihost(args.seed)
 
-    kernels = _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, hs,
+    kernels = _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, hs, mh,
                             sc_errs, bg_errs, pol_errs, pu_errs, ep_errs,
                             dm_errs)
     print(json.dumps({"kernels": kernels}))

@@ -1,7 +1,7 @@
 """gym-supplychain-tpu-torch: gym-supplychain-tpu on PyTorch, with
 hand-written CUDA kernels for Hopper (H100).
 
-Seven slices are ported.  Rollouts: batched supply-chain and beer-game
+Eight slices are ported.  Rollouts: batched supply-chain and beer-game
 environments stepped in lockstep with auto-reset (``envs.vector``), their
 eager step engines (``core``), Philox random streams (``rng.device``) and
 whole-episode trajectory collection (``ops``).  Training: the tanh-Gaussian
@@ -29,7 +29,12 @@ reference-compatible surface: the host MT19937 streams (``rng.host``, the
 native generator ``native``, ``rng.gym_compat``), the vec envs' host modes,
 the single envs with strict observations (``envs.single``,
 ``envs.presets``, ``envs.beergame``), ``make`` over every id and the
-gymnasium adapters (``envs.gym_registry``).  Entry points run on the card
+gymnasium adapters (``envs.gym_registry``).  Data-parallel training over
+processes: the process group and its mesh (``parallel.mesh``), the
+trainers' ``mesh=`` forms, multi-process checkpoints, device traces
+(``utils.profiling.trace``), ``--multihost`` / ``--trace-dir`` in the
+train CLI and the scaling benchmark (``python -m
+gym_supplychain_tpu_torch.benchmarks.multihost_scaling``).  Entry points run on the card
 (``device="cuda"``) unless the caller asks for the CPU.  The JAX package
 ``gym_supplychain_tpu`` is the reference the port is tested against; this
 package never imports it, nor jax.

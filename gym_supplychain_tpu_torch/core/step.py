@@ -118,14 +118,15 @@ def _in_edge_index(cc: CompiledChain) -> np.ndarray:
 
 def make_supplychain_kernels(cc: CompiledChain, dtype=torch.float32,
                              debug: bool = False, stateless_rng: bool = False,
-                             device="cuda"):
+                             device="cuda", lane0: int = 0):
     """Build ``(reset_fn, step_fn, obs_fn)`` over a compiled chain.
 
     Table mode: ``reset_fn(demands, leadtimes, B)``.  Stateless mode
     (``stateless_rng=True``): ``reset_fn(key, B)`` with a Philox episode key
     ``(k0, k1)``; every step then draws its demand and lead-time rows from
-    ``rng.device.stateless_step_rows``.  ``step_fn(state, action[A, B])``
-    takes actions in [-1, 1].
+    ``rng.device.stateless_step_rows``, as the lanes from global index
+    ``lane0`` on.  ``step_fn(state, action[A, B])`` takes actions in [-1,
+    1].
     """
     from ..rng.device import stateless_step_rows
 
@@ -200,7 +201,7 @@ def make_supplychain_kernels(cc: CompiledChain, dtype=torch.float32,
     def reset_fn_stateless(key, B: int) -> EnvState:
         """Fresh state from a Philox episode key; demand row 0 drawn now."""
         key = (int(key[0]), int(key[1]))
-        dem0, _ = stateless_step_rows(key, 0, cc, B, dtype, device)
+        dem0, _ = stateless_step_rows(key, 0, cc, B, dtype, device, lane0)
         return _blank_state(dem0, None, B, ep_key=key)
 
     def _sorted_cut(v, s_g, adt):
@@ -251,7 +252,7 @@ def make_supplychain_kernels(cc: CompiledChain, dtype=torch.float32,
         t = state.t + 1
         if stateless_rng:
             dem_next, lt_row_sl = stateless_step_rows(state.ep_key, t, cc, B,
-                                                      dtype, device)
+                                                      dtype, device, lane0)
         a_sup = torch.where(tb["has_supply"][:, :, None],
                             a[tb["sup_act_idx"]], 0.0)            # [N,P,B]
         a_shp = torch.where(ship_mask[..., None], a[tb["ship_act_idx"]],

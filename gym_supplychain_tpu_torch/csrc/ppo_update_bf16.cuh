@@ -41,7 +41,7 @@
 // Instances <H, NL, KP, HA>: hidden layers padded to H = 64 or 128, NL of
 // them, the obs to KP rows and the heads to HA.  With KP = 32 and HA = 16:
 // H 128 with 1-2 hidden layers, H 64 with 1-4; with KP = 64 and HA = 32
-// (the multi-product chains): H 128 with one, H 64 with 1-2.  With H =
+// (the multi-product chains): H 128 with one, H 64 with 1-3.  With H =
 // 128 the weight gradients split by rows over the two warpgroups (rows 64w
 // of every layer, and features 64w of the head), each over the tile's 128
 // samples; with H = 64 each warpgroup holds all 64 rows over its own 64
@@ -68,7 +68,10 @@
 // instances (KP 64, HA 32) hold dW_0 in m64n64 and the head's in m64n32
 // (ptxas: <64,2,64,32> 232 registers, <128,1,64,32> 213, <64,1,64,32>
 // 196, 0 spill bytes, 0 stack); their loss scratch fits no gradient half
-// and takes 53 KB of its own: 223,904 and 228,000 bytes.
+// and takes 53 KB of its own: 223,904 and 228,000 bytes.  <64,3,64,32>
+// moves each warpgroup's dH after its dZ half, which with it holds the
+// scratch (kPackDH): 213,960 bytes where 266,848 would not fit.  The nets
+// no instance takes run on the mma.sync kernel (ppo_update_bf16_mma.cu).
 //
 // Bounds on the card: bf16 tensor-core operations (57.9 GFLOP at ntom,
 // hidden (128, 128), M = 245,760: 0.059 ms at 989 TFLOP/s); device memory
@@ -105,8 +108,19 @@ struct PbSmem {
   static constexpr int kA = kX0 + 2 * KP * 128;          // a_1..a_NL: [l][half]
   static constexpr int kDZ = kA + NL * 2 * kHalf;        // dZ_0..: [half][l]
   static constexpr int kDZHalf = NL * kHalf;
-  static constexpr int kDH = kDZ + 2 * kDZHalf;          // [2 halves][HA][64]
-  static constexpr int kBias = kDH + 2 * HA * 128;       // b_l [H], bh, log_std
+  static constexpr int kDHHalf = HA * 128;       // dH of 64 samples
+  // where no dZ half holds a warpgroup's loss scratch but the half with
+  // the warpgroup's dH after it does, dH moves there: [dZ half w][dH half
+  // w] a warpgroup (the scratch's last rows, dead once the loss is taken,
+  // lie under dH); else the dH halves follow the dZ halves
+  static constexpr bool kPackDH =
+      kDZHalf < kScratchBytes && kDZHalf + kDHHalf >= kScratchBytes;
+  static constexpr int kDZStride = kDZHalf + (kPackDH ? kDHHalf : 0);
+  static constexpr int kDH = kDZ + 2 * kDZStride;        // [2 halves][HA][64]
+  static constexpr int kDHAt = kPackDH ? kDZ + kDZHalf : kDH;   // half 0's
+  static constexpr int kDHStride = kPackDH ? kDZStride : kDHHalf;
+  static constexpr int kBias =                           // b_l [H], bh, log_std
+      kDH + (kPackDH ? 0 : 2 * kDHHalf);
   static constexpr int kBacc = kBias + (NL * H + 2 * HA) * 4;  // [8][NL][H]
   static constexpr int kSlot = kBacc + 8 * NL * H * 4;
   static constexpr int kSlotBytes = kSR * PU_LD * 4;     // a warpgroup's
@@ -115,7 +129,7 @@ struct PbSmem {
   // dZ_0 on; with H = 128 and two or more hidden layers, dZ_0's half holds
   // the last activation's second chunk (float32, [32][128 threads]) from
   // the forward to the head's input gradient
-  static constexpr bool kOverlay = kDZHalf >= kScratchBytes;
+  static constexpr bool kOverlay = kDZStride >= kScratchBytes;
   static constexpr int kScratchAt =
       kHalf >= kScratchBytes ? (NL - 1) * kHalf : 0;
   static constexpr bool kStash = H == 128 && NL >= 2;
@@ -407,7 +421,7 @@ ppo_grad_bf16_kernel(const int* __restrict__ glay,
   // the last hidden layer's float32 activation (its second chunk in
   // shared memory with kStash)
   float aL[S::kStash ? 1 : NC][32];
-  float* stash = reinterpret_cast<float*>(sm + S::kDZ + w * S::kDZHalf) + wt;
+  float* stash = reinterpret_cast<float*>(sm + S::kDZ + w * S::kDZStride) + wt;
 
   const int nP = (M + PB_TS - 1) / PB_TS;
   const int p0 = (int)((long long)g * nP / G);
@@ -425,12 +439,13 @@ ppo_grad_bf16_kernel(const int* __restrict__ glay,
     const float* advs = olps + PU_LD;
     const float* rets = advs + PU_LD;
     float* hbuf = reinterpret_cast<float*>(
-        sm + (S::kOverlay ? S::kDZ + w * S::kDZHalf + S::kScratchAt
+        sm + (S::kOverlay ? S::kDZ + w * S::kDZStride + S::kScratchAt
                           : S::kScratch + w * S::kScratchBytes));
     float* zb = hbuf + HA * PU_LD;
-    float* term = zb + HA * PU_LD;
-    float* dl = term + HA * PU_LD;
+    // with dH packed after the dZ half, term goes last, under dH
+    float* dl = zb + (S::kPackDH ? 1 : 2) * HA * PU_LD;
     float* lossbuf = dl + PU_TS;
+    float* term = S::kPackDH ? lossbuf + PU_TS : zb + HA * PU_LD;
     cp_async_wait0();
     wsync();
 
@@ -516,7 +531,7 @@ ppo_grad_bf16_kernel(const int* __restrict__ glay,
       const float4 v =
           *reinterpret_cast<const float4*>(hbuf + j * PU_LD + 8 * c + 4);
       float s = ((u.x + u.y) + (u.z + u.w)) + ((v.x + v.y) + (v.z + v.w));
-      *reinterpret_cast<uint4*>(sm + S::kDH + w * HA * 128 + j * 128 +
+      *reinterpret_cast<uint4*>(sm + S::kDHAt + w * S::kDHStride + j * 128 +
                                 pb_swz(j, c)) =
           make_uint4(pb_pack(u.x, u.y), pb_pack(u.z, u.w), pb_pack(v.x, v.y),
                      pb_pack(v.z, v.w));
@@ -537,7 +552,7 @@ ppo_grad_bf16_kernel(const int* __restrict__ glay,
       pb_zero(acc);
       pb_pin(acc);
       pb_wg_fence();
-      pb_run<1, 1>(acc, sa + S::kDH + w * HA * 128, 0, 2048,
+      pb_run<1, 1>(acc, sa + S::kDHAt + w * S::kDHStride, 0, 2048,
                    sa + S::kWh + c * HA * 128, 0, 2048, 0, HA / 16);
       pb_commit_wait();
       pb_pin(acc);
@@ -547,7 +562,7 @@ ppo_grad_bf16_kernel(const int* __restrict__ glay,
             S::kStash && c == 1 ? stash[v * 128] : aL[S::kStash ? 0 : c][v];
         acc[v] *= 1.0f - a * a;
       }
-      unsigned char* dst = sm + S::kDZ + w * S::kDZHalf +
+      unsigned char* dst = sm + S::kDZ + w * S::kDZStride +
                            (NL - 1) * S::kHalf + c * 8192;
 #pragma unroll
       for (int v = 0; v < 32; v += 2) pb_st2(dst, wt, v, acc[v], acc[v + 1]);
@@ -569,7 +584,7 @@ ppo_grad_bf16_kernel(const int* __restrict__ glay,
         pb_pin(acc);
         pb_wg_fence();
         pb_forward_mma<H, NL, KP, HA>(ar, i - 1, c, w, O, sa);
-        pb_run<0, 1>(acc, sa + S::kDZ + w * S::kDZHalf + i * S::kHalf, 8192,
+        pb_run<0, 1>(acc, sa + S::kDZ + w * S::kDZStride + i * S::kHalf, 8192,
                      32, sa + S::kW + (i - 1) * S::kWl + c * H * 128, 8192,
                      2048, 0, H / 16);
         pb_commit_wait();
@@ -583,7 +598,7 @@ ppo_grad_bf16_kernel(const int* __restrict__ glay,
           acc[v] *= 1.0f - a0 * a0;
           acc[v + 1] *= 1.0f - a1 * a1;
         }
-        unsigned char* dst = sm + S::kDZ + w * S::kDZHalf +
+        unsigned char* dst = sm + S::kDZ + w * S::kDZStride +
                              (i - 1) * S::kHalf + c * 8192;
 #pragma unroll
         for (int v = 0; v < 32; v += 2) pb_st2(dst, wt, v, acc[v], acc[v + 1]);
@@ -606,18 +621,18 @@ ppo_grad_bf16_kernel(const int* __restrict__ glay,
       pb_wg_fence();
       // head: dWh^T[f][j] += a_NL[t][f] dH[j][t]
       pb_run<1, 0>(dwh, sa + S::kA + (NL - 1) * 2 * S::kHalf + jb * 8192,
-                   S::kHalf, 2048, sa + S::kDH, HA * 128, 32, k0, NKS);
+                   S::kHalf, 2048, sa + S::kDHAt, S::kDHStride, 32, k0, NKS);
       // hidden layer l >= 1: dW_l[j][f] += dZ_l[t][j] a_l[t][f]
 #pragma unroll
       for (int l = 1; l < NL; ++l)
 #pragma unroll
         for (int c = 0; c < NC; ++c)
           pb_run<1, 1>(dwl[l - 1][c], sa + S::kDZ + l * S::kHalf + jb * 8192,
-                       S::kDZHalf, 2048,
+                       S::kDZStride, 2048,
                        sa + S::kA + (l - 1) * 2 * S::kHalf + c * 8192,
                        S::kHalf, 2048, k0, NKS);
       // layer 0: dW_0[j][k] += dZ_0[t][j] X0[k][t]
-      pb_run<1, 0>(dw0, sa + S::kDZ + jb * 8192, S::kDZHalf, 2048,
+      pb_run<1, 0>(dw0, sa + S::kDZ + jb * 8192, S::kDZStride, 2048,
                    sa + S::kX0, KP * 128, 32, k0, NKS);
       pb_commit_wait();
       pb_pin(dw0);

@@ -189,9 +189,10 @@ struct LnActIn {
 
 // mode MODE_GREEDY (K4): actor only, tables, rewards and final stock only;
 // MODE_POLICY_EPS / MODE_POLICY (K1): actor and critic, the noise from a
-// table or from Philox at counter (b, s, block, 0): 2A uniforms (Box-Muller
-// pairs (i, A + i)), then K lead-time uniforms (stochastic chains), then R*P
-// demand uniforms (2 R*P with a normal demand: ln_draw_demand).  Every lane
+// table or from Philox at counter (lane0 + b, s, block, 0), lane0 the global
+// index of the launch's first env: 2A uniforms (Box-Muller pairs (i, A +
+// i)), then K lead-time uniforms (stochastic chains), then R*P demand
+// uniforms (2 R*P with a normal demand: ln_draw_demand).  Every lane
 // of the block runs every step (an env past B steps a real env's rows and
 // writes nothing), so the syncs see full warps.
 template <int G, int DT>
@@ -202,7 +203,8 @@ sc_policy_lane_kernel(const DnChain* __restrict__ gch,
                       int E, int stride, const float* __restrict__ dem_tab,
                       const int* __restrict__ lt_tab,
                       const float* __restrict__ eps_tab, uint32_t k0,
-                      uint32_t k1, int sample_major, float* __restrict__ obs,
+                      uint32_t k1, uint32_t lane0, int sample_major,
+                      float* __restrict__ obs,
                       float* __restrict__ act_pre, float* __restrict__ logp_out,
                       float* __restrict__ value_out, float* __restrict__ rew,
                       float* __restrict__ stock_out) {
@@ -213,6 +215,7 @@ sc_policy_lane_kernel(const DnChain* __restrict__ gch,
   const DnEdges& ed = *reinterpret_cast<const DnEdges*>(gch + 1);
   const int tid = threadIdx.x, nt = blockDim.x, e = tid / G, g = tid % G;
   const int b = blockIdx.x * E + e;
+  const uint32_t ctr = (uint32_t)b + lane0;  // the lane's Philox counter word
   const bool active = b < B;
   const int bb = active ? b : B - 1;  // inactive lanes read a real env's rows
   for (int i = tid; i < MLP_LAYOUT_INTS; i += nt) lay[i] = glay[i];
@@ -261,8 +264,8 @@ sc_policy_lane_kernel(const DnChain* __restrict__ gch,
     if (mode == MODE_POLICY) {
       // the previous step's MLP read the obs before its first sync, so the
       // stretch's obs may stage the Box-Muller partners
-      ln_draw_demand<G>(ch, env, env.obs, (uint32_t)b, (uint32_t)s, 2 * A + Kr,
-                        te, k0, k1, g);
+      ln_draw_demand<G>(ch, env, env.obs, ctr, (uint32_t)s, 2 * A + Kr, te,
+                        k0, k1, g);
     } else {
       for (int j = g; j < RP; j += G)
         env.dem[j] = __ldg(dem_tab + ((size_t)s * RP + j) * Bz + bb);
@@ -284,7 +287,7 @@ sc_policy_lane_kernel(const DnChain* __restrict__ gch,
     if (!greedy) pl_net(lay, W + lay[3], 1, envs + obs_off, stride, E, hA, hB, v_s);
 
     // the action, its rows over the group's lanes
-    LnPhiloxIn ph{gch, (uint32_t)b, (uint32_t)s, k0, k1, 2 * A, -1, -1,
+    LnPhiloxIn ph{gch, ctr, (uint32_t)s, k0, k1, 2 * A, -1, -1,
                   make_uint4(0u, 0u, 0u, 0u), make_uint4(0u, 0u, 0u, 0u)};
     if (greedy) {
       for (int i = g; i < A; i += G)
@@ -344,7 +347,8 @@ static int pl_launch(const void* chain, const int* layout,
                      const float* weights, int mode, int S, int B, int E,
                      int stride, int smem_bytes, const float* dem_tab,
                      const int* lt_tab, const float* eps_tab, unsigned int k0,
-                     unsigned int k1, int sample_major, float* obs,
+                     unsigned int k1, unsigned int lane0, int sample_major,
+                     float* obs,
                      float* act_pre, float* logp, float* value, float* rew,
                      float* stock_out, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
@@ -354,8 +358,8 @@ static int pl_launch(const void* chain, const int* layout,
   const int blocks = (B + E - 1) / E;
   sc_policy_lane_kernel<G, DT><<<blocks, G * E, smem_bytes, stream>>>(
       (const DnChain*)chain, layout, weights, mode, S, B, E, stride, dem_tab,
-      lt_tab, eps_tab, k0, k1, sample_major, obs, act_pre, logp, value, rew,
-      stock_out);
+      lt_tab, eps_tab, k0, k1, lane0, sample_major, obs, act_pre, logp, value,
+      rew, stock_out);
   return (int)cudaGetLastError();
 }
 
@@ -363,8 +367,8 @@ static int pl_launch(const void* chain, const int* layout,
   if (G == g && DT == dt)                                                     \
     return pl_launch<g, dt>(chain, layout, weights, mode, S, B, E, stride,    \
                             smem_bytes, dem_tab, lt_tab, eps_tab, k0, k1,     \
-                            sample_major, obs, act_pre, logp, value, rew,     \
-                            stock_out, (cudaStream_t)stream);
+                            lane0, sample_major, obs, act_pre, logp, value,   \
+                            rew, stock_out, (cudaStream_t)stream);
 
 // G lanes an env, E envs a block, DT >= dmax slots a node: the instances
 // built, as policy_block in ops/supplychain_dense.py plans them (4 lanes
@@ -373,9 +377,9 @@ extern "C" int sc_policy_lane_launch(
     const void* chain, int desc_bytes, const int* layout,
     const float* weights, int mode, int S, int B, int G, int E, int DT,
     int stride, int smem_bytes, const float* dem_tab, const int* lt_tab,
-    const float* eps_tab, unsigned int k0, unsigned int k1, int sample_major,
-    float* obs, float* act_pre, float* logp, float* value, float* rew,
-    float* stock_out, void* stream) {
+    const float* eps_tab, unsigned int k0, unsigned int k1,
+    unsigned int lane0, int sample_major, float* obs, float* act_pre,
+    float* logp, float* value, float* rew, float* stock_out, void* stream) {
   if (desc_bytes != (int)(sizeof(DnChain) + sizeof(DnEdges))) return -1;
   if (mode != MODE_POLICY && mode != MODE_POLICY_EPS && mode != MODE_GREEDY)
     return -3;

@@ -51,7 +51,7 @@ def _split(key):
 
 
 def make_vec_env(cc: CompiledChain, batch_size: int, dtype=torch.float32,
-                 rng: str = "stateless", device="cuda"):
+                 rng: str = "stateless", device="cuda", lane0: int = 0):
     """Functional batched env over a compiled chain.
 
     Returns ``(init_fn, step_fn, obs_fn)``: ``init_fn(key) -> VecState``
@@ -61,19 +61,22 @@ def make_vec_env(cc: CompiledChain, batch_size: int, dtype=torch.float32,
     and lead-time rows from the episode's Philox key; ``rng="table"`` draws
     whole-episode tables at every reset (``device_episode_tables``, whose
     rows are the stateless rows of the same key, so the two modes play the
-    same episodes).
+    same episodes).  ``lane0`` is the global index of the first lane: a
+    process holding lanes ``lane0 .. lane0 + B - 1`` of a larger batch
+    plays what those lanes play in one process.
     """
     if rng not in ("stateless", "table"):
         raise ValueError(f"rng {rng!r}: 'stateless' or 'table'")
     B = batch_size
     stateless = rng == "stateless"
     reset_k, step_k, obs_k = make_supplychain_kernels(
-        cc, dtype=dtype, stateless_rng=stateless, device=device)
+        cc, dtype=dtype, stateless_rng=stateless, device=device, lane0=lane0)
 
     def _fresh(key) -> EnvState:
         if stateless:
             return reset_k(key, B)
-        return reset_k(*device_episode_tables(key, cc, B, dtype, device), B)
+        return reset_k(*device_episode_tables(key, cc, B, dtype, device,
+                                              lane0), B)
 
     def init_fn(key) -> VecState:
         key, sub = _split(_as_key(key))

@@ -28,11 +28,23 @@ phases are exposed as ``train_step.collect`` / ``.rollout``, ``.gae``,
 ``.prepare`` (GAE, normalization, update layout), ``.update`` and
 ``.loss``, so a test can feed two trainers the same tables.
 
-Not ported yet: the mesh forms of the trainers (multi-process training).
+``mesh=`` (``parallel/mesh.py``) runs the continuous trainers data-parallel
+over processes, as the JAX package's ``mesh=`` forms do: ``batch_size``
+stays the global B and each rank runs the lanes ``lane_range(mesh, B)``,
+whose env streams, collection seeds and exploration noise are the ones
+those lanes draw in one process (``lane0``).  Each rank computes the loss
+and gradients over its own samples; one ``all_reduce`` a step averages the
+loss and every gradient (packed into one buffer), before the global-norm
+clip and Adam, so the norm is the global gradient's.  Advantages are
+normalized by the global mean and population std (two all-reduced passes),
+and the metrics are global means.  Every rank builds the same weights and
+generator from the seed and makes every draw from the generator in the
+same order, so the ranks stay in lockstep and their parameters bit-equal.
+The beer game's trainer is single-process, as in the JAX package.
 """
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -46,6 +58,7 @@ from ..ops.ppo_update import fused_ppo_loss, make_ppo_update_grads
 from ..ops.supplychain_collect import (make_supplychain_collect,
                                        philox_tables,
                                        supplychain_collect_plain)
+from ..parallel.mesh import Mesh, all_reduce_mean_, lane_range, sharded
 
 __all__ = ["PPOConfig", "TrainState", "FusedTrainState", "Trajectory",
            "make_ppo", "make_ppo_fused", "make_beergame_ppo",
@@ -70,7 +83,9 @@ class PPOConfig(NamedTuple):
     hidden: Tuple[int, ...] = (128, 128)
     # minibatches per epoch (one optimizer step each); chunks slice the env
     # axis in a fresh order per epoch; advantages are normalized over the
-    # whole batch, so minibatches=1 is the full-batch update
+    # whole batch, so minibatches=1 is the full-batch update.  Under a mesh
+    # global minibatch i is the union of every rank's i-th chunk of its own
+    # lanes (the JAX mesh slices contiguous global lanes instead)
     minibatches: int = 1
     # update-phase compute dtype: None (the parameters' float32) or
     # torch.bfloat16 (the trunks in bf16 with float32 heads under autograd;
@@ -172,16 +187,24 @@ def _make_cont_loss(cfg: PPOConfig, forward=None):
     return loss
 
 
-def _normalized(adv):
-    """Whole-batch advantage normalization (population std, as jnp.std)."""
-    return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+def _normalized(adv, mesh: Optional[Mesh] = None):
+    """Whole-batch advantage normalization (population std, as jnp.std).
+    Under a mesh the batch is every rank's: the global mean from one
+    all-reduced sum, then the std from the all-reduced sum of squared
+    deviations (two passes, not E[x^2] - E[x]^2)."""
+    if not sharded(mesh):
+        return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+    mean = all_reduce_mean_(mesh, adv.mean().reshape(1))
+    dev = adv - mean
+    var = all_reduce_mean_(mesh, (dev * dev).mean().reshape(1))
+    return dev / (torch.sqrt(var) + 1e-8)
 
 
-def _flatten_traj(traj: Trajectory, adv, ret):
+def _flatten_traj(traj: Trajectory, adv, ret, mesh: Optional[Mesh] = None):
     """[S, X, B] trajectory -> sample-last update data ``(obs [X, S, B],
     pre [X, S, B], logp/adv/ret [S, B])`` with normalized advantages."""
     return (traj.obs.permute(1, 0, 2), traj.act_pre.permute(1, 0, 2),
-            traj.logp, _normalized(adv), ret)
+            traj.logp, _normalized(adv, mesh), ret)
 
 
 def _flat2(x):
@@ -189,7 +212,24 @@ def _flat2(x):
     return x.reshape(x.shape[:-2] + (-1,))
 
 
-def _make_update(cfg: PPOConfig, loss_fn, dims=None):
+def _mean_grads_(mesh: Mesh, leaves, loss):
+    """The loss and the ``.grad`` of every leaf averaged over the ranks in
+    place, packed into one buffer: one ``all_reduce`` (the JAX mesh's
+    ``pmean`` of the loss and the gradients).  Returns the mean loss."""
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in leaves]
+    buf = torch.cat([g.reshape(-1) for g in grads]
+                    + [loss.detach().reshape(1).to(grads[0].dtype)])
+    all_reduce_mean_(mesh, buf)
+    off = 0
+    for p, g in zip(leaves, grads):
+        p.grad = buf[off:off + g.numel()].view_as(g)
+        off += g.numel()
+    return buf[-1]
+
+
+def _make_update(cfg: PPOConfig, loss_fn, dims=None,
+                 mesh: Optional[Mesh] = None):
     """Epoch x minibatch clipped-PPO update.
 
     ``update(params, opt, data, generator=None) -> losses [n_steps]``: data
@@ -198,6 +238,10 @@ def _make_update(cfg: PPOConfig, loss_fn, dims=None):
     order drawn from ``generator`` per epoch.  ``dims = (obs_dim,
     act_dim)`` enables ``cfg.fused_update`` (the update kernel's loss and
     gradients).  Each step: gradients, ``clip_by_global_norm_``, Adam.
+    With a ``mesh`` the data is the rank's lanes: each rank's loss and
+    gradients over its own samples, averaged over the ranks in one
+    ``all_reduce`` before the clip (``_mean_grads_``); every rank draws
+    the same order from its generator.
     """
     if cfg.fused_update and dims is None:
         raise ValueError("fused_update supports the continuous-action "
@@ -235,6 +279,8 @@ def _make_update(cfg: PPOConfig, loss_fn, dims=None):
                 loss, _ = loss_fn(params, *flat)
             opt.zero_grad(set_to_none=True)
             loss.backward()
+            if sharded(mesh):
+                loss = _mean_grads_(mesh, leaves, loss)
             clip_by_global_norm_(leaves, cfg.max_grad_norm)
             opt.step()
             losses.append(loss.detach())
@@ -243,26 +289,47 @@ def _make_update(cfg: PPOConfig, loss_fn, dims=None):
     return update
 
 
-def _metrics(losses, traj: Trajectory, reward_scale: float):
-    return {"loss": losses[-1],
-            "mean_reward": traj.reward.mean() / reward_scale,
-            "mean_value": traj.value.mean()}
+def _metrics(losses, traj: Trajectory, reward_scale: float,
+             mesh: Optional[Mesh] = None):
+    """The last step's loss (the ranks' mean under a mesh) and the batch's
+    mean reward and value (global means under a mesh: one all-reduce)."""
+    means = all_reduce_mean_(mesh, torch.stack(
+        [traj.reward.mean() / reward_scale, traj.value.mean()]))
+    return {"loss": losses[-1], "mean_reward": means[0],
+            "mean_value": means[1]}
+
+
+def _shard(mesh: Optional[Mesh], B: int, cfg: PPOConfig, device):
+    """``(device, lo, hi)``: the rank's device (the mesh's) and lanes of the
+    global batch ``B``.  Raises where the ranks' minibatches would not be
+    equal."""
+    if mesh is None:
+        return torch.device(device), 0, B
+    if B % (mesh.data * cfg.minibatches):
+        raise ValueError(f"batch {B} is not divisible by the data axis "
+                         f"{mesh.data} times the minibatches "
+                         f"{cfg.minibatches}")
+    return (mesh.device,) + lane_range(mesh, B)
 
 
 def make_ppo(cc: CompiledChain, batch_size: int, cfg: PPOConfig = PPOConfig(),
-             reward_scale: float = 1e-4, device="cuda"):
+             reward_scale: float = 1e-4, device="cuda",
+             mesh: Optional[Mesh] = None):
     """The scan trainer: ``cfg.rollout_steps`` steps of the batched env
     (``envs/vector.py``, auto-reset) with the policy sampled per step, then
     GAE bootstrapped from the last value and ``cfg.epochs`` PPO epochs.
 
     ``init_fn(seed) -> TrainState``: the weights come from a CPU generator
     seeded ``seed`` (the same weights on every device), the env streams and
-    the noise generator from seeds it draws.
+    the noise generator from seeds it draws.  With a ``mesh`` the rank runs
+    its lanes of the ``batch_size`` global ones on the mesh's device: the
+    env at their global lane index, the noise drawn for the global ``[A,
+    B]`` and cut to the rank's columns.
     """
-    device = torch.device(device)
     B = batch_size
-    env_init, env_step, env_obs = make_vec_env(cc, B, torch.float32,
-                                               device=device)
+    device, lo, hi = _shard(mesh, B, cfg, device)
+    env_init, env_step, env_obs = make_vec_env(cc, hi - lo, torch.float32,
+                                               device=device, lane0=lo)
     mcfg = MLPConfig(obs_dim=cc.obs_dim, act_dim=cc.A, hidden=cfg.hidden)
 
     def init_fn(seed) -> TrainState:
@@ -280,7 +347,8 @@ def make_ppo(cc: CompiledChain, batch_size: int, cfg: PPOConfig = PPOConfig(),
         rows = {k: [] for k in Trajectory._fields}
         for _ in range(cfg.rollout_steps):
             mu, log_std, value = actor_critic_forward(params, obs)
-            eps = torch.randn(mu.shape, generator=gen, device=device)
+            eps = torch.randn((cc.A, B), generator=gen,
+                              device=device)[:, lo:hi]
             pre = mu + torch.exp(log_std) * eps
             logp = tanh_gaussian_logp(pre, mu, log_std)
             env_state, out = env_step(env_state, torch.tanh(pre))
@@ -298,16 +366,16 @@ def make_ppo(cc: CompiledChain, batch_size: int, cfg: PPOConfig = PPOConfig(),
 
     _gae = _make_gae(cfg)
     _loss = _make_cont_loss(cfg)
-    _update = _make_update(cfg, _loss, dims=(cc.obs_dim, cc.A))
+    _update = _make_update(cfg, _loss, dims=(cc.obs_dim, cc.A), mesh=mesh)
 
     def train_step(state: TrainState):
         env_state, traj, last_value = _rollout(state.params, state.env,
                                                state.gen)
         adv, ret = _gae(traj, last_value)
         losses = _update(state.params, state.opt,
-                         _flatten_traj(traj, adv, ret), state.gen)
+                         _flatten_traj(traj, adv, ret, mesh), state.gen)
         return (state._replace(env=env_state),
-                _metrics(losses, traj, reward_scale))
+                _metrics(losses, traj, reward_scale, mesh))
 
     train_step.rollout = _rollout
     train_step.gae = _gae
@@ -325,7 +393,8 @@ def _draw_seed(gen: torch.Generator) -> int:
 def make_ppo_fused(cc: CompiledChain, batch_size: int,
                    cfg: PPOConfig = PPOConfig(), episodes: int = 1,
                    noise: str = "prng", reward_scale: float = 1e-4,
-                   device="cuda", plain: bool = False):
+                   device="cuda", plain: bool = False,
+                   mesh: Optional[Mesh] = None):
     """PPO with whole-episode collection through the collect kernel.
 
     Each iteration collects ``episodes`` back-to-back ``cc.T``-step
@@ -343,24 +412,33 @@ def make_ppo_fused(cc: CompiledChain, batch_size: int,
     autograd of the loss): the baseline the kernels are timed and held
     against.  On the CPU the kernels' wrappers run their plain versions
     anyway.
+
+    With a ``mesh`` the rank collects its lanes of the ``batch_size``
+    global ones on the mesh's device, at their global lane index
+    (``lane0``: the kernel's Philox counters in ``prng`` mode, the tables'
+    columns in ``table`` mode), so the ranks together draw the unsharded
+    run's trajectories; the update data stays in the kernel's sample-major
+    layout, which is per rank.
     """
     if noise not in ("prng", "table"):
         raise ValueError(f"noise must be 'prng' or 'table', got {noise!r}")
-    device = torch.device(device)
-    B, T, E = batch_size, cc.T, episodes
+    T, E = cc.T, episodes
     S = E * T
+    device, lo, hi = _shard(mesh, batch_size, cfg, device)
+    B = hi - lo                       # the rank's lanes
     O, A = cc.obs_dim, cc.A
     mcfg = MLPConfig(obs_dim=O, act_dim=A, hidden=cfg.hidden)
     mode = "policy" if noise == "prng" else "policy_eps"
+    lane0 = lo if mode == "policy" else 0   # the tables carry their lanes
     if plain:
         def run(params, seed=None, **tables):
             return supplychain_collect_plain(
                 cc, E, B, mode, seed=seed, params=params, sample_major=True,
-                device=device, **tables)[:5]
+                device=device, lane0=lane0, **tables)[:5]
     else:
         kernel_run = make_supplychain_collect(
             cc, T, B, mode=mode, episodes=E, device=device,
-            hidden=cfg.hidden, sample_major=True)
+            hidden=cfg.hidden, sample_major=True, lane0=lane0)
 
         def run(params, seed=None, **tables):
             if mode == "policy":
@@ -373,7 +451,7 @@ def make_ppo_fused(cc: CompiledChain, batch_size: int,
     _gae = _make_gae(cfg)
     _loss = _make_cont_loss(cfg)
     _update = _make_update(cfg._replace(fused_update=False) if plain else cfg,
-                           _loss, dims=(O, A))
+                           _loss, dims=(O, A), mesh=mesh)
 
     def init_fn(seed) -> FusedTrainState:
         gen = torch.Generator().manual_seed(int(seed))
@@ -386,7 +464,7 @@ def make_ppo_fused(cc: CompiledChain, batch_size: int,
         if noise == "prng":
             return run(params, seed)
         dem, lt, eps = philox_tables(cc, seed, range(S), B, device,
-                                     policy=True)
+                                     policy=True, lane0=lo)
         return run(params, demands=dem, leadtimes=lt, eps=eps)
 
     @torch.no_grad()
@@ -396,14 +474,14 @@ def make_ppo_fused(cc: CompiledChain, batch_size: int,
                           reward=rew * reward_scale, value=value, done=done)
         adv, ret = _gae(traj, torch.zeros_like(value[-1]))
         # free views of the [X, S*B] layout as [X, S, B]
-        data = (obs.view(O, S, B), pre.view(A, S, B), logp, _normalized(adv),
-                ret)
+        data = (obs.view(O, S, B), pre.view(A, S, B), logp,
+                _normalized(adv, mesh), ret)
         return traj, data
 
     def train_step(state: FusedTrainState):
         traj, data = _prepare(*_collect(state.params, _draw_seed(state.gen)))
         losses = _update(state.params, state.opt, data, state.gen)
-        return state, _metrics(losses, traj, reward_scale)
+        return state, _metrics(losses, traj, reward_scale, mesh)
 
     train_step.collect = _collect
     train_step.gae = _gae

@@ -1,4 +1,5 @@
-"""Training CLI: PPO over batched supply-chain envs, on one device.
+"""Training CLI: PPO over batched supply-chain envs, on one device or
+data-parallel over processes.
 
 Usage:
     python -m gym_supplychain_tpu_torch.learn.train --env supplychain-ntom-v0 \\
@@ -18,12 +19,23 @@ game's categorical policy (``make_beergame_ppo``, autograd updates;
 chains' and stop with an error there).  One JSON line of metrics every
 ``--log-every`` iterations.  ``--checkpoint-dir`` writes the train state
 after the last iteration (``step_<iters>.pt``); ``--restore`` loads one
-before the first (``utils/checkpoint.py``).
+before the first (``utils/checkpoint.py``).  ``--trace-dir`` traces the
+training loop (``utils/profiling.py::trace``: a Chrome trace a rank).
+
+``--multihost`` trains data-parallel over the processes of a group
+(``parallel/mesh.py``): launch one process a rank with torchrun's
+environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``),
+e.g. ``torchrun --nproc-per-node 2 -m gym_supplychain_tpu_torch.learn.train
+--multihost --envs 8192``.  ``--envs`` is the global batch; each rank runs
+its share of the lanes on ``cuda:(local rank % cards)`` (``--device cpu``:
+the CPU), over NCCL where every rank has a card of its own and gloo where
+ranks outnumber cards.  Only rank 0 logs and writes the checkpoint; the
+``# engine:`` line names the backend and the world size.  Without a group
+to join, ``--multihost`` stops with an error.
 
 The flags are those of ``gym_supplychain_tpu.learn.train``, plus
-``--device``.  Those whose modules are not ported yet (multi-process and
-tensor-parallel training, traces) stop with an error instead of being
-ignored.
+``--device``.  ``--model-axis > 1`` (tensor parallelism), whose module is
+not ported yet, stops with an error instead of being ignored.
 """
 from __future__ import annotations
 
@@ -59,21 +71,35 @@ def resolve_engine_flags(args, supplychain: bool, device) -> None:
 
 def _refuse(args):
     """Stop on a flag whose module is not ported."""
-    checks = [
-        (args.multihost, "--multihost (multi-process training)"),
-        (args.model_axis > 1, "--model-axis > 1 (tensor parallelism)"),
-        (args.trace_dir, "--trace-dir (device traces)"),
-    ]
-    for bad, what in checks:
-        if bad:
-            raise SystemExit(f"{what} {_UNPORTED}")
+    if args.model_axis > 1:
+        raise SystemExit(f"--model-axis > 1 (tensor parallelism) {_UNPORTED}")
     if args.env.startswith("beergame"):
         for flag, value in (("--fused", args.fused),
                             ("--fused-update", args.fused_update),
-                            ("--learner-dtype", args.learner_dtype)):
+                            ("--learner-dtype", args.learner_dtype),
+                            ("--multihost", args.multihost)):
             if value:
                 raise SystemExit(f"{flag} supports the continuous-action "
                                  "supply-chain trainers only")
+
+
+def join_mesh(args):
+    """``--multihost``: join the process group and build the data mesh;
+    stops with an error where there is no group of two or more processes
+    to join (it never trains alone).  None without the flag."""
+    if not args.multihost:
+        return None
+    from ..parallel.mesh import init_distributed, make_mesh
+
+    try:
+        dev = init_distributed(device=args.device)
+    except RuntimeError as e:
+        raise SystemExit(f"--multihost: {e}") from None
+    if dev is None:
+        raise SystemExit("--multihost: no process group to join (set "
+                         "WORLD_SIZE > 1, RANK, MASTER_ADDR and MASTER_PORT, "
+                         "as torchrun does)")
+    return make_mesh(device=dev)
 
 
 def main(argv=None):
@@ -106,25 +132,43 @@ def main(argv=None):
                         "unaffected)")
     p.add_argument("--minibatches", type=int, default=1,
                    help="contiguous minibatches per PPO epoch")
-    p.add_argument("--multihost", action="store_true")
+    p.add_argument("--multihost", action="store_true",
+                   help="data-parallel over the processes of a group "
+                        "(torchrun's RANK, WORLD_SIZE, MASTER_ADDR, "
+                        "MASTER_PORT); --envs is the global batch")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--restore", default=None)
-    p.add_argument("--trace-dir", default=None)
+    p.add_argument("--trace-dir", default=None,
+                   help="write a Chrome trace of the training loop a rank "
+                        "(torch.profiler) under this directory")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; an error where there is no card) or "
                         "cpu")
     args = p.parse_args(argv)
     _refuse(args)
+    device_from_flag(args.device)
+    mesh = join_mesh(args)
+    try:
+        return _train(args, mesh)
+    finally:
+        if mesh is not None:
+            import torch.distributed as dist
 
+            dist.destroy_process_group()
+
+
+def _train(args, mesh):
     import torch
 
     from .. import make_chain
     from ..utils.checkpoint import restore_checkpoint, save_checkpoint
-    from ..utils.profiling import Throughput, log_metrics
+    from ..utils.profiling import Throughput, log_metrics, trace
     from .ppo import PPOConfig, make_beergame_ppo, make_ppo, make_ppo_fused
 
-    device = device_from_flag(args.device)
+    device = mesh.device if mesh is not None else device_from_flag(
+        args.device)
+    lead = mesh is None or mesh.rank == 0     # the rank that logs and writes
     supplychain = not args.env.startswith("beergame")
     resolve_engine_flags(args, supplychain, device)
     cfg = PPOConfig(rollout_steps=args.rollout_steps, epochs=args.epochs,
@@ -133,9 +177,12 @@ def main(argv=None):
                     learner_dtype=(torch.bfloat16
                                    if args.learner_dtype == "bf16" else None),
                     fused_update=args.fused_update)
-    print(f"# engine: device={device} fused_collect={bool(args.fused)} "
-          f"fused_update={bool(args.fused_update)} "
-          f"learner_dtype={args.learner_dtype or 'float32'}")
+    if lead:
+        print(f"# engine: device={device} fused_collect={bool(args.fused)} "
+              f"fused_update={bool(args.fused_update)} "
+              f"learner_dtype={args.learner_dtype or 'float32'} "
+              f"backend={mesh.backend if mesh else 'none'} "
+              f"world={mesh.world if mesh else 1}")
     if not supplychain:
         init_fn, train_step = make_beergame_ppo(
             args.envs, cfg, v2=args.env.endswith("v2"), device=device)
@@ -144,11 +191,12 @@ def main(argv=None):
         cc = make_chain(args.env, total_time_steps=args.horizon)
         init_fn, train_step = make_ppo_fused(cc, args.envs, cfg,
                                              episodes=args.fused_episodes,
-                                             device=device)
+                                             device=device, mesh=mesh)
         steps_per_iter = args.horizon * args.fused_episodes
     else:
         cc = make_chain(args.env, total_time_steps=args.horizon)
-        init_fn, train_step = make_ppo(cc, args.envs, cfg, device=device)
+        init_fn, train_step = make_ppo(cc, args.envs, cfg, device=device,
+                                       mesh=mesh)
         steps_per_iter = cfg.rollout_steps
 
     def sync():
@@ -157,24 +205,30 @@ def main(argv=None):
 
     state = init_fn(args.seed)
     if args.restore:
-        state = restore_checkpoint(args.restore, like=state)
-    meter = Throughput(args.envs * steps_per_iter)
+        state = restore_checkpoint(args.restore, like=state, mesh=mesh)
+    meter = Throughput(args.envs * steps_per_iter)    # the global batch
     metrics, last = None, 0
-    for it in range(args.iters):
-        state, metrics = train_step(state)
-        if it == 0:
-            sync()
-            meter.reset()          # exclude the kernels' build from steps/s
-            last = 1
-        elif (it + 1) % args.log_every == 0 or it + 1 == args.iters:
-            sync()
-            sps = meter.update(it + 1 - last)
-            last = it + 1
-            log_metrics(it + 1, {**metrics, "env_steps_per_s": sps})
-    sync()
+    with trace(args.trace_dir):
+        for it in range(args.iters):
+            state, metrics = train_step(state)
+            if it == 0:
+                sync()
+                meter.reset()      # exclude the kernels' build from steps/s
+                last = 1
+            elif (it + 1) % args.log_every == 0 or it + 1 == args.iters:
+                sync()
+                sps = meter.update(it + 1 - last)
+                last = it + 1
+                if lead:
+                    log_metrics(it + 1, {**metrics, "env_steps_per_s": sps})
+        sync()
+    if args.trace_dir and lead:
+        print(f"# trace: {args.trace_dir}")
     if args.checkpoint_dir:
-        path = save_checkpoint(args.checkpoint_dir, state, step=args.iters)
-        print(f"# checkpoint: {path}")
+        path = save_checkpoint(args.checkpoint_dir, state, step=args.iters,
+                               mesh=mesh)
+        if lead:
+            print(f"# checkpoint: {path}")
     return state, metrics
 
 

@@ -38,8 +38,10 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 _F = ctypes.c_float
 _SIGNATURES = {
     # the policy lane kernel's entry: K1 `policy`/`policy_eps`, K4
+    # (lane0, the global index of the first lane, after the key)
     "sc_policy_lane_launch": [_P, _I, _P, _P] + [_I] * 8 + [_P, _P, _P, _U,
-                                                           _U, _I] + [_P] * 7,
+                                                           _U, _U, _I]
+                             + [_P] * 7,
     # the lane-group kernel's entries (LN_ENTRY_ARGS): K5, K1, K6a
     **{name: [_P] + [_I] * 10 + [_P, _P, _P, _U, _U, _P, _P, _P, _P]
        for name in ("sc_dense_launch", "sc_lane_launch", "sc_episode_launch")},
@@ -47,11 +49,11 @@ _SIGNATURES = {
     "bg_episode_launch": [_I] * 12 + [_P] * 5,
     "ppo_update_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _F, _F,
                           _F, _F, _F, _F, _P, _P, _I, _P],
-    # the bf16 mode's entry takes its instance, (H, hidden layers, obs
-    # rows, head rows), last
+    # the bf16 mode's entry takes its kernel (0 wgmma, 1 mma.sync) and the
+    # wgmma instance, (H, hidden layers, obs rows, head rows), last
     "ppo_update_bf16_launch": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _F,
                                _F, _F, _F, _F, _F, _P, _P, _I, _P, _I, _I,
-                               _I, _I],
+                               _I, _I, _I],
     "ppo_bf16_smem_bytes": [_I, _I, _I, _I],
     "dn_chain_bytes": [],
     "dn_edges_bytes": [],
@@ -59,6 +61,7 @@ _SIGNATURES = {
     "ppo_layout_ints": [],
     "ppo_kernel_consts": [_P],
     "ppo_bf16_kernel_consts": [_P],
+    "ppo_bf16_mma_consts": [_P],
 }
 
 

@@ -24,7 +24,12 @@ operands from swizzled shared memory, float32 accumulation): two
 warpgroups a block, each carrying 64 samples of a 128-sample tile through
 the forward, the loss and the input gradients, meeting for the weight
 gradients; it reads the same float32 weights and rounds them itself
-(``ppo_update_bf16_plan``).  Its plain version is autograd of the loss over
+(``ppo_update_bf16_plan``).  The nets none of its instances takes run
+on a third kernel (``csrc/ppo_update_bf16_mma.cu``): the float32 kernel's
+512-thread blocks and 64-sample tiles with every product on ``mma.sync``
+through ``ldmatrix``, the weights rounded to bf16 as a block stages them.
+Both take the same launch entry; the plan names the kernel by the net's
+shape alone.  Their plain version is autograd of the loss over
 ``kernel_forward``, each product's operands and incoming gradient rounded
 to bf16.
 ``PPOLossFn`` wraps either as a ``torch.autograd.Function``: its forward
@@ -42,9 +47,11 @@ from ..models.policy import (LOG_STD_MAX, LOG_STD_MIN, flat_params,
 from ._mlp import LAYOUT_INTS, SMEM_MAX, MlpLayout
 
 __all__ = ["make_ppo_update_grads", "launch_ppo_update",
-           "launch_ppo_update_bf16", "ppo_update_plain", "kernel_forward",
-           "ppo_update_smem_bytes", "ppo_update_slots",
-           "ppo_update_bf16_plan", "PPOLossFn", "fused_ppo_loss"]
+           "launch_ppo_update_bf16", "launch_ppo_update_bf16_mma",
+           "ppo_update_plain", "kernel_forward", "ppo_update_smem_bytes",
+           "ppo_update_slots", "ppo_update_bf16_plan",
+           "ppo_update_bf16_mma_tiles", "ppo_update_bf16_mma_smem_bytes",
+           "PPOLossFn", "fused_ppo_loss"]
 
 _THREADS = 512             # threads a block (PU_THREADS)
 _TS, _LD = 64, 68          # samples a tile, row stride of the tile buffers
@@ -56,11 +63,19 @@ _BF16_TS = 128             # samples a bf16 tile, 64 a warpgroup (PB_TS)
 # the bf16 kernel's instances: (H, obs rows KP, head rows HA) -> hidden
 # layers (csrc/ppo_update_bf16*.cu)
 _BF16_INSTANCES = {(128, 32, 16): (1, 2), (64, 32, 16): (1, 2, 3, 4),
-                   (128, 64, 32): (1,), (64, 64, 32): (1, 2)}
+                   (128, 64, 32): (1,), (64, 64, 32): (1, 2, 3)}
+# the bf16 mode's mma.sync kernel (csrc/ppo_update_bf16_mma.cu): 16x8
+# weight-gradient tiles a warp (PM_MAXQ), row stride of its bf16 tiles
+_MMA_MAXQ, _MMA_LDB = 12, 72
+_WARPS = _THREADS // 32
 
 
 def _pad8(n: int) -> int:
     return -(-n // 8) * 8
+
+
+def _pad16(n: int) -> int:
+    return -(-n // 16) * 16
 
 
 def ppo_update_slots(layout: MlpLayout):
@@ -109,24 +124,95 @@ def ppo_update_smem_bytes(layout: MlpLayout) -> int:
     return dyn
 
 
+def ppo_update_bf16_mma_tiles(layout: MlpLayout):
+    """16x8 weight-gradient tiles of the bf16 mode's mma.sync kernel, per
+    net (actor, critic): ``ceil(J/16) * ceil(K/8)`` a layer, dealt
+    round-robin over the block's 16 warps.  Raises where a warp would hold
+    more than its register slots, or a net more biases than its bias slots
+    cover."""
+    out = []
+    for net, rows in enumerate(layout.layers):
+        tiles = sum(-(-J // 16) * -(-K // 8) for K, J, *_ in rows)
+        biases = sum(J for _, J, *_ in rows)
+        if -(-tiles // _WARPS) > _MMA_MAXQ or biases > _MAXB * _THREADS:
+            raise NotImplementedError(
+                f"actor-critic O={layout.O}, A={layout.A}, hidden="
+                f"{layout.hidden}: the {('actor', 'critic')[net]}'s gradient "
+                f"needs {tiles} tiles and {biases} bias slots a block; the "
+                f"bf16 update kernel takes {_MMA_MAXQ * _WARPS} and "
+                f"{_MAXB * _THREADS}")
+        out.append(tiles)
+    return tuple(out)
+
+
+def _mma_section_words(layout: MlpLayout):
+    """Words of each net's section in the mma.sync kernel's shared memory
+    (``pm_section``): every layer's w as bf16 ``[pad16(J)][pad16(K) + 8]``,
+    the float32 biases (``pad16(J)`` each), the actor's log_std
+    (``pad8(A)``), padded to 4 words."""
+    out = []
+    for net, rows in enumerate(layout.layers):
+        w_el = sum(_pad16(J) * (_pad16(K) + 8) for K, J, *_ in rows)
+        words = w_el // 2 + sum(_pad16(J) for _, J, *_ in rows)
+        if net == 0:
+            words += _pad8(layout.A)
+        out.append(-(-words // 4) * 4)
+    return out
+
+
+def ppo_update_bf16_mma_smem_bytes(layout: MlpLayout) -> int:
+    """Dynamic shared memory of the mma.sync kernel's larger block: its
+    net's section (``_mma_section_words``), the bf16 tiles
+    ``[pad16(rows)][72]`` of the obs and each hidden layer's output, their
+    float32 copies ``[pad16(rows)][68]``, the head's output (float32) and
+    gradient (bf16), z and the log-prob terms, and two input slots.  Raises
+    where a block would exceed the card's shared memory or a warp's
+    gradient registers (``ppo_update_bf16_mma_tiles``)."""
+    ppo_update_bf16_mma_tiles(layout)
+    slot_rows = _pad8(layout.O) + layout.A + 3
+    widths = [_pad16(h) for h in layout.hidden]
+    sizes = []
+    for net, words in enumerate(_mma_section_words(layout)):
+        head = _pad16(layout.layers[net][-1][1])
+        sizes.append(4 * words
+                     + 2 * _MMA_LDB * (_pad16(layout.O) + sum(widths) + head)
+                     + 4 * _LD * (sum(widths) + head + 2 * _pad8(layout.A)
+                                  + 2 * slot_rows))
+    dyn = max(sizes)
+    if dyn + _STATIC > SMEM_MAX:
+        raise NotImplementedError(
+            f"actor-critic O={layout.O}, A={layout.A}, hidden="
+            f"{layout.hidden} needs {dyn + _STATIC} bytes of shared memory "
+            f"per block; the bf16 update kernel takes {SMEM_MAX}")
+    return dyn
+
+
 def ppo_update_bf16_plan(layout: MlpLayout) -> dict:
-    """The bf16 kernel's instance for ``layout``: every hidden layer padded
-    to ``H`` = 64 or 128 units (``layers`` of them), the obs to ``KP`` = 32
-    or 64 rows and the heads to ``HA`` = 16 or 32 (``_BF16_INSTANCES``).
-    Its shared memory is the library's (``ppo_bf16_smem_bytes``).  Raises
-    where no instance takes the net."""
+    """The bf16 mode's kernel for ``layout``, chosen by the net's shape
+    alone.  The wgmma kernel where one of its instances holds the net
+    (``kernel="wgmma"``): every hidden layer padded to ``H`` = 64 or 128
+    units (``layers`` of them), the obs to ``KP`` = 32 or 64 rows and the
+    heads to ``HA`` = 16 or 32 (``_BF16_INSTANCES``); its shared memory is
+    the library's (``ppo_bf16_smem_bytes``).  Else the mma.sync kernel
+    (``kernel="mma"``) where its weight-gradient tiles and shared memory
+    (``smem``) fit.  Raises where neither takes the net."""
     O, A, hidden = layout.O, layout.A, tuple(layout.hidden)
     NL = len(hidden)            # 1 to 4: MlpLayout refuses the rest
     H = 64 if max(hidden) <= 64 else 128
     KP, HA = (32, 16) if O <= 32 and A <= 16 else (64, 32)
-    if (max(hidden) > 128 or O > 64 or A > 32
-            or NL not in _BF16_INSTANCES[(H, KP, HA)]):
+    if (max(hidden) <= 128 and O <= 64 and A <= 32
+            and NL in _BF16_INSTANCES[(H, KP, HA)]):
+        return dict(kernel="wgmma", H=H, layers=NL, KP=KP, HA=HA)
+    try:
+        smem = ppo_update_bf16_mma_smem_bytes(layout)
+    except NotImplementedError as e:
         raise NotImplementedError(
-            f"actor-critic O={O}, A={A}, hidden={hidden}: the bf16 update "
-            "kernel takes O <= 32 and A <= 16 with 1-4 hidden layers of at "
-            "most 64 units or 1-2 of at most 128, and O <= 64 and A <= 32 "
-            "with 1-2 hidden layers of at most 64 units or 1 of at most 128")
-    return dict(H=H, layers=NL, KP=KP, HA=HA)
+            f"actor-critic O={O}, A={A}, hidden={hidden}: no wgmma instance "
+            "holds it (the wgmma instances take O <= 32 and A <= 16 with "
+            "1-4 hidden layers of at most 64 units or 1-2 of at most 128, "
+            "and O <= 64 and A <= 32 with 1-3 of at most 64 or 1 of at most "
+            f"128), and {e}") from None
+    return dict(kernel="mma", smem=smem)
 
 
 def _rounded(x, dtype):
@@ -212,12 +298,20 @@ class _Launch:
         from ._build import library
 
         # the plan before the library: it refuses a net no kernel takes
-        if bf16:
-            plan = ppo_update_bf16_plan(layout)
+        plan = ppo_update_bf16_plan(layout) if bf16 else {}
+        self.kernel = plan.get("kernel", "float32")
+        if self.kernel == "wgmma":
             self.entry = "ppo_update_bf16_launch"
-            self.extra = (plan["H"], plan["layers"], plan["KP"], plan["HA"])
+            self.extra = (0, plan["H"], plan["layers"], plan["KP"],
+                          plan["HA"])
             consts_fn, tile = "ppo_bf16_kernel_consts", _BF16_TS
             want, names = (_BF16_THREADS, _BF16_TS), "threads, tile"
+        elif self.kernel == "mma":
+            self.entry = "ppo_update_bf16_launch"
+            self.smem, self.extra = plan["smem"], (1, 0, 0, 0, 0)
+            consts_fn, tile = "ppo_bf16_mma_consts", _TS
+            want = (_THREADS, _TS, _MMA_MAXQ, _MAXB)
+            names = "threads, tile, tiles a warp, bias slots"
         else:
             self.entry = "ppo_update_launch"
             self.smem, self.extra = ppo_update_smem_bytes(layout), ()
@@ -233,11 +327,11 @@ class _Launch:
         if tuple(consts) != want:
             raise RuntimeError(f"update kernel built with {tuple(consts)} "
                                f"({names}); the wrapper plans for {want}")
-        if bf16:
-            self.smem = lib.ppo_bf16_smem_bytes(*self.extra)
+        if self.kernel == "wgmma":
+            self.smem = lib.ppo_bf16_smem_bytes(*self.extra[1:])
             if not 0 < self.smem <= SMEM_MAX:
                 raise RuntimeError(
-                    f"bf16 update kernel instance {self.extra}: shared "
+                    f"bf16 update kernel instance {self.extra[1:]}: shared "
                     f"memory {self.smem} (-1: not built); the card has "
                     f"{SMEM_MAX}")
         self.layout = layout
@@ -306,6 +400,20 @@ def launch_ppo_update_bf16(prep: _Launch, flat, obs, pre, old_logp, adv, ret,
 launch_ppo_update_bf16.launches = 0
 
 
+def launch_ppo_update_bf16_mma(prep: _Launch, flat, obs, pre, old_logp, adv,
+                               ret, clip: float, vf_coef: float,
+                               ent_coef: float, pre_tanh_reg: float):
+    """Launch the bf16 mode's mma.sync kernel (the nets no wgmma instance
+    takes) on the current stream; as ``launch_ppo_update``."""
+    out = _launch(prep, flat, obs, pre, old_logp, adv, ret, clip, vf_coef,
+                  ent_coef, pre_tanh_reg)
+    launch_ppo_update_bf16_mma.launches += 1
+    return out
+
+
+launch_ppo_update_bf16_mma.launches = 0
+
+
 def make_ppo_update_grads(obs_dim: int, act_dim: int, hidden, M: int,
                           clip: float = 0.2, vf_coef: float = 0.5,
                           ent_coef: float = 1e-3,
@@ -316,15 +424,20 @@ def make_ppo_update_grads(obs_dim: int, act_dim: int, hidden, M: int,
     ``params`` is an ``ActorCritic`` or its flat list; ``grads`` come in
     the flat order (``ActorCritic.flat()``).  ``compute_dtype`` is ``None``
     (float32 products) or ``torch.bfloat16`` (bf16 operands, float32
-    accumulation: the bf16 kernel).  CUDA tensors launch the kernel; CPU
-    tensors run the plain version.
+    accumulation: the bf16 kernels, ``ppo_update_bf16_plan``; a net
+    neither takes raises here).  CUDA tensors launch the kernel; CPU tensors
+    run the plain version.
     """
     if compute_dtype not in (None, torch.bfloat16):
         raise ValueError(f"compute_dtype {compute_dtype}: the update kernel "
                          "takes None (float32) or torch.bfloat16")
     bf16 = compute_dtype is not None
     layout = MlpLayout(obs_dim, act_dim, hidden)
-    launch = launch_ppo_update_bf16 if bf16 else launch_ppo_update
+    launch = launch_ppo_update
+    if bf16:
+        launch = {"wgmma": launch_ppo_update_bf16,
+                  "mma": launch_ppo_update_bf16_mma}[
+                      ppo_update_bf16_plan(layout)["kernel"]]
     consts = dict(clip=float(clip), vf_coef=float(vf_coef),
                   ent_coef=float(ent_coef), pre_tanh_reg=float(pre_tanh_reg))
     cache = {}

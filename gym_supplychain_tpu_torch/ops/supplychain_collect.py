@@ -208,7 +208,7 @@ def seed_key(seed: int):
 
 
 def philox_tables(cc: CompiledChain, seed: int, steps, B: int, device,
-                  policy: bool = False):
+                  policy: bool = False, lane0: int = 0):
     """The per-step rows ``random`` mode draws for the global steps
     ``steps``: ``(demands [S,R,P,B] f32, leadtimes [S,K,B] int32 or None,
     actions [S,A,B] f32)``.  With ``policy`` the rows ``policy`` mode draws:
@@ -216,13 +216,15 @@ def philox_tables(cc: CompiledChain, seed: int, steps, B: int, device,
     ``eps [S,A,B]`` (Box-Muller of uniforms i and A + i).  The demand of
     global step s is drawn at the episode's step ``s % T``, from its R*P
     uniforms and, with a normal demand (``any_normal_demand``), the next
-    R*P (``demand_from_uniforms``)."""
+    R*P (``demand_from_uniforms``).  ``lane0`` is the global index of the
+    first lane (``philox_words``)."""
     A, R, P = cc.A, cc.R, cc.P
     RP = R * P
     Kr = cc.K if cc.stochastic_leadtimes else 0
     n_noise = 2 * A if policy else A
     n_dem = 2 * RP if any_normal_demand(cc) else RP
-    u = philox_uniform(seed_key(seed), steps, n_noise + Kr + n_dem, B, device)
+    u = philox_uniform(seed_key(seed), steps, n_noise + Kr + n_dem, B, device,
+                       lane0)
     S = u.shape[0]
     if policy:
         noise = box_muller(u[:, :A], u[:, A:2 * A])
@@ -286,12 +288,13 @@ def supplychain_collect_plain(cc: CompiledChain, episodes: int, B: int,
                               mode: str, seed: int = 0, demands=None,
                               leadtimes=None, actions=None, eps=None,
                               params=None, sample_major: bool = False,
-                              device=None):
+                              device=None, lane0: int = 0):
     """Plain version: an eager loop over ``core/step.py`` with auto-reset.
 
     ``actions`` and ``policy_eps`` take S-row tables (``device`` is
     theirs); ``random`` and ``policy`` draw each episode's tables with
-    ``philox_tables`` on ``device``.  ``params`` (policy modes) is an
+    ``philox_tables`` on ``device``, for the lanes from global index
+    ``lane0`` on.  ``params`` (policy modes) is an
     ``ActorCritic`` or its flat list.  Returns ``(obs [S,O,B], reward [S,B],
     final stock [N,P,B])``, and in the policy modes ``(obs, act_pre [S,A,B],
     logp [S,B], value [S,B], reward, final stock)``, obs and ``act_pre`` as
@@ -320,7 +323,8 @@ def supplychain_collect_plain(cc: CompiledChain, episodes: int, B: int,
         rows = slice(e * T, (e + 1) * T)
         if mode in ("random", "policy"):
             dem, lt, act = philox_tables(cc, seed, range(e * T, (e + 1) * T),
-                                         B, device, policy=policy)
+                                         B, device, policy=policy,
+                                         lane0=lane0)
         else:
             dem = demands[rows]
             act = (eps if policy else actions)[rows]
@@ -407,7 +411,7 @@ def launch_supplychain_policy(desc: torch.Tensor, cc: CompiledChain,
                               weights: torch.Tensor, S: int, B: int,
                               mode: str, seed: int = 0, demands=None,
                               leadtimes=None, eps=None,
-                              sample_major: bool = False):
+                              sample_major: bool = False, lane0: int = 0):
     """Launch the CUDA policy collect kernel (``policy``, ``policy_eps``:
     the policy lane kernel) on the current stream.
 
@@ -416,6 +420,8 @@ def launch_supplychain_policy(desc: torch.Tensor, cc: CompiledChain,
     ``layout.pack(flat)``, all on the card.  Returns ``(obs, act_pre,
     logp [S,B], value [S,B], reward [S,B], final stock [N,P,B])`` with obs
     and ``act_pre`` ``[S,X,B]``, or ``[X,S*B]`` with ``sample_major``.
+    ``policy`` draws lane b's rows at the Philox counter of global lane
+    ``lane0 + b``.
     """
     # supplychain_dense imports this module
     from .supplychain_dense import launch_policy_lanes
@@ -430,7 +436,7 @@ def launch_supplychain_policy(desc: torch.Tensor, cc: CompiledChain,
     if mode == "policy_eps":
         ptrs = _check_tables(cc, S, B, device, demands, leadtimes, eps, "eps")
     out = launch_policy_lanes(desc, cc, layout, layout_dev, weights, mode, S,
-                              B, seed, ptrs, sample_major)
+                              B, seed, ptrs, sample_major, lane0)
     launch_supplychain_policy.launches += 1
     return out
 
@@ -441,7 +447,7 @@ launch_supplychain_policy.launches = 0
 def make_supplychain_collect(cc: CompiledChain, T: int, B: int,
                              mode: str = "random", episodes: int = 1,
                              device="cuda", hidden=None,
-                             sample_major: bool = False):
+                             sample_major: bool = False, lane0: int = 0):
     """Trajectory collection over ``episodes`` back-to-back episodes.
 
     * ``random``: ``run(seed) -> (obs [S,O,B], reward [S,B])``;
@@ -456,7 +462,9 @@ def make_supplychain_collect(cc: CompiledChain, T: int, B: int,
     device are rejected.  ``params`` is an ``ActorCritic`` of widths
     ``hidden`` on ``device``, or its flat list (``_flat_actor_critic``
     order).  ``sample_major`` (policy modes) gives obs and ``act_pre`` as
-    ``[X, S*B]``, else ``[S, X, B]``.
+    ``[X, S*B]``, else ``[S, X, B]``.  ``lane0`` (``policy``) is the
+    global index of the first lane: lanes ``lane0 .. lane0 + B - 1`` of a
+    larger batch draw what they draw in one process.
 
     A CUDA device launches the kernel; the CPU runs the plain version.
     """
@@ -471,6 +479,9 @@ def make_supplychain_collect(cc: CompiledChain, T: int, B: int,
                          "widths")
     if sample_major and not policy:
         raise ValueError("sample_major takes a policy mode")
+    if lane0 and mode != "policy":
+        raise ValueError(f"lane0 takes mode 'policy', not {mode!r} (the "
+                         "table modes read the lanes' tables as given)")
     device = torch.device(device)
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
@@ -514,11 +525,11 @@ def make_supplychain_collect(cc: CompiledChain, T: int, B: int,
         if desc is not None:
             out = launch_supplychain_policy(
                 desc, cc, layout, layout_dev, layout.pack(flat), S, B, mode,
-                sample_major=sample_major, **kw)
+                sample_major=sample_major, lane0=lane0, **kw)
         else:
             out = supplychain_collect_plain(
                 cc, episodes, B, mode, params=flat,
-                sample_major=sample_major, device=device, **kw)
+                sample_major=sample_major, device=device, lane0=lane0, **kw)
         return out[:5]
 
     if mode == "random":

@@ -276,14 +276,16 @@ def launch_lanes(desc: torch.Tensor, cc: CompiledChain, kind: str, S: int,
 def launch_policy_lanes(desc: torch.Tensor, cc: CompiledChain,
                         layout: MlpLayout, layout_dev: torch.Tensor,
                         weights: torch.Tensor, mode: str, S: int, B: int,
-                        seed: int, ptrs, sample_major: bool = False):
+                        seed: int, ptrs, sample_major: bool = False,
+                        lane0: int = 0):
     """Launch the policy lane kernel planned by ``policy_block`` on the
     current stream, S steps (auto-reset every T): ``mode`` ``"policy"`` or
     ``"policy_eps"`` (K1: actor and critic) or ``"greedy"`` (K4: the actor,
     one episode).  ``desc`` is ``dense_descriptor(cc)``, ``layout_dev``
     ``layout.ints`` and ``weights`` ``layout.pack(flat)``, all on the card;
     ``ptrs`` the addresses of the demand, lead-time and noise tables the
-    caller checked (None where the mode draws them).  Returns ``(obs,
+    caller checked (None where the mode draws them); ``policy`` draws lane
+    b's rows at the counter of global lane ``lane0 + b``.  Returns ``(obs,
     act_pre, logp [S,B], value [S,B], reward [S,B], final stock [N,P,B])``
     with obs and ``act_pre`` ``[S,X,B]``, or ``[X,S*B]`` with
     ``sample_major``; K4 returns only the reward and the stock (the rest
@@ -321,7 +323,8 @@ def launch_policy_lanes(desc: torch.Tensor, cc: CompiledChain,
             desc.data_ptr(), DN_DESC_BYTES, layout_dev.data_ptr(),
             weights.data_ptr(), _POLICY_MODES[mode], S, B, G, E,
             dense_slot_bound(cc), stride, smem, *ptrs, k0, k1,
-            int(sample_major), ptr(obs), ptr(pre), ptr(logp), ptr(value),
+            int(lane0) & 0xFFFFFFFF, int(sample_major), ptr(obs), ptr(pre),
+            ptr(logp), ptr(value),
             rew.data_ptr(), stock.data_ptr(), stream)
     check(code, f"policy lane kernel ({mode}, {G} lanes, {E} envs a block)")
     return obs, pre, logp, value, rew, stock

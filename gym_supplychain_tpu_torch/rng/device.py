@@ -82,17 +82,22 @@ def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
     return f - 1.0
 
 
-def philox_words(key, steps, n_words: int, B: int, device) -> torch.Tensor:
+def philox_words(key, steps, n_words: int, B: int, device,
+                 lane0: int = 0) -> torch.Tensor:
     """Random words ``[len(steps), n_words, B]`` (int64 holding uint32).
 
     Word ``i`` of lane ``b`` at step ``s`` is word ``i % 4`` of Philox under
-    ``key = (k0, k1)`` at counter ``(b, s, i // 4, 0)`` — the layout the
-    CUDA collect kernels draw in.  ``steps`` is an int64 tensor or a range.
+    ``key = (k0, k1)`` at counter ``(lane0 + b, s, i // 4, 0)`` — the layout
+    the CUDA collect kernels draw in.  ``steps`` is an int64 tensor or a
+    range.  ``lane0`` is the global index of the first lane, so that a
+    process holding lanes ``lane0 .. lane0 + B - 1`` of a larger batch
+    draws what those lanes draw in one process.
     """
     device = torch.device(device)
     steps = torch.as_tensor(steps, dtype=torch.int64, device=device)
     n_blk = -(-n_words // 4)
-    lane = torch.arange(B, dtype=torch.int64, device=device)
+    lane = torch.arange(lane0, lane0 + B, dtype=torch.int64,
+                        device=device) & _MASK
     blk = torch.arange(n_blk, dtype=torch.int64, device=device)
     c0 = lane.view(1, 1, B)
     c1 = steps.view(-1, 1, 1) & _MASK
@@ -103,9 +108,11 @@ def philox_words(key, steps, n_words: int, B: int, device) -> torch.Tensor:
     return w.reshape(steps.numel(), n_blk * 4, B)[:, :n_words]
 
 
-def philox_uniform(key, steps, n_rows: int, B: int, device) -> torch.Tensor:
+def philox_uniform(key, steps, n_rows: int, B: int, device,
+                   lane0: int = 0) -> torch.Tensor:
     """Float32 uniforms ``[len(steps), n_rows, B]`` (see ``philox_words``)."""
-    return uniform_from_bits(philox_words(key, steps, n_rows, B, device))
+    return uniform_from_bits(philox_words(key, steps, n_rows, B, device,
+                                          lane0))
 
 
 def box_muller(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
@@ -230,17 +237,17 @@ def leadtimes_from_uniform(u: torch.Tensor, cdf: np.ndarray) -> torch.Tensor:
 
 
 def stateless_step_rows(ep_key, t: int, cc: CompiledChain, B: int,
-                        dtype=torch.float32, device="cuda"):
+                        dtype=torch.float32, device="cuda", lane0: int = 0):
     """All of one step's stochastic inputs from one Philox draw.
 
     Returns ``(demand_row [R,P,B] for period t, leadtime_row [K,B] int32 or
     None)``.  Rows ``0..K-1`` of the draw are the lead-time uniforms (K = 0
     for constant lead-times), then ``R*P`` demand uniforms, as in the JAX
-    package's ``stateless_step_rows``; the counter is ``(lane, t, block, 0)``
-    under the episode key ``ep_key = (k0, k1)``.
+    package's ``stateless_step_rows``; the counter is ``(lane0 + lane, t,
+    block, 0)`` under the episode key ``ep_key = (k0, k1)``.
     """
     K = cc.K if cc.stochastic_leadtimes else 0
-    u = philox_uniform(ep_key, [t], K + cc.R * cc.P, B, device)[0]
+    u = philox_uniform(ep_key, [t], K + cc.R * cc.P, B, device, lane0)[0]
     lt_row = None
     if cc.stochastic_leadtimes:
         lt_row = leadtimes_from_uniform(
@@ -271,7 +278,7 @@ def _demand_rows(u: torch.Tensor, cc: CompiledChain, t0: int, dtype):
 
 
 def device_episode_tables(ep_key, cc: CompiledChain, B: int,
-                          dtype=torch.float32, device="cuda"):
+                          dtype=torch.float32, device="cuda", lane0: int = 0):
     """One episode's tables from one Philox draw per period:
     ``(demands [T+1, R, P, B], leadtimes [T, K, B] int32 or None)``.
 
@@ -279,10 +286,12 @@ def device_episode_tables(ep_key, cc: CompiledChain, B: int,
     t)`` draws, and row ``t - 1`` of ``leadtimes`` its lead-time row (step
     ``t`` of an episode ships with the lead-times drawn at period ``t``), so
     the table engine fed these tables and the stateless engine keyed
-    ``ep_key`` step through the same inputs.
+    ``ep_key`` step through the same inputs.  ``lane0`` as
+    ``philox_words``.
     """
     K = cc.K if cc.stochastic_leadtimes else 0
-    u = philox_uniform(ep_key, range(cc.T + 1), K + cc.R * cc.P, B, device)
+    u = philox_uniform(ep_key, range(cc.T + 1), K + cc.R * cc.P, B, device,
+                       lane0)
     demands = _demand_rows(u[:, K:], cc, 0, dtype)
     leadtimes = None
     if cc.stochastic_leadtimes:

@@ -1,4 +1,4 @@
-"""Checkpoint and exact resume of a training run, single process.
+"""Checkpoint and exact resume of a training run, in one process or many.
 
 The counterpart of ``gym_supplychain_tpu/utils/checkpoint.py``.  A
 checkpoint is one file, ``<dir>/step_<N>.pt``, written with ``torch.save``
@@ -16,6 +16,15 @@ and plain containers only:
 The generator's state and the env's Philox keys (``VecState.key``,
 ``EnvState.ep_key``) are in it, so a resumed run continues the same random
 streams and repeats the uninterrupted run bit for bit.
+
+Data-parallel runs (``mesh=``, ``parallel/mesh.py``; the JAX package's
+``_fetch_full`` and ``_reshard_like``): the parameters, Adam's state and
+the generator are equal on every rank, and the scan trainer's env lanes
+are gathered into global lane order on host copies, so rank 0 writes the
+file a single process would write while every rank waits at a barrier.
+Restoring slices the rank's lanes (``place_train_state``), so a checkpoint
+written by 2 ranks restores into 1 process and one written by 1 process
+into 2.
 """
 from __future__ import annotations
 
@@ -28,6 +37,8 @@ from ..core.beergame import BeerGameState
 from ..core.step import EnvState
 from ..envs.vector import VecState
 from ..models.policy import ActorCritic, DiscreteActorCritic, MLPConfig
+from ..parallel.mesh import (barrier, host_all_gather, place_train_state,
+                             sharded)
 
 __all__ = ["FORMAT", "save_checkpoint", "restore_checkpoint"]
 
@@ -55,11 +66,25 @@ def _env_from_dict(d: dict, device) -> VecState:
     return VecState(key=tuple(int(x) for x in d["key"]), env=env)
 
 
-def save_checkpoint(path: str, state: Any, step: int = 0) -> str:
+def _gather_env(mesh, env: VecState) -> VecState:
+    """The ranks' env lanes in global order (CPU tensors): every tensor of
+    the inner state concatenated along its trailing env axis."""
+    inner = env.env
+    return env._replace(env=type(inner)(*(
+        torch.cat(host_all_gather(mesh, v), dim=-1)
+        if isinstance(v, torch.Tensor) and v.dim() >= 1 else v
+        for v in inner)))
+
+
+def save_checkpoint(path: str, state: Any, step: int = 0, mesh=None) -> str:
     """Write ``state`` (a ``TrainState`` or ``FusedTrainState``) as
-    ``<path>/step_<step>.pt``; returns the written file."""
+    ``<path>/step_<step>.pt``; returns the file.  With a ``mesh`` every rank
+    calls it: the env lanes are gathered, rank 0 writes, and every rank
+    returns after the write."""
     cfg = state.params.cfg
     env = getattr(state, "env", None)
+    if env is not None and sharded(mesh):
+        env = _gather_env(mesh, env)
     mlp = {"obs_dim": cfg.obs_dim, "act_dim": cfg.act_dim,
            "hidden": list(cfg.hidden)}
     if isinstance(state.params, DiscreteActorCritic):
@@ -74,11 +99,13 @@ def save_checkpoint(path: str, state: Any, step: int = 0) -> str:
                 "state": state.gen.get_state()},
         "env": None if env is None else _env_to_dict(env),
     }
-    os.makedirs(path, exist_ok=True)
     target = os.path.join(path, f"step_{int(step)}.pt")
-    tmp = target + ".tmp"
-    torch.save(payload, tmp)
-    os.replace(tmp, target)
+    if mesh is None or mesh.rank == 0:
+        os.makedirs(path, exist_ok=True)
+        tmp = target + ".tmp"
+        torch.save(payload, tmp)
+        os.replace(tmp, target)
+    barrier(mesh)
     return target
 
 
@@ -94,14 +121,16 @@ def _resolve(path: str) -> str:
     return path
 
 
-def restore_checkpoint(path: str, like: Any = None) -> Any:
+def restore_checkpoint(path: str, like: Any = None, mesh=None) -> Any:
     """Read a checkpoint written by ``save_checkpoint``.
 
     ``path`` is a ``step_N.pt`` file or the checkpoint directory, whose
     highest step is read.  With ``like`` (a freshly built train state of the
     same trainer) the parameters, the optimizer state and the generator are
     loaded into ``like``'s objects in place, and the state is returned with
-    its env rebuilt on ``like``'s device.  Without it, the result is a dict:
+    its env rebuilt on ``like``'s device; with a ``mesh``, the env's lanes
+    are the rank's (``like`` is the rank's state).  Without it, the result
+    is a dict:
     ``params`` an ``ActorCritic`` (a ``DiscreteActorCritic`` where the file
     holds ``n_choices``) on the CPU rebuilt from the stored ``MLPConfig``,
     plus ``step``, ``mlp``, ``opt``, ``gen`` and ``env`` as stored.
@@ -132,4 +161,14 @@ def restore_checkpoint(path: str, like: Any = None) -> Any:
     if payload["env"] is None:
         return like
     device = like.params.v.w.device
-    return like._replace(env=_env_from_dict(payload["env"], device))
+    state = like._replace(env=_env_from_dict(payload["env"], device))
+    if sharded(mesh):
+        state = place_train_state(mesh, state)
+    want = [tuple(v.shape) for v in like.env.env
+            if isinstance(v, torch.Tensor)]
+    got = [tuple(v.shape) for v in state.env.env
+           if isinstance(v, torch.Tensor)]
+    if want != got:
+        raise ValueError(f"{path} holds env lanes of shapes {got}; the state "
+                         f"to restore into has {want}")
+    return state

@@ -47,7 +47,8 @@ from gym_supplychain_tpu_torch.core.compile import compile_chain  # noqa: E402
 from gym_supplychain_tpu_torch.learn import ppo  # noqa: E402
 from gym_supplychain_tpu_torch.models.policy import (  # noqa: E402
     actor_critic_forward, params_from_jax)
-from gym_supplychain_tpu_torch.ops._mlp import MlpLayout  # noqa: E402
+from gym_supplychain_tpu_torch.ops._mlp import (  # noqa: E402
+    LAYOUT_INTS, SMEM_MAX, MlpLayout)
 from gym_supplychain_tpu_torch.ops.ppo_update import (  # noqa: E402
     _BF16_INSTANCES, make_ppo_update_grads, ppo_update_bf16_plan)
 
@@ -245,12 +246,36 @@ def test_bf16_update_kernel_plan(O, A, hidden, instance):
                                           instance[3]]
 
 
+@pytest.mark.parametrize("O,A,hidden,kernel", [
+    (27, 14, (256,), "mma"),                # wider than 128
+    (53, 28, (64, 64, 64), "wgmma"),        # multiproduct: three layers
+    (53, 28, (32, 32, 32), "wgmma"),
+    (53, 28, (64, 128), "mma"),             # multiproduct: a layer past 64
+    (53, 28, (128, 64), "mma"),
+    (79, 60, (64,), "mma"),                 # obs past 64 rows, actions past 32
+    (79, 60, (32, 32), "mma"),
+])
+def test_bf16_update_kernel_plan_takes_the_nets_of_the_mma_kernel(
+        O, A, hidden, kernel):
+    """Every net the bf16 mode's first (mma.sync) kernel took runs: on the
+    wgmma kernel where an instance holds it (three hidden layers at the
+    multi-product widths: ``<64,3,64,32>``, whose dH lies after each dZ
+    half so that the loss scratch fits), else on the mma.sync kernel, whose
+    shared memory the plan gives; chosen by the net's shape alone."""
+    plan = ppo_update_bf16_plan(MlpLayout(O, A, hidden))
+    assert plan["kernel"] == kernel
+    if kernel == "wgmma":
+        assert (plan["H"], plan["layers"], plan["KP"], plan["HA"]) == (
+            64, 3, 64, 32)
+    else:
+        assert 0 < plan["smem"] <= SMEM_MAX - 4 * (LAYOUT_INTS + 128)
+
+
 @pytest.mark.parametrize("O,A,hidden", [
     (27, 14, (128, 128, 128)),      # three layers wider than 64
-    (27, 14, (256,)),               # wider than 128
-    (53, 28, (64, 64, 64)),         # multiproduct: three layers, wide obs
     (53, 28, (128, 128)),           # multiproduct: two layers past 64
-    (79, 60, (64,)),                # obs past 64 rows, actions past 32
+    (53, 28, (256,)),               # multiproduct: wider than 128
+    (79, 60, (128, 128)),           # obs past 64 rows, two layers past 64
 ])
 def test_bf16_update_kernel_plan_refuses_what_does_not_fit(O, A, hidden):
     with pytest.raises(NotImplementedError, match="bf16 update kernel takes"):

@@ -350,6 +350,15 @@ def _check_ppo_update_kernel(O, A, hidden, M, model, data):
     (53, 28, (64, 64), 128 * 11 + 45),
     (53, 28, (128,), 128 * 12 + 64),
     (33, 17, (48,), 128 * 5 + 3),
+    # the packed-dH instance <64,3,64,32>, ragged
+    (53, 28, (64, 64, 64), 128 * 9 + 5),
+    (53, 28, (32, 32, 32), 1000),
+    # the mma.sync kernel: the nets no wgmma instance holds
+    (53, 28, (64, 128), 64 * 30 + 7),
+    (53, 28, (128, 64), 2000),
+    (79, 60, (64,), 64 * 20 + 1),
+    (79, 60, (32, 32), 1500),
+    (27, 14, (256,), 64 * 17 + 33),
 ])
 def test_ppo_update_bf16_kernel_matches_plain_and_repeats(O, A, hidden, M):
     """The bf16 update kernel (tensor-core products) against its plain bf16
@@ -377,10 +386,13 @@ def test_ppo_update_bf16_kernel_matches_plain_and_repeats(O, A, hidden, M):
     data = (obs, pre, old, adv, ret)
     gf = pu.make_ppo_update_grads(O, A, hidden, M,
                                   compute_dtype=torch.bfloat16)
-    before = pu.launch_ppo_update_bf16.launches
+    launcher = {"wgmma": pu.launch_ppo_update_bf16,
+                "mma": pu.launch_ppo_update_bf16_mma}[
+                    pu.ppo_update_bf16_plan(MlpLayout(O, A, hidden))["kernel"]]
+    before = launcher.launches
     lk, gk = gf(model, *data)
     lk2, gk2 = gf(model, *data)
-    assert pu.launch_ppo_update_bf16.launches == before + 2
+    assert launcher.launches == before + 2
     assert torch.equal(lk, lk2) and all(torch.equal(a, b)
                                         for a, b in zip(gk, gk2))
     lp, gp = pu.ppo_update_plain(model, *data, compute_dtype=torch.bfloat16)
@@ -424,6 +436,42 @@ def test_bf16_instances_fit_the_card():
     for r in rows:
         assert r["registers"] <= 255, r
         assert r["spill_stores"] == r["spill_loads"] == r["stack"] == 0, r
+
+
+@pytest.mark.cuda
+def test_bf16_mma_kernel_does_not_spill():
+    """The bf16 mode's mma.sync kernel: at most 255 registers, no spill
+    (its stack frame holds the layers' tile pointers)."""
+    from gym_supplychain_tpu_torch.ops import _build
+
+    _device()
+    rows = _build.ptxas_report("ppo_grad_bf16_mma_kernel")
+    assert len(rows) == 1
+    assert rows[0]["registers"] <= 255
+    assert rows[0]["spill_stores"] == rows[0]["spill_loads"] == 0, rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_id", ["supplychain-ntom-v0",
+                                    "sc-2perstage-seasonal-v0"])
+def test_policy_kernel_lane0_slices_equal_the_whole(env_id):
+    """K1 ``policy`` on two halves of a batch with ``lane0`` gives, bit for
+    bit, what one launch over the whole batch gives (a rank's share of a
+    data-parallel run draws its global lanes' streams)."""
+    from gym_supplychain_tpu_torch.models.policy import ActorCritic, MLPConfig
+
+    dev = _device()
+    cc = make_chain(env_id, total_time_steps=12)
+    model = ActorCritic(MLPConfig(cc.obs_dim, cc.A, (32, 32)),
+                        torch.Generator().manual_seed(1), device=dev)
+    B = 2 * 1029
+    full = scc.make_supplychain_collect(cc, 12, B, mode="policy", device=dev,
+                                        hidden=(32, 32))(model, 77)
+    parts = [scc.make_supplychain_collect(
+        cc, 12, B // 2, mode="policy", device=dev, hidden=(32, 32),
+        lane0=lo)(model, 77) for lo in (0, B // 2)]
+    for f, a, b in zip(full, *parts):
+        assert torch.equal(f, torch.cat([a, b], dim=-1))
 
 
 @pytest.mark.cuda

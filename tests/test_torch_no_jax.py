@@ -34,7 +34,7 @@ def test_port_imports_no_jax():
                          env=dict(os.environ, PYTHONPATH=str(ROOT)))
     assert res.returncode == 0, res.stdout + res.stderr
     n_modules = int(res.stdout.split()[0])
-    assert n_modules >= 39, res.stdout
+    assert n_modules >= 42, res.stdout
     loaded = set(res.stdout.splitlines()[1].split())
     for name in ("ops.supplychain_episode", "learn.evaluate",
                  "learn.heuristics", "learn.compare_baseline",
@@ -43,5 +43,6 @@ def test_port_imports_no_jax():
                  "ops.ppo_update", "learn.ppo", "models.policy",
                  "learn.compare_baseline_beergame", "native", "rng.host",
                  "rng.gym_compat", "envs.strict_obs", "envs.single",
-                 "envs.beergame", "envs.gym_registry"):
+                 "envs.beergame", "envs.gym_registry", "parallel.mesh",
+                 "benchmarks.multihost_scaling", "utils.profiling"):
         assert "gym_supplychain_tpu_torch." + name in loaded, name

@@ -449,13 +449,16 @@ def test_train_cli_resolves_the_engine_flags(flags, fused, fused_update,
 
 
 @pytest.mark.parametrize("flags", [
-    ["--multihost"], ["--model-axis", "2"], ["--model-axis", "4"],
-    ["--env", "beergame-v2", "--fused-update"], ["--trace-dir", "tr"],
+    ["--model-axis", "2"], ["--model-axis", "4"],
+    ["--env", "beergame-v2", "--fused-update"],
     ["--env", "beergame-v0", "--learner-dtype", "bf16"],
-    ["--env", "beergame-v0", "--fused"]])
+    ["--env", "beergame-v0", "--fused"],
+    ["--env", "beergame-v0", "--multihost"]])
 def test_train_cli_refuses_unported_flags(flags):
-    """Flags whose modules are not ported stop with an error; so do the
-    supply chains' options with the beer game's trainer."""
+    """Flags whose modules are not ported (tensor parallelism) stop with an
+    error; so do the supply chains' options with the beer game's trainer,
+    which is single-process as in the JAX package.  (``--multihost`` and
+    ``--trace-dir`` run: ``tests/test_torch_parallel.py``.)"""
     beergame = "--env" in flags
     with pytest.raises(SystemExit, match="continuous-action" if beergame
                        else "not ported"):
