@@ -14,8 +14,9 @@ beer-game episode sweep at 4096 envs, collection, training and
 evaluation on normal and seasonal demand drawn in the kernels, the bf16
 learner (the update kernel's tensor-core mode), the beer game's
 trainer, evaluator and order-up-to baseline, the host-parity MT19937
-streams with the reference-compatible single envs, and data-parallel
-training over processes with the bf16 update on every net it takes.
+streams with the reference-compatible single envs, data-parallel
+training over processes with the bf16 update on every net it takes, and
+tensor-parallel training over the mesh's model axis.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -128,6 +129,24 @@ Phases, in order; any failure exits nonzero:
      the all-reduce's ms an iteration; (c) one ``ppo-ntom-fused``
      iteration traced by ``utils/profiling.py::trace``, the card's busy
      share of the traced window (the union of its kernels' intervals)
+  17. tensor parallelism over the mesh's model axis, two ranks sharing
+     ``cuda:0`` over gloo, through ``benchmarks/multihost_scaling.py``:
+     (a) the scan trainer on ``supplychain-ntom-v0`` at 4096 global envs,
+     hidden (128, 128), rollout 16, epochs 2, on a ``1x2`` mesh, with
+     autograd, K2 and K2 bf16 on the gathered net (each launched on every
+     rank), 3 iterations each: the first iteration within 1e-4 x max(1,
+     |v|) of 1 process, the replicated leaves and the gathered net
+     bit-equal on the ranks; ``make_ppo_fused`` on the same ``1x2`` mesh
+     with its parameters whole (K1 ``policy`` and K2 launched on every
+     rank), held the same way; (b) the beer game's trainer on beergame-v2
+     with the stochastic ranges at 4096 global envs on ``2x1`` and ``1x2``:
+     the same tolerance, each rank's tables its lanes of the global draw;
+     (c) checkpoints of each trainer: ``1x2`` resumed bit for bit,
+     restored into 1 process as the gathered net, a 1-process file
+     restored into each rank's rows (the whole net for the fused trainer);
+     ms an iteration beside 1 process, the data and model groups'
+     collectives (ms a call, calls an iteration); K2 and K2 bf16 at the
+     path's shape (M = 16 x 4096) against their plain versions, timed
 The line before the last is a JSON summary of the kernels, each with its
 bound: the larger of the bytes it must move over 3.35 TB/s and the float32
 operations it must do over 67 TFLOP/s, the bf16 K2's over the tensor
@@ -193,6 +212,10 @@ RESTORED_NETS = (("sc-2perstage-multiproduct-v0", (64, 64, 64)),
 MULTI_ENVS = 2 * ENVS      # phase 16: BASELINE.json's ntom at 8192 envs
 MULTI_ITERS = 5            # phase 16: timed iterations a process count
 MULTI_TOL = 1e-4           # phase 16: 2 ranks against 1 process, x max(1, |v|)
+TP_HORIZON = 360           # phase 17: the train CLI's default horizon
+TP_ITERS = 2               # phase 17: timed iterations after the first
+TP_SCAN = ("scan", "scan-k2", "scan-k2-bf16")   # autograd, K2, K2 bf16
+TP_CASES = TP_SCAN + ("fused", "beergame")      # phase 17's trainers on 1x2
 
 
 def _cmd(args):
@@ -683,19 +706,15 @@ def _back_to_back(fn, n):
     return start.elapsed_time(end) / n, host_ms
 
 
-def phase_ppo_update(seed, errs):
-    """Phase 7: the PPO update kernel against plain, both against float64
-    autograd, at the trainer's M = T * B samples."""
+def _f32_update(cc, model, M, hidden, seed):
+    """K2 (float32) on phase 7's kind of inputs at M samples against its
+    plain version, both against float64 autograd; timed.  Returns the
+    errors, the gate's verdict and the times."""
     import torch
-    import gym_supplychain_tpu_torch as sct
     from gym_supplychain_tpu_torch.ops import ppo_update as pu
 
-    dev = torch.device("cuda")
-    cc = sct.make_chain("supplychain-ntom-v0", total_time_steps=TRAIN_T)
-    O, A, M = cc.obs_dim, cc.A, TRAIN_T * ENVS
-    model = _policy_model(cc, seed, dev)
-    data = _update_data(cc, model, M, seed, dev)
-    gf = pu.make_ppo_update_grads(O, A, HIDDEN, M)
+    data = _update_data(cc, model, M, seed, model.v.w.device)
+    gf = pu.make_ppo_update_grads(cc.obs_dim, cc.A, hidden, M)
     lk, gk = gf(model, *data)
     lk2, gk2 = gf(model, *data)
     lp, gp = pu.ppo_update_plain(model, *data)
@@ -713,24 +732,44 @@ def phase_ppo_update(seed, errs):
     ms, _ = _timed(lambda: gf(model, *data), REPS)
     plain_ms, _ = _timed(lambda: pu.ppo_update_plain(model, *data), REPS)
     card_ms, host_ms = _back_to_back(lambda: gf(model, *data), BACK_TO_BACK)
+    ok = (err_k <= 4 * err_p + 1e-7 * scale
+          and lerr_k <= 4 * lerr_p + 1e-7 * abs(float(l64))
+          and same and finite)
+    return dict(err_k=err_k, err_p=err_p, scale=scale, loss=float(l64),
+                lerr_k=lerr_k, lerr_p=lerr_p, same=same, finite=finite,
+                ok=ok, ms=ms, plain_ms=plain_ms, card_ms=card_ms,
+                host_ms=host_ms)
+
+
+def phase_ppo_update(seed, errs):
+    """Phase 7: the PPO update kernel against plain, both against float64
+    autograd, at the trainer's M = T * B samples."""
+    import torch
+    import gym_supplychain_tpu_torch as sct
+
+    dev = torch.device("cuda")
+    cc = sct.make_chain("supplychain-ntom-v0", total_time_steps=TRAIN_T)
+    O, A, M = cc.obs_dim, cc.A, TRAIN_T * ENVS
+    r = _f32_update(cc, _policy_model(cc, seed, dev), M, HIDDEN, seed)
     print(f"phase 7: ppo_update, M={M}, O={O}, A={A}, hidden {HIDDEN}, "
           f"against float64 autograd")
-    print(f"  gradients: max abs err kernel {err_k:.3e}, plain float32 "
-          f"{err_p:.3e} (gate: kernel <= 4 x plain + 1e-7 x max|g| = "
-          f"{4 * err_p + 1e-7 * scale:.3e}; max|g| {scale:.3e})")
-    print(f"  loss {float(l64):.8f}: err kernel {lerr_k:.3e}, plain float32 "
-          f"{lerr_p:.3e}; two launches bit-identical {same}; finite {finite}")
-    print(f"  kernel {ms:.3f} ms, plain autograd {plain_ms:.3f} ms per call "
-          f"(median of {REPS}, CUDA events)")
-    print(f"  kernel, {BACK_TO_BACK} calls back to back: {card_ms:.3f} ms a "
-          f"call on the card, {host_ms:.3f} ms a call to enqueue on the host")
-    errs.append(err_k)
-    if not (err_k <= 4 * err_p + 1e-7 * scale
-            and lerr_k <= 4 * lerr_p + 1e-7 * abs(float(l64))
-            and same and finite):
+    print(f"  gradients: max abs err kernel {r['err_k']:.3e}, plain float32 "
+          f"{r['err_p']:.3e} (gate: kernel <= 4 x plain + 1e-7 x max|g| = "
+          f"{4 * r['err_p'] + 1e-7 * r['scale']:.3e}; max|g| "
+          f"{r['scale']:.3e})")
+    print(f"  loss {r['loss']:.8f}: err kernel {r['lerr_k']:.3e}, plain "
+          f"float32 {r['lerr_p']:.3e}; two launches bit-identical "
+          f"{r['same']}; finite {r['finite']}")
+    print(f"  kernel {r['ms']:.3f} ms, plain autograd {r['plain_ms']:.3f} ms "
+          f"per call (median of {REPS}, CUDA events)")
+    print(f"  kernel, {BACK_TO_BACK} calls back to back: {r['card_ms']:.3f} "
+          f"ms a call on the card, {r['host_ms']:.3f} ms a call to enqueue "
+          f"on the host")
+    errs.append(r["err_k"])
+    if not r["ok"]:
         raise RuntimeError("ppo_update: kernel disagrees with float64 autograd "
                            "or does not repeat")
-    return dict(ms=ms, plain_ms=plain_ms)
+    return dict(ms=r["ms"], plain_ms=r["plain_ms"])
 
 
 def _train_phases(step, state, reps):
@@ -1984,10 +2023,10 @@ def phase_host_streams(B, seed, dev="cuda"):
     return dict(sc=sc, bg=bg)
 
 
-def _bf16_net(env_id, hidden, seed, dev):
-    """Phase 16 (a): K2's bf16 mode on one net against its plain bf16
-    version at phase 14's gates, on phase 7's kind of inputs at the
-    trainer's M; timed.  Returns the net's row."""
+def _bf16_net(env_id, hidden, seed, dev, M=TRAIN_T * ENVS, tag="(a)"):
+    """Phases 16 (a), 17: K2's bf16 mode on one net against its plain bf16
+    version at phase 14's gates, on phase 7's kind of inputs at M samples
+    (the trainer's by default); timed.  Returns the net's row."""
     import torch
     import gym_supplychain_tpu_torch as sct
     from gym_supplychain_tpu_torch.models.policy import ActorCritic, MLPConfig
@@ -1996,7 +2035,7 @@ def _bf16_net(env_id, hidden, seed, dev):
 
     bf16 = torch.bfloat16
     cc = sct.make_chain(env_id, total_time_steps=TRAIN_T)
-    O, A, M = cc.obs_dim, cc.A, TRAIN_T * ENVS
+    O, A = cc.obs_dim, cc.A
     lay = MlpLayout(O, A, hidden)
     plan = pu.ppo_update_bf16_plan(lay)
     model = ActorCritic(MLPConfig(O, A, hidden),
@@ -2024,7 +2063,7 @@ def _bf16_net(env_id, hidden, seed, dev):
     name = (f"wgmma <{plan['H']},{plan['layers']},{plan['KP']},{plan['HA']}>"
             if plan["kernel"] == "wgmma" else "mma.sync")
     ok = rel <= 1e-3 and per <= 1e-2 and cos >= 0.9999 and same
-    print(f"  (a) {env_id} (O {O}, A {A}), hidden {hidden}, M={M}: {name}; "
+    print(f"  {tag} {env_id} (O {O}, A {A}), hidden {hidden}, M={M}: {name}; "
           f"loss {float(lk):.8f} / plain {float(lp):.8f} ({rel:.3e} "
           f"relative, tol 1e-3); largest tensor error / its max {per:.3e} "
           f"(tol 1e-2); flat cosine {cos:.8f} (>= 0.9999); two launches "
@@ -2086,8 +2125,8 @@ def phase_multihost(seed):
     # (b) 1 process at 8192, then 2 ranks of 4096 on cuda:0 over gloo
     smi = _cmd(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
-    r1, r2 = multihost_scaling.run((1, 2), envs=MULTI_ENVS, horizon=TRAIN_T,
-                                   hidden=HIDDEN, epochs=2,
+    r1, r2 = multihost_scaling.run(((1, 1), (2, 1)), envs=MULTI_ENVS,
+                                   horizon=TRAIN_T, hidden=HIDDEN, epochs=2,
                                    iters=MULTI_ITERS, seed=seed,
                                    device="cuda")
     diffs = {k: abs(r2["first"][k] - r1["first"][k])
@@ -2134,7 +2173,115 @@ def phase_multihost(seed):
     return dict(nets=nets, bf16_counts=counts, r1=r1, r2=r2, busy=busy)
 
 
-def _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, hs, mh, sc_errs,
+def phase_tensor_parallel(seed):
+    """Phase 17: the mesh's model axis.  ``benchmarks/multihost_scaling.py``
+    runs the scan trainer (autograd, K2 and K2 bf16 on the gathered net),
+    the fused trainer (its parameters whole) and the beer game's trainer
+    at 4096 global envs on 1 process and on a ``1x2`` mesh, and the beer game on ``2x1`` (two ranks sharing
+    ``cuda:0`` over gloo); the first iterations against 1 process, the
+    ranks' leaves, the tables and the checkpoints' moves are gated.  Then
+    K2 and K2 bf16 at the path's shape (M = 16 x 4096 on the gathered net,
+    the trainers' initial weights) against their plain versions, timed."""
+    import torch
+    import gym_supplychain_tpu_torch as sct
+    from gym_supplychain_tpu_torch.benchmarks import multihost_scaling
+    from gym_supplychain_tpu_torch.learn.ppo import PPOConfig
+    from gym_supplychain_tpu_torch.models.policy import ActorCritic, MLPConfig
+
+    dev = torch.device("cuda")
+    smi = _cmd(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"])
+    rollout = PPOConfig().rollout_steps
+    kw = dict(envs=ENVS, horizon=TP_HORIZON, hidden=HIDDEN, epochs=2,
+              iters=TP_ITERS, seed=seed, device="cuda")
+    print(f"phase 17: tensor parallelism (the mesh's model axis), "
+          f"{ENVS} global envs, hidden {HIDDEN}, rollout {rollout}, "
+          f"epochs 2, 1 minibatch, {1 + TP_ITERS} iterations a run; 2 ranks "
+          f"share cuda:0 over gloo")
+    one, tp = multihost_scaling.run(((1, 1), (1, 2)),
+                                    cases=TP_CASES, **kw)
+    dp, = multihost_scaling.run(((2, 1),), cases=("beergame",), **kw)
+    failed = []
+
+    def gate(what, ok):
+        if not ok:
+            failed.append(what)
+
+    def rel(run, ref):
+        return {k: abs(run["first"][k] - ref["first"][k])
+                / max(1.0, abs(ref["first"][k])) for k in ref["first"]}
+
+    rows = [("(a)", "1x2", case, tp, one)
+            for case in TP_SCAN + ("fused",)] + [
+        ("(b)", "2x1", "beergame", dp, one), ("(b)", "1x2", "beergame", tp,
+                                              one)]
+    for tag, shape, case, run, ref in rows:
+        r, o = run["cases"][case], ref["cases"][case]
+        d = rel(r, o)
+        extra = (f"; tables are the global draw's lanes {r['tables_global']}"
+                 if case == "beergame" else "")
+        print(f"  {tag} {case} on {shape}: first iteration {r['first']}, 1 "
+              f"process {o['first']}; |diff| / max(1, |v|) max "
+              f"{max(d.values()):.3e} (tol {MULTI_TOL:g}); replicated "
+              f"leaves bit-equal {r['replicated']}, gathered net equal "
+              f"{r['gathered_equal']}{extra}; launches over the ranks "
+              f"{r['launches']}, fewest on a rank {r['launches_min']}")
+        print(f"  {tag} {smi}: {case} {r['iter_ms']:.3f} ms an iteration on "
+              f"{shape} ({r['train_env_steps_per_s']:.1f} global train "
+              f"env-steps/s), 1 process {o['iter_ms']:.3f} ms "
+              f"({o['train_env_steps_per_s']:.1f}); data group: "
+              f"{r['allreduce_calls_per_iter']:g} all-reduces an iteration, "
+              f"{r['allreduce_ms_per_call']:.4f} ms a call; model group: "
+              f"{r['model_calls_per_iter']:g} collectives an iteration, "
+              f"gather {r['model_gather_ms']:.4f} ms and reduce-scatter "
+              f"{r['model_reduce_scatter_ms']:.4f} ms a call at the update's "
+              f"shape, gather {r['model_gather_rollout_ms']:.4f} ms at the "
+              f"rollout's (two processes time-sharing one card: no scaling "
+              f"figure)")
+        gate(f"{case} on {shape}: first iteration",
+             max(d.values()) <= MULTI_TOL)
+        gate(f"{case} on {shape}: replicated", r["replicated"]
+             and r["gathered_equal"] and r["resume_bit_exact"])
+        if case == "beergame":
+            gate(f"beergame on {shape}: tables", r["tables_global"])
+    for case in TP_CASES:
+        r = tp["cases"][case]
+        print(f"  (c) {case}: a 1x2 checkpoint resumes bit for bit "
+              f"{r['resume_bit_exact']}; restored into 1 process it is the "
+              f"gathered net bit for bit {r['to_one_bit_exact']}; a "
+              f"1-process file restored into 1x2 gives each rank its rows "
+              f"{r['from_one_rows']}")
+        gate(f"{case}: checkpoints", r["resume_bit_exact"]
+             and r["to_one_bit_exact"] and r["from_one_rows"])
+    k2 = tp["cases"]["scan-k2"]
+    bf = tp["cases"]["scan-k2-bf16"]
+    gate("K2 launched on every rank", k2["launches_min"]["ppo_update"] >= 1)
+    gate("K2 bf16 launched on every rank",
+         sum(bf["launches_min"].values()) >= 1)
+    gate("K1 policy and K2 of the fused trainer launched on every rank",
+         min(tp["cases"]["fused"]["launches_min"].values()) >= 1)
+
+    # K2 and K2 bf16 at the path's shape on the gathered net
+    cc = sct.make_chain("supplychain-ntom-v0", total_time_steps=TP_HORIZON)
+    M = rollout * ENVS
+    net = ActorCritic(MLPConfig(cc.obs_dim, cc.A, HIDDEN),
+                      torch.Generator().manual_seed(seed), dev)
+    f32 = _f32_update(cc, net, M, HIDDEN, seed)
+    print(f"  K2 at M={M} on the gathered net: max abs err kernel "
+          f"{f32['err_k']:.3e}, plain float32 {f32['err_p']:.3e} against "
+          f"float64 (gate {4 * f32['err_p'] + 1e-7 * f32['scale']:.3e}); "
+          f"two launches bit-identical {f32['same']}; {f32['card_ms']:.4f} "
+          f"ms a call on the card ({BACK_TO_BACK} back to back), plain "
+          f"autograd {f32['plain_ms']:.3f} ms")
+    gate("K2 at the path's shape", f32["ok"])
+    b16 = _bf16_net("supplychain-ntom-v0", HIDDEN, seed, dev, M=M,
+                    tag="K2 bf16 at the path's shape:")
+    if failed:
+        raise RuntimeError(f"phase 17: {'; '.join(failed)}")
+    return dict(one=one, tp=tp, dp=dp, f32=f32, bf16=b16, M=M)
+
+
+def _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, hs, mh, tp, sc_errs,
                   bg_errs, pol_errs, pu_errs, ep_errs, dm_errs):
     """The ``kernels`` summary: each kernel with its main-path launches,
     its error against plain, its time, its plain version's and its bound
@@ -2255,6 +2402,22 @@ def _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, hs, mh, sc_errs,
              max(pu_errs), upd["ms"], upd["plain_ms"], lines[len(res) + 1])):
         line(name, source, replaces, r2[key], err, ms, plain_ms,
              (base["bound_ms"], base["bound_by"]))
+    # phase 17: K2 and K2 bf16 on the net gathered over the model axis of
+    # the 1x2 scan trainer (M = 16 x 4096 a rank); launches over the ranks
+    M = tp["M"]
+    f32 = tp["f32"]
+    line("ppo_update[tensor-parallel 1x2, gathered net]", "ppo_update.cu",
+         "gym_supplychain_tpu/ops/ppo_update_pallas.py:91",
+         tp["tp"]["cases"]["scan-k2"]["launches"]["ppo_update"],
+         f32["err_k"], f32["card_ms"], f32["plain_ms"],
+         _bound(4 * (M * (cc.obs_dim + cc.A + 3) + 2 * lay.n_params),
+                2 * macs * M))
+    b = tp["bf16"]
+    line("ppo_update[bf16, tensor-parallel 1x2, gathered net]",
+         "ppo_update_bf16.cuh",
+         "gym_supplychain_tpu/ops/ppo_update_pallas.py:91",
+         sum(tp["tp"]["cases"]["scan-k2-bf16"]["launches"].values()),
+         b["err"], b["ms"], b["plain_ms"], b["bound"])
     return lines
 
 
@@ -2331,8 +2494,9 @@ def main(argv=None) -> int:
     bf = phase_bf16_beergame(args.seed)
     hs = phase_host_streams(B, args.seed)
     mh = phase_multihost(args.seed)
+    tp = phase_tensor_parallel(args.seed)
 
-    kernels = _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, hs, mh,
+    kernels = _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, hs, mh, tp,
                             sc_errs, bg_errs, pol_errs, pu_errs, ep_errs,
                             dm_errs)
     print(json.dumps({"kernels": kernels}))

@@ -1,29 +1,54 @@
-"""Data-parallel scaling of the PPO trainer over processes.
+"""The PPO trainers over processes on ``data x model`` meshes.
 
 The counterpart of the JAX repo's ``benchmarks/multihost_scaling.py``: PPO
 on ``supplychain-ntom-v0`` (the north-star config of ``BASELINE.json``,
-8192 envs) with the env batch split over W ranks of a
+8192 envs) with the env batch split over the data axis of a
 ``torch.distributed`` group (``parallel/mesh.py``), each rank one OS
-process running ``make_ppo_fused`` on its lanes (K1 ``policy``, K2), the
-gradients averaged by one all-reduce a step.  On a machine with a card a
-rank the group runs NCCL; where ranks outnumber cards (two ranks on one
-card) gloo, and the ranks time-share the card's SMs, so the rates are not
-a scaling figure there.
+process, and the policy trunks' hidden units split over its model axis.
+On a machine with a card a rank the group runs NCCL; where ranks outnumber
+cards (two ranks on one card) gloo, and the ranks time-share the card's
+SMs, so the rates are not a scaling figure there.
 
-For each process count it spawns the ranks, builds the kernels once before
-(into the ignored ``_build/``), waits for them under a deadline (a rank
-that fails or dies fails the run) and prints one JSON line: ``processes``,
-``global_envs``, ``backend``, ``train_env_steps_per_s`` (global env-steps
-over rank 0's wall time of the timed iterations), ``iter_ms``, the
-all-reduce's ``allreduce_ms_per_iter`` (the ms of one all-reduce of the
-step's packed gradients, timed alone, times the collectives an iteration
-issued), the first iteration's ``first`` metrics, whether the ranks'
-parameters are bit-equal (``replicated``), whether a checkpoint written by
-the ranks resumes bit for bit (``resume_bit_exact``), and the kernels'
-launches summed over the ranks.
+Each entry of ``meshes`` is a mesh shape ``(data, model)`` (on the command
+line ``DxM``, or ``W`` for the ``W x 1`` mesh).  For each it spawns the
+ranks, builds the
+kernels once before (into the ignored ``_build/``), waits for them under a
+deadline (a rank that fails or dies fails the run) and prints one JSON
+line: ``processes``, ``mesh`` ``[data, model]``, ``global_envs``,
+``backend`` and, for each trainer case it ran (``cases``):
+
+* ``fused``: ``make_ppo_fused`` (K1 ``policy``, and K2 on a card);
+* ``scan``, ``scan-k2``, ``scan-k2-bf16``: ``make_ppo`` with autograd, the
+  update kernel (K2, on the net gathered over the model axis) or its bf16
+  mode;
+* ``beergame``: ``make_beergame_ppo`` on beergame-v2 with the stochastic
+  ranges of ``bench.py``'s v2 config (demand [0, 12), delays [0, 4)),
+
+the first iteration's ``first`` metrics, ``train_env_steps_per_s``
+(global env-steps over rank 0's wall time of the timed iterations) and
+``iter_ms``; the data group's all-reduce (``allreduce_ms_per_call``: one
+all-reduce of the step's packed gradients, timed alone from a barrier to
+the card's synchronize, the median of 20;
+``allreduce_calls_per_iter``; their product) and the model group's
+collectives (``model_calls_per_iter``; ``model_gather_ms`` and
+``model_reduce_scatter_ms``, one of each at the update's activation shape,
+and ``model_gather_rollout_ms`` at the rollout's, timed alone the same
+way); whether
+the replicated leaves (``replicated``) and the gathered net
+(``gathered_equal``) are bit-equal on every rank; whether a checkpoint
+written by the ranks resumes bit for bit (``resume_bit_exact``); on a model
+axis, whether the 1-process file of the same case (written by an earlier
+entry of ``meshes`` in the same call) restores into each rank's rows, or
+the whole net where the trainer keeps it whole (``from_one_rows``) and whether this mesh's file restores in one process
+to the gathered net (``to_one_bit_exact``); for the beer game, whether
+each rank's episode tables are its lanes of the global draw
+(``tables_global``); and the kernels' launches, summed over the ranks and
+the fewest on one rank (``launches``, ``launches_min``).  The first case's
+keys are repeated at the top level.
 
     python -m gym_supplychain_tpu_torch.benchmarks.multihost_scaling \\
-        [--processes 1 2] [--envs 8192] [--horizon 60] [--iters 5]
+        [--meshes 1 2 1x2] [--cases scan scan-k2] \\
+        [--envs 8192] [--horizon 60] [--iters 5]
 
 ``--device cpu --envs 16 --horizon 6 --hidden 16 16 --iters 2`` runs it
 here on the plain versions over gloo.
@@ -34,17 +59,19 @@ import argparse
 import json
 import os
 import socket
+import statistics
 import subprocess
 import sys
 import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["run", "run_rank", "main"]
+__all__ = ["run", "run_rank", "main", "CASES"]
 
 ROOT = Path(__file__).resolve().parents[2]      # the checkout
 ENV = "supplychain-ntom-v0"
-ALLREDUCE_REPS = 20        # all-reduces of a step's buffer, timed alone
+CASES = ("fused", "scan", "scan-k2", "scan-k2-bf16", "beergame")
+COLLECTIVE_REPS = 20       # collectives of a step's shapes, timed alone
 _RESULT = "RESULT "
 
 
@@ -54,119 +81,259 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _flat_params(state):
+def _flat(params):
     import torch
 
-    return torch.cat([p.detach().reshape(-1) for p in state.params.flat()])
+    return torch.cat([p.detach().reshape(-1) for p in params.flat()])
 
 
-def run_rank(args) -> dict:
-    """One rank's run (every process of a count runs it): join the group,
-    train, time, check replication and resume.  Returns rank 0's result
-    (None on the other ranks)."""
+def _trainer(case: str, args, mesh, device):
+    """``(init_fn, step, env-steps an iteration, the launch counters by
+    kernel name, whether the trunks are sharded over the model axis)`` of
+    a case."""
+    import torch
+
+    from .. import make_chain
+    from ..learn.ppo import (PPOConfig, make_beergame_ppo, make_ppo,
+                             make_ppo_fused)
+    from ..ops import ppo_update as pu
+    from ..ops import supplychain_collect as scc
+
+    cuda = torch.device(device).type == "cuda"
+    cfg = PPOConfig(epochs=args.epochs, hidden=tuple(args.hidden))
+    if case == "beergame":
+        init_fn, step = make_beergame_ppo(
+            args.envs, cfg, v2=True, customer_demand=(0, 12),
+            shipment_delays=(0, 4), device=device, mesh=mesh)
+        return init_fn, step, cfg.rollout_steps, {}, True
+    cc = make_chain(ENV, total_time_steps=args.horizon)
+    if case == "fused":
+        init_fn, step = make_ppo_fused(
+            cc, args.envs, cfg._replace(fused_update=cuda), device=device,
+            mesh=mesh)
+        return (init_fn, step, cc.T,
+                {"supplychain_collect[policy]": scc.launch_supplychain_policy,
+                 "ppo_update": pu.launch_ppo_update}, False)
+    bf16 = case == "scan-k2-bf16"
+    cfg = cfg._replace(fused_update=case != "scan",
+                       learner_dtype=torch.bfloat16 if bf16 else None)
+    counters = {
+        "scan": {}, "scan-k2": {"ppo_update": pu.launch_ppo_update},
+        "scan-k2-bf16": {"ppo_update_bf16": pu.launch_ppo_update_bf16,
+                         "ppo_update_bf16_mma": pu.launch_ppo_update_bf16_mma},
+    }[case]
+    init_fn, step = make_ppo(cc, args.envs, cfg, device=device, mesh=mesh)
+    return init_fn, step, cfg.rollout_steps, counters, True
+
+
+def _median_ms(fn, mesh, sync, reps: int) -> float:
+    """The median ms of ``fn`` over ``reps`` calls, each timed from every
+    rank's barrier (``sync``) to the card's synchronize: the barrier stays
+    outside the timed span."""
+    import torch
+
+    ms = []
+    for _ in range(reps):
+        sync()
+        t = time.perf_counter()
+        fn()
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        ms.append((time.perf_counter() - t) * 1e3)
+    return statistics.median(ms)
+
+
+def _collective_ms(mesh, state, args, sync) -> dict:
+    """The collectives of a step's shapes on this mesh, each timed alone
+    (median ms a call; 0.0 where the axis has one rank)."""
+    import torch
+
+    from ..learn.ppo import PPOConfig
+    from ..parallel.mesh import (all_reduce_mean_, gather_rows,
+                                 reduce_scatter_rows)
+
+    dev, T = mesh.device, PPOConfig().rollout_steps
+    n = sum(p.numel() for p in state.params.flat()) + 1
+    out = dict(allreduce_ms_per_call=0.0, model_gather_ms=0.0,
+               model_reduce_scatter_ms=0.0, model_gather_rollout_ms=0.0)
+    if mesh.data > 1:
+        buf = torch.zeros(n, device=dev)
+        out["allreduce_ms_per_call"] = _median_ms(
+            lambda: all_reduce_mean_(mesh, buf), mesh, sync, COLLECTIVE_REPS)
+    if mesh.model > 1:
+        lanes = args.envs // mesh.data
+        rows = args.hidden[0] // mesh.model
+        upd = [torch.zeros(rows, T * lanes, device=dev)] * 2
+        roll = [torch.zeros(rows, lanes, device=dev)] * 2
+        whole = [torch.zeros(rows * mesh.model, T * lanes, device=dev)] * 2
+        for key, fn, xs in (("model_gather_ms", gather_rows, upd),
+                            ("model_reduce_scatter_ms", reduce_scatter_rows,
+                             whole),
+                            ("model_gather_rollout_ms", gather_rows, roll)):
+            out[key] = _median_ms(lambda: fn(mesh, xs), mesh, sync,
+                                  COLLECTIVE_REPS)
+    return out
+
+
+def _all_true(mesh, flags):
+    """Each flag and-ed over the ranks (every rank gets the same)."""
     import torch
     import torch.distributed as dist
 
-    from .. import make_chain
-    from ..learn.ppo import PPOConfig, make_ppo_fused
-    from ..ops import ppo_update as pu
-    from ..ops import supplychain_collect as scc
-    from ..parallel.mesh import (all_reduce_mean_, barrier, init_distributed,
-                                 make_mesh, replicated)
+    t = torch.tensor([int(bool(f)) for f in flags], dtype=torch.int32,
+                     device=mesh.device)
+    if mesh.world > 1:
+        dist.all_reduce(t, op=dist.ReduceOp.MIN, group=mesh.group)
+    return [bool(x) for x in t.tolist()]
+
+
+def _tables_global(case: str, args, mesh, state) -> bool:
+    """Whether the rank's first beer-game tables are its lanes of the
+    global batch's (one process's) draw under the same seed."""
+    import torch
+
+    from ..parallel.mesh import lane_range
+
+    init1 = _trainer(case, args, None, mesh.device)[0]
+    whole = init1(args.seed).env.env
+    lo, hi = lane_range(mesh, args.envs)
+    return all(torch.equal(getattr(state.env.env, k),
+                           getattr(whole, k)[..., lo:hi])
+               for k in ("customer_demand", "shipment_delays"))
+
+
+def _case(case: str, args, mesh, work: str) -> dict:
+    """One case on this rank: train, time, check replication, resume and
+    the checkpoint's moves.  Every rank returns the same dict."""
+    import torch
+    import torch.distributed as dist
+
+    from ..models.policy import gather_params, shard_params, trunk_leaves
+    from ..parallel.mesh import barrier, replicated
     from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+        barrier(mesh)
+
+    init_fn, step, steps, counters, sharded = _trainer(case, args, mesh,
+                                                       mesh.device)
+
+    def whole(params):
+        return gather_params(params, mesh) if sharded else params
+
+    for fn in counters.values():
+        fn.launches = 0
+    state = init_fn(args.seed)
+    checks = {}
+    if case == "beergame":
+        checks["tables_global"] = _tables_global(case, args, mesh, state)
+    state, m = step(state)               # the build, then iteration 1
+    first = {k: float(v) for k, v in m.items()}
+    sync()
+    stats0 = dict(mesh.stats)
+    t0 = time.perf_counter()
+    for _ in range(args.iters):
+        state, m = step(state)
+    sync()
+    dt = time.perf_counter() - t0
+    per_iter = {k: (mesh.stats[k] - stats0[k]) / args.iters
+                for k in ("data", "model")}
+    launches = torch.tensor([fn.launches for fn in counters.values()] or [0],
+                            dtype=torch.int64, device=mesh.device)
+    fewest = launches.clone()
+    if mesh.world > 1:
+        dist.all_reduce(launches, group=mesh.group)
+        dist.all_reduce(fewest, op=dist.ReduceOp.MIN, group=mesh.group)
+    trunk = {id(p) for p in trunk_leaves(state.params)} if sharded else set()
+    repl = torch.cat([p.detach().reshape(-1) for p in state.params.flat()
+                      if id(p) not in trunk])
+    checks["replicated"] = replicated(mesh, repl)
+    checks["gathered_equal"] = replicated(mesh, _flat(whole(state.params)))
+    timing = _collective_ms(mesh, state, args, sync)
+
+    # the checkpoint the ranks write resumes bit for bit, and moves
+    shape = f"{mesh.data}x{mesh.model}"
+    path = save_checkpoint(os.path.join(work, f"ck_{shape}_{case}"), state,
+                           step=1 + args.iters, mesh=mesh)
+    saved = _flat(whole(state.params))
+    state, _ = step(state)
+    cont = _flat(whole(state.params))
+    fresh, _ = step(restore_checkpoint(path, like=init_fn(args.seed + 1),
+                                       mesh=mesh))
+    checks["resume_bit_exact"] = torch.equal(cont, _flat(whole(fresh.params)))
+    one_path = os.path.join(work, f"ck_1x1_{case}")
+    if mesh.model > 1 and os.path.isdir(one_path):
+        got = restore_checkpoint(one_path, like=init_fn(args.seed + 1),
+                                 mesh=mesh)
+        rows = restore_checkpoint(one_path)["params"].to(mesh.device)
+        if sharded:
+            rows = shard_params(rows, mesh)
+        checks["from_one_rows"] = all(
+            torch.equal(a, b) for a, b in zip(got.params.flat(), rows.flat()))
+    if mesh.model > 1:
+        ok = True
+        if mesh.rank == 0:
+            init1, _, _, _, _ = _trainer(case, args, None, mesh.device)
+            one = restore_checkpoint(path, like=init1(args.seed + 1))
+            ok = torch.equal(_flat(one.params), saved)
+        checks["to_one_bit_exact"] = ok
+    checks = dict(zip(checks, _all_true(mesh, checks.values())))
+    global_steps = args.envs * steps * args.iters
+    names = list(counters)
+    return dict(
+        first=first, iter_ms=dt / args.iters * 1e3,
+        train_env_steps_per_s=global_steps / dt,
+        allreduce_calls_per_iter=per_iter["data"],
+        allreduce_ms_per_iter=(timing["allreduce_ms_per_call"]
+                               * per_iter["data"]),
+        model_calls_per_iter=per_iter["model"], **timing, **checks,
+        launches=dict(zip(names, launches.tolist())),
+        launches_min=dict(zip(names, fewest.tolist())))
+
+
+def run_rank(args) -> dict:
+    """One rank's run (every process of a mesh runs it): join the group,
+    build the mesh, run each case.  Returns rank 0's result (None on the
+    other ranks)."""
+    import torch.distributed as dist
+
+    from ..parallel.mesh import init_distributed, make_mesh
+
     dev = init_distributed(device=args.device)
-    mesh = make_mesh(device=dev or args.device)
+    data, model = args.mesh
+    mesh = make_mesh(data, model, device=dev or args.device)
     try:
-        cc = make_chain(ENV, total_time_steps=args.horizon)
-        cfg = PPOConfig(epochs=args.epochs, hidden=tuple(args.hidden),
-                        fused_update=mesh.device.type == "cuda")
-        init_fn, step = make_ppo_fused(cc, args.envs, cfg, mesh=mesh)
-
-        def sync():
-            if mesh.device.type == "cuda":
-                torch.cuda.synchronize(mesh.device)
-            barrier(mesh)
-
-        counts = (scc.launch_supplychain_policy, pu.launch_ppo_update)
-        for fn in counts:
-            fn.launches = 0
-        state = init_fn(args.seed)
-        state, m = step(state)               # the build, then iteration 1
-        first = {k: float(v) for k, v in m.items()}
-        sync()
-        calls0 = mesh.stats["calls"]
-        t0 = time.perf_counter()
-        for _ in range(args.iters):
-            state, m = step(state)
-        sync()
-        dt = time.perf_counter() - t0
-        launches = torch.tensor([fn.launches for fn in counts],
-                                dtype=torch.int64, device=mesh.device)
-        if mesh.world > 1:
-            dist.all_reduce(launches, group=mesh.group)
-        calls = (mesh.stats["calls"] - calls0) / args.iters
-        flat = _flat_params(state)
-        same = replicated(mesh, flat)
-
-        # one all-reduce of the step's packed gradients and loss, alone
-        buf = torch.zeros(flat.numel() + 1, dtype=torch.float32,
-                          device=mesh.device)
-        ms = []
-        for _ in range(ALLREDUCE_REPS):
-            sync()
-            t = time.perf_counter()
-            all_reduce_mean_(mesh, buf)
-            if mesh.device.type == "cuda":
-                torch.cuda.synchronize(mesh.device)
-            ms.append((time.perf_counter() - t) * 1e3)
-        ar_ms = sorted(ms)[len(ms) // 2] if mesh.world > 1 else 0.0
-
-        # the checkpoint the ranks write resumes bit for bit
-        path = save_checkpoint(args.work_dir, state, step=1 + args.iters,
-                               mesh=mesh)
-        state, _ = step(state)
-        cont = _flat_params(state)
-        fresh = restore_checkpoint(path, like=init_fn(args.seed + 1),
-                                   mesh=mesh)
-        fresh, _ = step(fresh)
-        ok = torch.tensor([int(torch.equal(cont, _flat_params(fresh)))],
-                          dtype=torch.int32, device=mesh.device)
-        if mesh.world > 1:
-            dist.all_reduce(ok, op=dist.ReduceOp.MIN, group=mesh.group)
-        steps = args.envs * cc.T * args.iters
-        out = dict(processes=mesh.world, global_envs=args.envs,
-                   lanes_per_rank=args.envs // mesh.world,
+        cases = {c: _case(c, args, mesh, args.work_dir) for c in args.cases}
+        out = dict(processes=mesh.world, mesh=[mesh.data, mesh.model],
+                   global_envs=args.envs,
+                   lanes_per_rank=args.envs // mesh.data,
                    backend=mesh.backend, device=str(mesh.device),
-                   horizon=cc.T, hidden=list(cfg.hidden), iters=args.iters,
-                   train_env_steps_per_s=steps / dt,
-                   iter_ms=dt / args.iters * 1e3,
-                   allreduce_ms_per_call=ar_ms,
-                   allreduce_calls_per_iter=calls,
-                   allreduce_ms_per_iter=ar_ms * calls, first=first,
-                   replicated=same, resume_bit_exact=bool(ok.item()),
-                   launches={"supplychain_collect[policy]":
-                             int(launches[0]),
-                             "ppo_update": int(launches[1])})
+                   horizon=args.horizon, hidden=list(args.hidden),
+                   iters=args.iters, **cases[args.cases[0]], cases=cases)
         return out if mesh.rank == 0 else None
     finally:
         if mesh.world > 1:
             dist.destroy_process_group()
 
 
-def _rank_argv(args, work_dir: str):
+def _rank_argv(args, mesh, work_dir: str):
     return [sys.executable, "-m",
             "gym_supplychain_tpu_torch.benchmarks.multihost_scaling",
-            "--worker", "--envs", str(args.envs), "--horizon",
+            "--worker", "--mesh-shape", str(mesh[0]), str(mesh[1]),
+            "--cases", *args.cases, "--envs", str(args.envs), "--horizon",
             str(args.horizon), "--hidden", *map(str, args.hidden),
             "--epochs", str(args.epochs), "--iters", str(args.iters),
             "--seed", str(args.seed), "--device", args.device,
             "--work-dir", work_dir]
 
 
-def _spawn(args, world: int, timeout: float) -> dict:
-    """Run ``world`` ranks to their end under one deadline; the first rank
-    that fails (or the deadline) stops the others and fails the run."""
+def _spawn(args, mesh, work: str, timeout: float) -> dict:
+    """Run the ranks of ``mesh`` to their end under one deadline; the first
+    rank that fails (or the deadline) stops the others and fails the
+    run."""
+    world = mesh[0] * mesh[1]
     port = _free_port()
     with tempfile.TemporaryDirectory() as tmp:
         procs, logs = [], []
@@ -181,8 +348,8 @@ def _spawn(args, world: int, timeout: float) -> dict:
             err = open(os.path.join(tmp, f"rank{r}.err"), "w+")
             logs.append((out, err))
             procs.append(subprocess.Popen(
-                _rank_argv(args, os.path.join(tmp, "ck")),
-                stdout=out, stderr=err, cwd=str(ROOT), env=env))
+                _rank_argv(args, mesh, work), stdout=out, stderr=err,
+                cwd=str(ROOT), env=env))
         deadline = time.monotonic() + timeout
         try:
             while any(p.poll() is None for p in procs):
@@ -203,23 +370,30 @@ def _spawn(args, world: int, timeout: float) -> dict:
             texts.append((out.read(), err.read()))
             out.close()
             err.close()
+    shape = f"{mesh[0]}x{mesh[1]}"
     for r, (p, (out, err)) in enumerate(zip(procs, texts)):
         if p.returncode != 0:
-            raise RuntimeError(f"rank {r} of {world} exited {p.returncode} "
-                               f"(deadline {timeout} s):\n{out[-2000:]}\n"
-                               f"{err[-4000:]}")
+            raise RuntimeError(f"rank {r} of the {shape} mesh exited "
+                               f"{p.returncode} (deadline {timeout} s):\n"
+                               f"{out[-2000:]}\n{err[-4000:]}")
     lines = [ln for ln in texts[0][0].splitlines() if ln.startswith(_RESULT)]
     if not lines:
-        raise RuntimeError(f"rank 0 of {world} printed no result:\n"
-                           f"{texts[0][0][-2000:]}")
+        raise RuntimeError(f"rank 0 of the {shape} mesh printed no "
+                           f"result:\n{texts[0][0][-2000:]}")
     return json.loads(lines[-1][len(_RESULT):])
 
 
-def run(processes=(1, 2), envs: int = 8192, horizon: int = 60,
+def run(meshes=((1, 1), (2, 1)), envs: int = 8192, horizon: int = 60,
         hidden=(128, 128), epochs: int = 2, iters: int = 5, seed: int = 0,
-        device: str = "cuda", timeout: float = 600.0):
-    """Spawn and run each process count in turn; returns one result dict a
-    count (rank 0's).  The kernels are built first, in this process."""
+        device: str = "cuda", timeout: float = 600.0, cases=("fused",)):
+    """Spawn and run each ``(data, model)`` mesh of ``meshes`` in turn,
+    each running every trainer of ``cases``; returns one result dict a
+    mesh (rank 0's).  The kernels are built
+    first, in this process; the meshes share one work directory, so a
+    later mesh restores an earlier one's checkpoints."""
+    unknown = [c for c in cases if c not in CASES]
+    if unknown:
+        raise ValueError(f"cases {unknown}: one of {CASES}")
     if device != "cpu":
         import torch
 
@@ -231,13 +405,23 @@ def run(processes=(1, 2), envs: int = 8192, horizon: int = 60,
         _build.library()
     args = argparse.Namespace(envs=envs, horizon=horizon, hidden=list(hidden),
                               epochs=epochs, iters=iters, seed=seed,
-                              device=device)
-    return [_spawn(args, int(w), timeout) for w in processes]
+                              device=device, cases=list(cases))
+    with tempfile.TemporaryDirectory() as work:
+        return [_spawn(args, tuple(m), work, timeout) for m in meshes]
+
+
+def _mesh_arg(text: str):
+    """``DxM`` as ``(D, M)``; ``W`` as ``(W, 1)``."""
+    data, _, model = text.lower().partition("x")
+    return int(data), int(model or 1)
 
 
 def _parser():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--processes", type=int, nargs="+", default=[1, 2])
+    p.add_argument("--meshes", type=_mesh_arg, nargs="+",
+                   default=[(1, 1), (2, 1)],
+                   help="mesh shapes DxM (data x model); W is Wx1")
+    p.add_argument("--cases", nargs="+", default=["fused"], choices=CASES)
     p.add_argument("--envs", type=int, default=8192,
                    help="the global batch")
     p.add_argument("--horizon", type=int, default=60)
@@ -248,8 +432,10 @@ def _parser():
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda")
     p.add_argument("--timeout", type=float, default=600.0,
-                   help="seconds a process count may take")
+                   help="seconds a mesh may take")
     p.add_argument("--worker", action="store_true", help=argparse.SUPPRESS)
+    p.add_argument("--mesh-shape", type=int, nargs=2, default=None,
+                   dest="mesh", help=argparse.SUPPRESS)
     p.add_argument("--work-dir", default=None, help=argparse.SUPPRESS)
     return p
 
@@ -261,9 +447,10 @@ def main(argv=None):
         if out is not None:
             print(_RESULT + json.dumps(out), flush=True)
         return out
-    results = run(args.processes, envs=args.envs, horizon=args.horizon,
+    results = run(args.meshes, envs=args.envs, horizon=args.horizon,
                   hidden=args.hidden, epochs=args.epochs, iters=args.iters,
-                  seed=args.seed, device=args.device, timeout=args.timeout)
+                  seed=args.seed, device=args.device, timeout=args.timeout,
+                  cases=args.cases)
     for r in results:
         print(json.dumps(r), flush=True)
     return results

@@ -213,11 +213,13 @@ def make_beergame_table_draw(weeks: int, dem_range=None, delay_range=None,
                              itype=torch.int32, device="cuda"):
     """Per-lane episode tables for the stochastic beer game v2.
 
-    Returns ``draw(key, B) -> (demand [weeks, B], delays [weeks+1, B])``.
-    Stochastic fields are uniform integers in ``[low, high)`` per lane and
-    week, ``floor(u * (high - low)) + low`` from Philox (row 0 demand, row 1
-    delay, at counter ``(lane, week, 0, 0)``); scripted fields broadcast.
-    Delay slot 0 is the prepended initial delay 2.
+    Returns ``draw(key, B, lane0=0) -> (demand [weeks, B], delays
+    [weeks+1, B])``.  Stochastic fields are uniform integers in ``[low,
+    high)`` per lane and week, ``floor(u * (high - low)) + low`` from Philox
+    (row 0 demand, row 1 delay, at counter ``(lane, week, 0, 0)``, the lane
+    counted from ``lane0``: a rank holding lanes ``lane0 ..`` of a larger
+    batch draws their tables); scripted fields broadcast.  Delay slot 0 is
+    the prepended initial delay 2.
     """
     device = torch.device(device)
 
@@ -225,8 +227,9 @@ def make_beergame_table_draw(weeks: int, dem_range=None, delay_range=None,
         lo, hi = int(rng[0]), int(rng[1])
         return (torch.floor(u * (hi - lo)) + lo).to(itype)
 
-    def draw(key, B: int):
-        u = philox_uniform(_as_key(key), range(weeks), 2, B, device)
+    def draw(key, B: int, lane0: int = 0):
+        u = philox_uniform(_as_key(key), range(weeks), 2, B, device,
+                           lane0=lane0)
         if dem_range is not None:
             demand = _randint(u[:, 0], dem_range)
         else:

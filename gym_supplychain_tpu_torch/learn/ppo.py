@@ -28,19 +28,31 @@ phases are exposed as ``train_step.collect`` / ``.rollout``, ``.gae``,
 ``.prepare`` (GAE, normalization, update layout), ``.update`` and
 ``.loss``, so a test can feed two trainers the same tables.
 
-``mesh=`` (``parallel/mesh.py``) runs the continuous trainers data-parallel
-over processes, as the JAX package's ``mesh=`` forms do: ``batch_size``
-stays the global B and each rank runs the lanes ``lane_range(mesh, B)``,
-whose env streams, collection seeds and exploration noise are the ones
-those lanes draw in one process (``lane0``).  Each rank computes the loss
-and gradients over its own samples; one ``all_reduce`` a step averages the
-loss and every gradient (packed into one buffer), before the global-norm
-clip and Adam, so the norm is the global gradient's.  Advantages are
-normalized by the global mean and population std (two all-reduced passes),
-and the metrics are global means.  Every rank builds the same weights and
-generator from the seed and makes every draw from the generator in the
-same order, so the ranks stay in lockstep and their parameters bit-equal.
-The beer game's trainer is single-process, as in the JAX package.
+``mesh=`` (``parallel/mesh.py``) runs the trainers over processes on a
+``data x model`` mesh, as the JAX package's mesh forms do.  ``batch_size``
+stays the global B and each rank runs the lanes ``lane_range(mesh, B)`` of
+its data index, whose env streams, collection seeds and exploration noise
+are the ones those lanes draw in one process (``lane0``).  Each rank
+computes the loss and gradients over its lanes; one ``all_reduce`` a step
+over the data group averages the loss and every gradient (packed into one
+buffer), before the global-norm clip and Adam, so the norm is the global
+gradient's.  Advantages are normalized by the global mean and population
+std (two all-reduced passes), and the metrics are global means.  Every
+rank builds the same weights and generator from the seed and makes every
+draw from the generator in the same order, so the ranks stay in lockstep.
+
+A model axis (``make_ppo``, ``make_beergame_ppo``) splits the trunks'
+hidden units (``models/policy.py``: ``shard_params``, the forwards with
+``mesh=``): the ranks of a model group run the same lanes with the same
+draws, each on its rows of every trunk layer; the clip's norm sums the
+shards' squares over the model group and adds the replicated leaves once;
+``cfg.fused_update`` gathers the trunk into the whole net for the update
+kernel, which each rank runs on its lanes, and keeps the rank's rows of
+its gradients (JAX ``_make_update`` under a mesh).  ``make_ppo_fused``
+keeps the parameters whole on every rank of a model axis, as the JAX
+package's fused trainer does, with one collection kernel a data shard.
+The replicated leaves stay bit-equal on every rank, the trunk rows on the
+ranks of a data group.
 """
 from __future__ import annotations
 
@@ -53,12 +65,14 @@ from ..envs.vector import (VecState, _split, beergame_table_config,
                            make_vec_env)
 from ..models.policy import (ActorCritic, DiscreteActorCritic, MLPConfig,
                              actor_critic_forward, categorical_logp_entropy,
-                             discrete_forward, tanh_gaussian_logp)
+                             check_model_axis, discrete_forward, gather_flat,
+                             shard_params, tanh_gaussian_logp, trunk_leaves)
 from ..ops.ppo_update import fused_ppo_loss, make_ppo_update_grads
 from ..ops.supplychain_collect import (make_supplychain_collect,
                                        philox_tables,
                                        supplychain_collect_plain)
-from ..parallel.mesh import Mesh, all_reduce_mean_, lane_range, sharded
+from ..parallel.mesh import (Mesh, all_reduce_mean_, data_parallel,
+                             lane_range, model_all_reduce_, tensor_parallel)
 
 __all__ = ["PPOConfig", "TrainState", "FusedTrainState", "Trajectory",
            "make_ppo", "make_ppo_fused", "make_beergame_ppo",
@@ -124,13 +138,22 @@ def _adam(params, cfg: PPOConfig):
                             betas=(0.9, 0.999), eps=1e-8)
 
 
-def clip_by_global_norm_(params, max_norm: float) -> None:
+def clip_by_global_norm_(params, max_norm: float, mesh: Optional[Mesh] = None,
+                         shards=()) -> None:
     """optax's ``clip_by_global_norm`` on the ``.grad`` of ``params``, in
     place: every gradient becomes ``(g / norm) * max_norm`` where the global
     norm is ``>= max_norm`` (no epsilon, unlike
-    ``torch.nn.utils.clip_grad_norm_``)."""
-    grads = [p.grad for p in params if p.grad is not None]
-    g_norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    ``torch.nn.utils.clip_grad_norm_``).  ``shards`` are the rank's rows of
+    leaves split over the mesh's model axis: their squares are summed over
+    the model group and the replicated ``params``' added once, so every
+    rank scales by the whole tree's norm."""
+    sq = [torch.sum(p.grad * p.grad) for p in shards if p.grad is not None]
+    grads = [p.grad for p in (*params, *shards) if p.grad is not None]
+    total = sum(torch.sum(p.grad * p.grad) for p in params
+                if p.grad is not None)
+    if sq:
+        total = total + model_all_reduce_(mesh, torch.stack(sq).sum())
+    g_norm = torch.sqrt(total)
     keep = g_norm < max_norm
     for g in grads:
         g.copy_(torch.where(keep, g, (g / g_norm) * max_norm))
@@ -156,19 +179,21 @@ def _make_gae(cfg: PPOConfig):
     return gae
 
 
-def _make_cont_loss(cfg: PPOConfig, forward=None):
+def _make_cont_loss(cfg: PPOConfig, forward=None, mesh=None):
     """Clipped-PPO loss for the continuous tanh-Gaussian policy over
     sample-trailing arrays (``obs [obs_dim, M]``, ``pre [A, M]``, the rest
     ``[M]``; advantages already normalized).  ``params`` is an
     ``ActorCritic`` or its flat list.  ``forward(params, obs)`` defaults to
-    ``actor_critic_forward`` in ``cfg.learner_dtype``."""
+    ``actor_critic_forward`` in ``cfg.learner_dtype`` (tensor-parallel over
+    a ``mesh``'s model axis)."""
     if cfg.learner_dtype not in (None, torch.bfloat16):
         raise ValueError(f"learner_dtype {cfg.learner_dtype}: None or "
                          "torch.bfloat16")
     if forward is None:
         def forward(params, obs):
             return actor_critic_forward(params, obs,
-                                        compute_dtype=cfg.learner_dtype)
+                                        compute_dtype=cfg.learner_dtype,
+                                        mesh=mesh)
 
     def loss(params, obs, pre, old_logp, adv, ret):
         mu, log_std, value = forward(params, obs)
@@ -189,10 +214,10 @@ def _make_cont_loss(cfg: PPOConfig, forward=None):
 
 def _normalized(adv, mesh: Optional[Mesh] = None):
     """Whole-batch advantage normalization (population std, as jnp.std).
-    Under a mesh the batch is every rank's: the global mean from one
+    Under a data axis the batch is every rank's: the global mean from one
     all-reduced sum, then the std from the all-reduced sum of squared
     deviations (two passes, not E[x^2] - E[x]^2)."""
-    if not sharded(mesh):
+    if not data_parallel(mesh):
         return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
     mean = all_reduce_mean_(mesh, adv.mean().reshape(1))
     dev = adv - mean
@@ -213,9 +238,10 @@ def _flat2(x):
 
 
 def _mean_grads_(mesh: Mesh, leaves, loss):
-    """The loss and the ``.grad`` of every leaf averaged over the ranks in
-    place, packed into one buffer: one ``all_reduce`` (the JAX mesh's
-    ``pmean`` of the loss and the gradients).  Returns the mean loss."""
+    """The loss and the ``.grad`` of every leaf (whole or the rank's rows)
+    averaged over the data axis in place, packed into one buffer: one
+    ``all_reduce`` over the data group (the JAX mesh's ``pmean`` over
+    ``data``).  Returns the mean loss."""
     grads = [torch.zeros_like(p) if p.grad is None else p.grad
              for p in leaves]
     buf = torch.cat([g.reshape(-1) for g in grads]
@@ -229,7 +255,7 @@ def _mean_grads_(mesh: Mesh, leaves, loss):
 
 
 def _make_update(cfg: PPOConfig, loss_fn, dims=None,
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, sharded_params: bool = False):
     """Epoch x minibatch clipped-PPO update.
 
     ``update(params, opt, data, generator=None) -> losses [n_steps]``: data
@@ -239,9 +265,14 @@ def _make_update(cfg: PPOConfig, loss_fn, dims=None,
     act_dim)`` enables ``cfg.fused_update`` (the update kernel's loss and
     gradients).  Each step: gradients, ``clip_by_global_norm_``, Adam.
     With a ``mesh`` the data is the rank's lanes: each rank's loss and
-    gradients over its own samples, averaged over the ranks in one
+    gradients over its own samples, averaged over the data axis in one
     ``all_reduce`` before the clip (``_mean_grads_``); every rank draws
-    the same order from its generator.
+    the same order from its generator.  ``sharded_params``: the trunks
+    are split over the mesh's model axis (``shard_params``; ``loss_fn``
+    runs the tensor-parallel forward), so the clip's norm sums the shards
+    over the model group, and the update kernel runs on the whole net
+    gathered once a step (``gather_flat``), each rank keeping its rows of
+    the gradients.
     """
     if cfg.fused_update and dims is None:
         raise ValueError("fused_update supports the continuous-action "
@@ -268,20 +299,24 @@ def _make_update(cfg: PPOConfig, loss_fn, dims=None,
                      for i in torch.randperm(mb, generator=generator,
                                              device=generator.device).tolist()]
         leaves = params.flat()
+        shards = trunk_leaves(params) if sharded_params else []
+        split = {id(p) for p in shards}
+        whole = [p for p in leaves if id(p) not in split]
         losses = []
         for i in order:
             chunk = data if mb == 1 else tuple(
                 d[..., i * bs:(i + 1) * bs] for d in data)
             flat = tuple(_flat2(d) for d in chunk)
             if cfg.fused_update:
-                loss = fused_ppo_loss(grads_fns[sz], params, flat)
+                net = gather_flat(params, mesh) if sharded_params else params
+                loss = fused_ppo_loss(grads_fns[sz], net, flat)
             else:
                 loss, _ = loss_fn(params, *flat)
             opt.zero_grad(set_to_none=True)
             loss.backward()
-            if sharded(mesh):
+            if data_parallel(mesh):
                 loss = _mean_grads_(mesh, leaves, loss)
-            clip_by_global_norm_(leaves, cfg.max_grad_norm)
+            clip_by_global_norm_(whole, cfg.max_grad_norm, mesh, shards)
             opt.step()
             losses.append(loss.detach())
         return torch.stack(losses)
@@ -291,8 +326,9 @@ def _make_update(cfg: PPOConfig, loss_fn, dims=None,
 
 def _metrics(losses, traj: Trajectory, reward_scale: float,
              mesh: Optional[Mesh] = None):
-    """The last step's loss (the ranks' mean under a mesh) and the batch's
-    mean reward and value (global means under a mesh: one all-reduce)."""
+    """The last step's loss (the data axis's mean under a mesh) and the
+    batch's mean reward and value (global means under a mesh: one
+    all-reduce over the data group)."""
     means = all_reduce_mean_(mesh, torch.stack(
         [traj.reward.mean() / reward_scale, traj.value.mean()]))
     return {"loss": losses[-1], "mean_reward": means[0],
@@ -301,8 +337,8 @@ def _metrics(losses, traj: Trajectory, reward_scale: float,
 
 def _shard(mesh: Optional[Mesh], B: int, cfg: PPOConfig, device):
     """``(device, lo, hi)``: the rank's device (the mesh's) and lanes of the
-    global batch ``B``.  Raises where the ranks' minibatches would not be
-    equal."""
+    global batch ``B`` (its data index's).  Raises where the ranks'
+    minibatches would not be equal."""
     if mesh is None:
         return torch.device(device), 0, B
     if B % (mesh.data * cfg.minibatches):
@@ -324,17 +360,22 @@ def make_ppo(cc: CompiledChain, batch_size: int, cfg: PPOConfig = PPOConfig(),
     the noise generator from seeds it draws.  With a ``mesh`` the rank runs
     its lanes of the ``batch_size`` global ones on the mesh's device: the
     env at their global lane index, the noise drawn for the global ``[A,
-    B]`` and cut to the rank's columns.
+    B]`` and cut to the rank's columns.  A model axis splits the trunks
+    (the module docstring); one that does not divide ``cfg.hidden`` raises
+    ``ValueError`` here.
     """
     B = batch_size
     device, lo, hi = _shard(mesh, B, cfg, device)
+    tp = tensor_parallel(mesh)
+    if tp:
+        check_model_axis(cfg.hidden, mesh.model)
     env_init, env_step, env_obs = make_vec_env(cc, hi - lo, torch.float32,
                                                device=device, lane0=lo)
     mcfg = MLPConfig(obs_dim=cc.obs_dim, act_dim=cc.A, hidden=cfg.hidden)
 
     def init_fn(seed) -> TrainState:
         cpu = torch.Generator().manual_seed(int(seed))
-        params = ActorCritic(mcfg, cpu, device)
+        params = shard_params(ActorCritic(mcfg, cpu, device), mesh)
         env_seed, noise_seed = torch.randint(0, 2 ** 62, (2,),
                                              generator=cpu).tolist()
         gen = torch.Generator(device=device).manual_seed(noise_seed)
@@ -346,7 +387,7 @@ def make_ppo(cc: CompiledChain, batch_size: int, cfg: PPOConfig = PPOConfig(),
         obs = env_obs(env_state)
         rows = {k: [] for k in Trajectory._fields}
         for _ in range(cfg.rollout_steps):
-            mu, log_std, value = actor_critic_forward(params, obs)
+            mu, log_std, value = actor_critic_forward(params, obs, mesh=mesh)
             eps = torch.randn((cc.A, B), generator=gen,
                               device=device)[:, lo:hi]
             pre = mu + torch.exp(log_std) * eps
@@ -358,15 +399,16 @@ def make_ppo(cc: CompiledChain, batch_size: int, cfg: PPOConfig = PPOConfig(),
                 rows[k].append(v)
             rows["done"].append(out.done)
             obs = out.obs
-        _, _, last_value = actor_critic_forward(params, obs)
+        _, _, last_value = actor_critic_forward(params, obs, mesh=mesh)
         done = torch.tensor(rows.pop("done"), device=device)
         traj = Trajectory(done=done,
                           **{k: torch.stack(v) for k, v in rows.items()})
         return env_state, traj, last_value
 
     _gae = _make_gae(cfg)
-    _loss = _make_cont_loss(cfg)
-    _update = _make_update(cfg, _loss, dims=(cc.obs_dim, cc.A), mesh=mesh)
+    _loss = _make_cont_loss(cfg, mesh=mesh)
+    _update = _make_update(cfg, _loss, dims=(cc.obs_dim, cc.A), mesh=mesh,
+                           sharded_params=tp)
 
     def train_step(state: TrainState):
         env_state, traj, last_value = _rollout(state.params, state.env,
@@ -418,7 +460,9 @@ def make_ppo_fused(cc: CompiledChain, batch_size: int,
     (``lane0``: the kernel's Philox counters in ``prng`` mode, the tables'
     columns in ``table`` mode), so the ranks together draw the unsharded
     run's trajectories; the update data stays in the kernel's sample-major
-    layout, which is per rank.
+    layout, which is per rank.  On a mesh with a model axis the parameters
+    stay whole on every rank (JAX ``tests/test_ppo_fused.py``'s ``4x2``
+    mesh): the ranks of a model group collect and update the same lanes.
     """
     if noise not in ("prng", "table"):
         raise ValueError(f"noise must be 'prng' or 'table', got {noise!r}")
@@ -499,7 +543,7 @@ def make_beergame_ppo(batch_size: int, cfg: PPOConfig = PPOConfig(),
                       max_stock: int = 100,
                       exceeded_capacity_penalty: int = 100,
                       dtype=torch.float32, reward_scale: float = 1e-2,
-                      device="cuda"):
+                      device="cuda", mesh: Optional[Mesh] = None):
     """PPO for the beer game's MultiDiscrete action space: one categorical
     head per level over ``max_order`` order quantities
     (``DiscreteActorCritic``).
@@ -515,6 +559,12 @@ def make_beergame_ppo(batch_size: int, cfg: PPOConfig = PPOConfig(),
     loss (``cfg.fused_update`` and ``cfg.learner_dtype`` are the continuous
     trainers'; they raise here).  ``init_fn(seed) -> TrainState``,
     ``train_step`` as ``make_ppo``'s.
+
+    With a ``mesh`` (the JAX CLI shards the bare ``BeerGameState`` on its
+    trailing axis) the rank runs its lanes of the ``batch_size`` global
+    ones: their episode tables drawn at their global lane index
+    (``lane0``), the Gumbel noise drawn for the global batch and cut to
+    them; a model axis splits the discrete trunks as ``make_ppo``'s.
     """
     from ..core.beergame import make_beergame_kernels
 
@@ -522,8 +572,11 @@ def make_beergame_ppo(batch_size: int, cfg: PPOConfig = PPOConfig(),
         raise ValueError("learner_dtype: the beer game's learner runs in "
                          "float32 (its discrete forward has no compute "
                          "dtype)")
-    device = torch.device(device)
     B, L = batch_size, levels
+    device, lo, hi = _shard(mesh, B, cfg, device)
+    tp = tensor_parallel(mesh)
+    if tp:
+        check_model_axis(cfg.hidden, mesh.model)
     tables = beergame_table_config(weeks, customer_demand, shipment_delays,
                                    device)
     weeks, draw = tables["weeks"], tables["draw"]
@@ -536,15 +589,16 @@ def make_beergame_ppo(batch_size: int, cfg: PPOConfig = PPOConfig(),
     mcfg = MLPConfig(obs_dim=L, act_dim=L, hidden=cfg.hidden)
 
     def _fresh(key):
-        dem, dly = draw(key, B)
-        return reset_k(dem, dly, inv0, 4, 4, B)
+        dem, dly = draw(key, hi - lo, lane0=lo)
+        return reset_k(dem, dly, inv0, 4, 4, hi - lo)
 
     def _obs(st):
         return obs_k(st).to(dtype) * obs_scale
 
     def init_fn(seed) -> TrainState:
         cpu = torch.Generator().manual_seed(int(seed))
-        params = DiscreteActorCritic(mcfg, max_order, cpu, device)
+        params = shard_params(DiscreteActorCritic(mcfg, max_order, cpu,
+                                                  device), mesh)
         env_seed, noise_seed = torch.randint(0, 2 ** 62, (2,),
                                              generator=cpu).tolist()
         gen = torch.Generator(device=device).manual_seed(noise_seed)
@@ -558,8 +612,9 @@ def make_beergame_ppo(batch_size: int, cfg: PPOConfig = PPOConfig(),
         obs = _obs(st)
         rows = {k: [] for k in Trajectory._fields}
         for _ in range(cfg.rollout_steps):
-            logits, value = discrete_forward(params, obs, L, max_order)
-            u = torch.rand(logits.shape, generator=gen, device=device)
+            logits, value = discrete_forward(params, obs, L, max_order, mesh)
+            u = torch.rand((L, max_order, B), generator=gen,
+                           device=device)[..., lo:hi]
             act = torch.argmax(logits - torch.log(-torch.log(u)), dim=1)
             logp, _ = categorical_logp_entropy(logits, act)
             st, (_, reward, done) = step_k(st, act)
@@ -572,7 +627,7 @@ def make_beergame_ppo(batch_size: int, cfg: PPOConfig = PPOConfig(),
                 rows[k].append(v)
             rows["done"].append(done)
             obs = _obs(st)
-        _, last_value = discrete_forward(params, obs, L, max_order)
+        _, last_value = discrete_forward(params, obs, L, max_order, mesh)
         done = torch.tensor(rows.pop("done"), device=device)
         traj = Trajectory(done=done,
                           **{k: torch.stack(v) for k, v in rows.items()})
@@ -581,7 +636,7 @@ def make_beergame_ppo(batch_size: int, cfg: PPOConfig = PPOConfig(),
     _gae = _make_gae(cfg)
 
     def _loss(params, obs, act, old_logp, adv, ret):
-        logits, value = discrete_forward(params, obs, L, max_order)
+        logits, value = discrete_forward(params, obs, L, max_order, mesh)
         logp, ent = categorical_logp_entropy(logits, act)
         ratio = torch.exp(logp - old_logp)
         pg = -torch.minimum(
@@ -590,15 +645,15 @@ def make_beergame_ppo(batch_size: int, cfg: PPOConfig = PPOConfig(),
         vf = 0.5 * ((value - ret) ** 2).mean()
         return pg + cfg.vf_coef * vf - cfg.ent_coef * ent.mean(), (pg, vf)
 
-    _update = _make_update(cfg, _loss)
+    _update = _make_update(cfg, _loss, mesh=mesh, sharded_params=tp)
 
     def train_step(state: TrainState):
         env, traj, last_value = _rollout(state.params, state.env, state.gen)
         adv, ret = _gae(traj, last_value)
         losses = _update(state.params, state.opt,
-                         _flatten_traj(traj, adv, ret), state.gen)
+                         _flatten_traj(traj, adv, ret, mesh), state.gen)
         return (state._replace(env=env),
-                _metrics(losses, traj, reward_scale))
+                _metrics(losses, traj, reward_scale, mesh))
 
     train_step.rollout = _rollout
     train_step.gae = _gae

@@ -1,5 +1,5 @@
 """Training CLI: PPO over batched supply-chain envs, on one device or
-data-parallel over processes.
+over processes on a ``data x model`` mesh.
 
 Usage:
     python -m gym_supplychain_tpu_torch.learn.train --env supplychain-ntom-v0 \\
@@ -16,32 +16,40 @@ runs the update in bf16 (the update kernel's bf16 mode, or the bf16 trunks
 under autograd).  ``--env beergame-v0`` / ``beergame-v2`` trains the beer
 game's categorical policy (``make_beergame_ppo``, autograd updates;
 ``--fused``, ``--fused-update`` and ``--learner-dtype`` are the supply
-chains' and stop with an error there).  One JSON line of metrics every
-``--log-every`` iterations.  ``--checkpoint-dir`` writes the train state
+chains' and stop with an error there, as in the JAX CLI).  One JSON line
+of metrics every ``--log-every`` iterations.  ``--checkpoint-dir`` writes the train state
 after the last iteration (``step_<iters>.pt``); ``--restore`` loads one
 before the first (``utils/checkpoint.py``).  ``--trace-dir`` traces the
 training loop (``utils/profiling.py::trace``: a Chrome trace a rank).
 
-``--multihost`` trains data-parallel over the processes of a group
-(``parallel/mesh.py``): launch one process a rank with torchrun's
-environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``),
-e.g. ``torchrun --nproc-per-node 2 -m gym_supplychain_tpu_torch.learn.train
---multihost --envs 8192``.  ``--envs`` is the global batch; each rank runs
-its share of the lanes on ``cuda:(local rank % cards)`` (``--device cpu``:
-the CPU), over NCCL where every rank has a card of its own and gloo where
-ranks outnumber cards.  Only rank 0 logs and writes the checkpoint; the
-``# engine:`` line names the backend and the world size.  Without a group
-to join, ``--multihost`` stops with an error.
+``--multihost`` trains over the processes of a group on a ``data x
+model`` mesh (``parallel/mesh.py``): launch one process a rank with
+torchrun's environment (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
+``MASTER_PORT``), e.g. ``torchrun --nproc-per-node 2 -m
+gym_supplychain_tpu_torch.learn.train --multihost --envs 8192``.
+``--envs`` is the global batch; each rank runs its data index's share of
+the lanes on ``cuda:(local rank % cards)`` (``--device cpu``: the CPU),
+over NCCL where every rank has a card of its own and gloo where ranks
+outnumber cards.  ``--model-axis M`` makes the mesh ``world / M`` by ``M``:
+the ranks of a model group split the policy trunks' hidden units (tensor
+parallelism; ``torchrun --nproc-per-node 2 -m
+gym_supplychain_tpu_torch.learn.train --multihost --model-axis 2
+--no-fused [--fused-update]``).  As in the JAX CLI, fused collection
+defaults off on a model axis, an explicit ``--fused`` with one stops with
+an error, and ``--fused-update`` runs the update kernel on the gathered
+net.  Only rank 0 logs and writes the checkpoint; the ``# engine:`` line
+names the backend, the world size and the mesh.  Without a group to join,
+``--multihost`` stops with an error.
 
 The flags are those of ``gym_supplychain_tpu.learn.train``, plus
-``--device``.  ``--model-axis > 1`` (tensor parallelism), whose module is
-not ported yet, stops with an error instead of being ignored.
+``--device``.  The JAX CLI ignores ``--model-axis`` on one device; here
+``--model-axis > 1`` without ``--multihost`` stops with an error instead,
+and so does a model axis that does not divide every ``--hidden`` width or
+the world size.
 """
 from __future__ import annotations
 
 import argparse
-
-_UNPORTED = "is not ported to the PyTorch package yet"
 
 
 def device_from_flag(name: str):
@@ -60,33 +68,48 @@ def device_from_flag(name: str):
 
 def resolve_engine_flags(args, supplychain: bool, device) -> None:
     """Fill the unset ``--fused`` / ``--fused-update``: fused collection
-    for the supply chains on a CUDA device, and the fused update only with
-    fused collection (JAX ``learn/train.py``)."""
+    for the supply chains on a CUDA device without a model axis, and the
+    fused update only with fused collection (JAX ``learn/train.py``)."""
     if args.fused is None:
-        args.fused = supplychain and device.type == "cuda"
+        args.fused = (supplychain and device.type == "cuda"
+                      and getattr(args, "model_axis", 1) == 1)
     if args.fused_update is None:
         args.fused_update = (args.fused and supplychain
                              and device.type == "cuda")
 
 
 def _refuse(args):
-    """Stop on a flag whose module is not ported."""
-    if args.model_axis > 1:
-        raise SystemExit(f"--model-axis > 1 (tensor parallelism) {_UNPORTED}")
+    """Stop on flags that do not go together."""
+    if args.model_axis < 1:
+        raise SystemExit(f"--model-axis {args.model_axis}: at least 1")
     if args.env.startswith("beergame"):
         for flag, value in (("--fused", args.fused),
                             ("--fused-update", args.fused_update),
-                            ("--learner-dtype", args.learner_dtype),
-                            ("--multihost", args.multihost)):
+                            ("--learner-dtype", args.learner_dtype)):
             if value:
                 raise SystemExit(f"{flag} supports the continuous-action "
                                  "supply-chain trainers only")
+    if args.model_axis == 1:
+        return
+    if args.fused:
+        raise SystemExit("--fused shards the collection kernel over the "
+                         "'data' axis with replicated params; --model-axis "
+                         "applies to the scan-path trainer only")
+    if not args.multihost:
+        raise SystemExit(f"--model-axis {args.model_axis} splits the "
+                         "hidden units over the ranks of a process group: "
+                         "pass --multihost and launch one process a rank")
+    bad = [h for h in args.hidden if h % args.model_axis]
+    if bad:
+        raise SystemExit(f"--model-axis {args.model_axis} does not divide "
+                         f"the --hidden widths {bad}")
 
 
 def join_mesh(args):
-    """``--multihost``: join the process group and build the data mesh;
-    stops with an error where there is no group of two or more processes
-    to join (it never trains alone).  None without the flag."""
+    """``--multihost``: join the process group and build the ``world /
+    model_axis`` by ``model_axis`` mesh; stops with an error where there is
+    no group of two or more processes to join (it never trains alone) or
+    the model axis does not divide it.  None without the flag."""
     if not args.multihost:
         return None
     from ..parallel.mesh import init_distributed, make_mesh
@@ -99,7 +122,13 @@ def join_mesh(args):
         raise SystemExit("--multihost: no process group to join (set "
                          "WORLD_SIZE > 1, RANK, MASTER_ADDR and MASTER_PORT, "
                          "as torchrun does)")
-    return make_mesh(device=dev)
+    try:
+        return make_mesh(model=args.model_axis, device=dev)
+    except ValueError as e:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+        raise SystemExit(f"--model-axis {args.model_axis}: {e}") from None
 
 
 def main(argv=None):
@@ -133,9 +162,10 @@ def main(argv=None):
     p.add_argument("--minibatches", type=int, default=1,
                    help="contiguous minibatches per PPO epoch")
     p.add_argument("--multihost", action="store_true",
-                   help="data-parallel over the processes of a group "
-                        "(torchrun's RANK, WORLD_SIZE, MASTER_ADDR, "
-                        "MASTER_PORT); --envs is the global batch")
+                   help="train over the processes of a group (torchrun's "
+                        "RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT) on a "
+                        "world/M x M mesh (M = --model-axis); --envs is "
+                        "the global batch")
     p.add_argument("--checkpoint-dir", default=None)
     p.add_argument("--restore", default=None)
     p.add_argument("--trace-dir", default=None,
@@ -182,10 +212,12 @@ def _train(args, mesh):
               f"fused_update={bool(args.fused_update)} "
               f"learner_dtype={args.learner_dtype or 'float32'} "
               f"backend={mesh.backend if mesh else 'none'} "
-              f"world={mesh.world if mesh else 1}")
+              f"world={mesh.world if mesh else 1} "
+              f"mesh={mesh.data if mesh else 1}x{mesh.model if mesh else 1}")
     if not supplychain:
         init_fn, train_step = make_beergame_ppo(
-            args.envs, cfg, v2=args.env.endswith("v2"), device=device)
+            args.envs, cfg, v2=args.env.endswith("v2"), device=device,
+            mesh=mesh)
         steps_per_iter = cfg.rollout_steps
     elif args.fused:
         cc = make_chain(args.env, total_time_steps=args.horizon)

@@ -15,9 +15,24 @@ The flat order of ``ActorCritic.flat()`` is the JAX package's
 ``DiscreteActorCritic`` is the beer game's MultiDiscrete counterpart
 (``init_discrete_actor_critic``): the same trunks with a ``logits`` head of
 ``act_dim * n_choices`` rows in place of ``mu`` and ``log_std``.
+
+Tensor parallelism over the mesh's model axis (``param_shardings``'
+counterpart): ``shard_params`` keeps rows ``[m*h/M, (m+1)*h/M)`` of every
+trunk layer's ``w`` and ``b`` on model rank ``m`` of ``M`` (the heads and
+``log_std`` stay whole), and ``gather_params`` / ``gather_flat`` turn the
+shards back into the whole net.  With a ``mesh`` the forwards compute each
+trunk layer on the local rows, ``tanh``, and gather the actor's and the
+critic's activations over the model group in one collective
+(``_GatherRows``).  Every rank of a model group computes the same loss, so
+the gradient a rank's autograd sees for a gathered activation is its own
+rows' use of it: where the next trunk layer's local rows consume it, the
+gradient is the sum over the group (a reduce-scatter); where the
+replicated heads consume it, every rank already holds the whole gradient
+and keeps its rows.
 """
 from __future__ import annotations
 
+import copy
 import math
 from typing import NamedTuple, Tuple
 
@@ -25,13 +40,17 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..parallel.mesh import (gather_rows, local_rows, reduce_scatter_rows,
+                             tensor_parallel)
+
 __all__ = ["MLPConfig", "ActorCritic", "actor_critic_forward",
            "DiscreteActorCritic", "discrete_forward",
            "categorical_logp_entropy", "tanh_gaussian_logp",
            "tanh_gaussian_terms", "sample_tanh_gaussian", "softplus",
            "flat_params", "split_params", "params_from_jax",
-           "discrete_params_from_jax", "params_to_numpy", "LOG_STD_MIN",
-           "LOG_STD_MAX"]
+           "discrete_params_from_jax", "params_to_numpy", "shard_params",
+           "gather_params", "gather_flat", "trunk_leaves",
+           "check_model_axis", "LOG_STD_MIN", "LOG_STD_MAX"]
 
 LOG_STD_MIN, LOG_STD_MAX = -5.0, 2.0
 
@@ -151,13 +170,13 @@ class DiscreteActorCritic(nn.Module):
 
 
 def discrete_forward(params: DiscreteActorCritic, obs, act_dim: int,
-                     n_choices: int):
-    """obs [obs_dim, B] -> (logits [act_dim, n_choices, B], value [B])."""
-    a = c = obs
-    for layer in params.actor:
-        a = torch.tanh(layer.w @ a + layer.b)
-    for layer in params.critic:
-        c = torch.tanh(layer.w @ c + layer.b)
+                     n_choices: int, mesh=None):
+    """obs [obs_dim, B] -> (logits [act_dim, n_choices, B], value [B]).
+    With a ``mesh`` whose model axis splits the trunks (``shard_params``),
+    each layer runs on the rank's rows and its activations are gathered."""
+    a, c = _trunks([(layer.w, layer.b) for layer in params.actor],
+                   [(layer.w, layer.b) for layer in params.critic], obs,
+                   _tanh_layer, mesh)
     logits = params.logits.w @ a + params.logits.b
     v = (params.v.w @ c + params.v.b)[0]
     return logits.reshape(act_dim, n_choices, -1), v
@@ -194,7 +213,7 @@ def split_params(params):
             flat[-1])
 
 
-def actor_critic_forward(params, obs, compute_dtype=None):
+def actor_critic_forward(params, obs, compute_dtype=None, mesh=None):
     """obs [obs_dim, B] -> (mu [A, B], log_std [A, 1], value [B]).
 
     ``params`` is an ``ActorCritic`` or its flat list.  ``compute_dtype``
@@ -204,20 +223,141 @@ def actor_critic_forward(params, obs, compute_dtype=None):
     and ``v`` heads and ``log_std`` stay in the parameters' dtype, as that
     path keeps them (the update kernel's bf16 mode rounds the heads'
     operands too: ``ops/ppo_update.py``).  ``None`` uses every tensor in its
-    own dtype (the rollout path)."""
+    own dtype (the rollout path).  With a ``mesh`` whose model axis splits
+    the trunks (``shard_params``), each layer runs on the rank's rows and
+    its activations, in the dtype the layer emits, are gathered."""
     actor, mu_l, critic, v_l, log_std = split_params(params)
     if compute_dtype is None:
-        a = c = obs
-        for w, b in actor:
-            a = torch.tanh(w @ a + b)
-        for w, b in critic:
-            c = torch.tanh(w @ c + b)
+        a, c = _trunks(actor, critic, obs, _tanh_layer, mesh)
     else:
-        a, c = _low_precision_trunk(obs, actor, compute_dtype), \
-            _low_precision_trunk(obs, critic, compute_dtype)
+        # as the JAX package's jitted XLA:CPU graph runs a trunk: each
+        # layer's input rounded to the dtype, the last layer's float32 tanh
+        # handed to the head unrounded (XLA drops that rounding)
+        def layer(x, w, b):
+            return _LowPrecisionTanhLayer.apply(x.to(compute_dtype), w, b)
+
+        a, c = _trunks(actor, critic, obs.to(compute_dtype), layer, mesh)
     mu = mu_l[0] @ a.to(mu_l[0].dtype) + mu_l[1]
     v = (v_l[0] @ c.to(v_l[0].dtype) + v_l[1])[0]
     return mu, torch.clamp(log_std, LOG_STD_MIN, LOG_STD_MAX), v
+
+
+def _tanh_layer(x, w, b):
+    return torch.tanh(w @ x + b)
+
+
+def _trunks(actor, critic, obs, layer, mesh=None):
+    """The actor's and the critic's trunks ``[(w, b)]`` over ``obs``, layer
+    by layer (``layer(x, w, b)``); under a model axis each layer's two
+    activations are gathered in one collective, the last for the heads."""
+    a = c = obs
+    for i, ((wa, ba), (wc, bc)) in enumerate(zip(actor, critic,
+                                                 strict=True)):
+        a, c = layer(a, wa, ba), layer(c, wc, bc)
+        if tensor_parallel(mesh):
+            a, c = _GatherRows.apply(
+                mesh, "sharded" if i + 1 < len(actor) else "replicated", a, c)
+    return a, c
+
+
+class _GatherRows(torch.autograd.Function):
+    """``_GatherRows.apply(mesh, consumer, *xs)``: each ``x [r, ...]``
+    gathered over the model group into ``[M * r, ...]`` (one collective).
+
+    Every rank of the group computes the same loss, so the gradient a
+    rank's autograd hands back is its consumer's use of the gathered
+    tensor.  ``consumer`` says whose use that is: ``"sharded"``, the next
+    trunk layer's local rows, each rank holding one part of the whole
+    gradient: the backward sums the parts over the group and keeps the
+    rank's rows (a reduce-scatter); ``"replicated"``, the heads or the
+    whole-net update kernel, which every rank runs whole: each rank already
+    holds the whole gradient and keeps its rows (summing would count it
+    ``M`` times)."""
+
+    @staticmethod
+    def forward(ctx, mesh, consumer, *xs):
+        if consumer not in ("sharded", "replicated"):
+            raise ValueError(f"consumer {consumer!r}: 'sharded' or "
+                             "'replicated'")
+        ctx.mesh, ctx.consumer = mesh, consumer
+        return tuple(gather_rows(mesh, xs))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        if ctx.consumer == "sharded":
+            local = reduce_scatter_rows(ctx.mesh, gs)
+        else:
+            local = [local_rows(ctx.mesh, g) for g in gs]
+        return (None, None, *local)
+
+
+def check_model_axis(hidden, model: int) -> None:
+    """Raise ``ValueError`` where the model axis does not divide every
+    hidden width (each rank holds ``h / model`` rows of a layer)."""
+    bad = [h for h in hidden if h % model]
+    if model > 1 and bad:
+        raise ValueError(f"hidden widths {tuple(hidden)}: {bad} not "
+                         f"divisible by the model axis {model}")
+
+
+def _trunk_layers(params):
+    return (*params.actor, *params.critic)
+
+
+def trunk_leaves(params):
+    """The trunk layers' ``w`` and ``b`` (the leaves a model axis splits),
+    actor then critic."""
+    return [p for layer in _trunk_layers(params) for p in (layer.w, layer.b)]
+
+
+def shard_params(params, mesh):
+    """``params`` (an ``ActorCritic`` or ``DiscreteActorCritic`` built
+    whole, the same on every rank) cut in place to the rank's rows of every
+    trunk layer: ``param_shardings``' ``P("model", None)`` on the trunks,
+    the heads and ``log_std`` whole.  Build the optimizer after.  A no-op
+    without a model axis; raises ``ValueError`` where it does not divide
+    the widths."""
+    if not tensor_parallel(mesh):
+        return params
+    check_model_axis(params.cfg.hidden, mesh.model)
+    with torch.no_grad():
+        for layer in _trunk_layers(params):
+            layer.w = nn.Parameter(local_rows(mesh, layer.w).clone())
+            layer.b = nn.Parameter(local_rows(mesh, layer.b).clone())
+    return params
+
+
+def gather_params(params, mesh):
+    """The whole net of a sharded ``params`` (a new module on the same
+    device, detached; every trunk gathered in one collective); ``params``
+    itself without a model axis."""
+    if not tensor_parallel(mesh):
+        return params
+    whole = copy.deepcopy(params)
+    leaves = trunk_leaves(params)
+    full = gather_rows(mesh, [p.detach() for p in leaves])
+    with torch.no_grad():
+        for layer, w, b in zip(_trunk_layers(whole), full[0::2], full[1::2]):
+            layer.w = nn.Parameter(w.clone())
+            layer.b = nn.Parameter(b.clone())
+    return whole
+
+
+def gather_flat(params, mesh):
+    """``params.flat()`` of the whole net, differentiable with respect to
+    the rank's shards: the trunks gathered in one collective for a consumer
+    that every rank runs whole (the update kernel), so the backward keeps
+    each rank's rows of the whole gradient.  ``params.flat()`` without a
+    model axis."""
+    flat = params.flat()
+    if not tensor_parallel(mesh):
+        return flat
+    ids = {id(p) for p in trunk_leaves(params)}
+    idx = [i for i, p in enumerate(flat) if id(p) in ids]
+    full = _GatherRows.apply(mesh, "replicated", *(flat[i] for i in idx))
+    for i, x in zip(idx, full):
+        flat[i] = x
+    return flat
 
 
 _XLA_WINDOW = 32
@@ -243,16 +383,6 @@ def _xla_cpu_row_sum(x: torch.Tensor) -> torch.Tensor:
     for j in range(1, x.shape[1]):
         acc = acc + x[:, j]
     return acc
-
-
-def _low_precision_trunk(x, layers, dtype):
-    """A trunk in ``dtype`` as the JAX package's jitted XLA:CPU path runs
-    it: each layer's input rounded to ``dtype``, the last layer's float32
-    ``tanh`` handed to the head unrounded (XLA drops that rounding)."""
-    y = x.to(dtype)
-    for w, b in layers:
-        y = _LowPrecisionTanhLayer.apply(y.to(dtype), w, b)
-    return y
 
 
 class _LowPrecisionTanhLayer(torch.autograd.Function):

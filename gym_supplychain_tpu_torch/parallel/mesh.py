@@ -1,49 +1,58 @@
-"""Process groups and the data-parallel mesh, on ``torch.distributed``.
+"""Process groups and the ``(data, model)`` mesh, on ``torch.distributed``.
 
 The counterpart of ``gym_supplychain_tpu/parallel/mesh.py``.  The JAX
 package names a ``('data', 'model')`` mesh of devices and lets XLA emit the
-collectives; here every process is one rank of a process group and holds
-one slice of the env batch, and the trainers call the collectives
-themselves (``learn/ppo.py``): the gradients and the loss averaged by one
-``all_reduce`` a step, the advantage statistics and the metrics by
-``all_reduce`` too.
+collectives; here every process is one rank of a process group and the
+trainers call the collectives themselves (``learn/ppo.py``).
 
 * ``init_distributed`` joins the group (torchrun's ``RANK``,
   ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, or the arguments) and
   picks the backend by rule: NCCL where every rank of the host has a card
   of its own, gloo where ranks outnumber cards (two ranks time-share one
   card) or on the CPU.
-* ``make_mesh`` is the group as a ``Mesh``: its data axis, its model axis
-  (tensor parallelism is not ported: ``model > 1`` raises), the rank, the
-  world size, the rank's device and the groups.
+* ``make_mesh(data, model)`` lays the ranks out as JAX's
+  ``devices.reshape(data, model)``: rank ``r`` is ``(d, m) = divmod(r,
+  model)``.  The ``data`` axis splits the env batch: the ranks of one
+  ``data_group`` (the same ``m``) hold different lanes and average their
+  gradients, advantage statistics and metrics (``all_reduce_mean_``).  The
+  ``model`` axis is tensor parallelism over the policy's hidden units: the
+  ranks of one ``model_group`` (the same ``d``) run the same lanes, each
+  holding its rows of every trunk layer (``models/policy.py``), and
+  exchange activations with ``gather_rows`` / ``reduce_scatter_rows``
+  (all-gather along the hidden axis; sum, then keep the rank's rows).
 * The port's arrays are batch-trailing, as the JAX package's, so a rank's
-  shard is the lanes ``lane_range(mesh, B)`` of the last axis
-  (``trailing_sharding``'s counterpart); ``shard_vec_state`` and
+  shard is the lanes ``lane_range(mesh, B)`` of the last axis (by its data
+  index; ``trailing_sharding``'s counterpart); ``shard_vec_state`` and
   ``place_train_state`` slice a global state down to them, and the env
   streams take the shard's first global lane (``lane0``), so a sharded run
   draws what the unsharded one draws, lane for lane.
-* Gloo runs only ``broadcast`` and ``all_reduce`` on CUDA tensors, so every
-  other collective (the checkpoint's gather) runs on host copies over a
-  gloo group (``host_all_gather``); ``replicated`` checks that a tensor is
-  bit-equal on every rank.
+* Gloo runs only ``broadcast`` and ``all_reduce`` on CUDA tensors, so the
+  model group's gather is an ``all_reduce`` of a zeroed buffer into which
+  each rank writes its rows (summed as int32 bit patterns: exact, ``-0.0``
+  included) and its reduce-scatter an ``all_reduce`` and a slice, on either
+  backend.  The checkpoint's gather of env lanes runs on host copies over a gloo group
+  (``host_all_gather``); ``replicated`` checks that a tensor is bit-equal on
+  every rank.
 
 Every collective and barrier has the group's deadline (``TIMEOUT_S``): a
-rank that dies fails the others instead of hanging them.
+rank that dies fails the others instead of hanging them.  ``mesh.stats``
+counts the trainers' collectives over each group (``data``, ``model``).
 """
 from __future__ import annotations
 
 import datetime
 import os
 from dataclasses import dataclass, field
-from typing import Any, List, Optional, Tuple
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 __all__ = ["Mesh", "init_distributed", "make_mesh", "lane_range",
            "shard_vec_state", "place_train_state", "replicated",
-           "all_reduce_mean_", "host_all_gather", "barrier", "sharded",
-           "TIMEOUT_S"]
+           "all_reduce_mean_", "model_all_reduce_", "gather_rows",
+           "reduce_scatter_rows", "local_rows", "host_all_gather", "barrier",
+           "sharded", "data_parallel", "tensor_parallel", "TIMEOUT_S"]
 
 TIMEOUT_S = 600.0       # the deadline of every collective and barrier
 
@@ -116,11 +125,13 @@ def init_distributed(coordinator_address: Optional[str] = None,
 
 @dataclass
 class Mesh:
-    """The data-parallel mesh of this process: ``data`` ranks along the env
-    batch, ``model`` 1 (tensor parallelism is not ported), this process's
-    ``rank`` of ``world``, its ``device``, the process ``group`` the
-    trainers' collectives run on, the gloo ``host_group`` for collectives
-    on host copies, and ``stats``: the collectives issued (``calls``)."""
+    """This process's place on the ``data x model`` mesh: ``rank`` of
+    ``world`` at ``(data_index, model_index) = divmod(rank, model)``, its
+    ``device``, the process ``group`` of every rank, the gloo
+    ``host_group`` for collectives on host copies, the ``data_group`` (the
+    ranks of this model index; None where ``data`` is 1) and the
+    ``model_group`` (the ranks of this data index; None where ``model`` is
+    1), and ``stats``: the collectives run over each."""
     data: int
     model: int
     rank: int
@@ -129,42 +140,76 @@ class Mesh:
     backend: str
     group: Any = None
     host_group: Any = None
-    stats: dict = field(default_factory=lambda: {"calls": 0})
+    data_group: Any = None
+    model_group: Any = None
+    stats: dict = field(default_factory=lambda: {"data": 0, "model": 0})
+
+    @property
+    def data_index(self) -> int:
+        return self.rank // self.model
+
+    @property
+    def model_index(self) -> int:
+        return self.rank % self.model
+
+
+def _timeout():
+    return datetime.timedelta(seconds=TIMEOUT_S)
+
+
+def _axis_groups(rank: int, data: int, model: int):
+    """``(data_group, model_group)`` of ``rank``.  ``dist.new_group`` is
+    collective, so every rank creates every subgroup, in one order: the
+    data groups by model index, then the model groups by data index."""
+    if model == 1:
+        return dist.group.WORLD, None
+    if data == 1:
+        return None, dist.group.WORLD
+    groups = {}
+    for m in range(model):
+        groups["data", m] = dist.new_group(
+            [d * model + m for d in range(data)], timeout=_timeout())
+    for d in range(data):
+        groups["model", d] = dist.new_group(
+            [d * model + m for m in range(model)], timeout=_timeout())
+    return groups["data", rank % model], groups["model", rank // model]
 
 
 def make_mesh(data: Optional[int] = None, model: int = 1,
               device=None) -> Mesh:
-    """The mesh over every process of the group (one process where none
-    was joined): ``data`` defaults to the world size over ``model``.  The
-    device is the rank's (``init_distributed``'s rule; ``device`` as
-    there).  ``model > 1`` raises: the model axis (tensor parallelism over
-    the policy's hidden units) is not ported."""
-    if model != 1:
-        raise NotImplementedError(
-            f"model={model}: tensor parallelism (the mesh's model axis) is "
-            "not ported to the PyTorch package yet")
+    """The ``data x model`` mesh over every process of the group (one
+    process where none was joined): ``data`` defaults to the world size
+    over ``model``; a world that is not ``data * model`` raises
+    ``ValueError``.  The device is the rank's (``init_distributed``'s rule;
+    ``device`` as there)."""
+    if model < 1 or (data is not None and data < 1):
+        raise ValueError(f"mesh {data}x{model}: both axes must be >= 1")
     if dist.is_available() and dist.is_initialized():
         rank, world = dist.get_rank(), dist.get_world_size()
         backend = dist.get_backend()
     else:
         rank, world, backend = 0, 1, "none"
-    data = world // model if data is None else data
+    if data is None:
+        data = max(1, world // model)
     if data * model != world:
         raise ValueError(f"mesh {data}x{model} != {world} processes")
     local_rank = _env_int("LOCAL_RANK")
     dev = _rank_device(rank if local_rank is None else local_rank, device)
-    group = host_group = None
+    group = host_group = data_group = model_group = None
     if world > 1:
         group = dist.group.WORLD
         host_group = group if backend == "gloo" else dist.new_group(
-            backend="gloo", timeout=datetime.timedelta(seconds=TIMEOUT_S))
+            backend="gloo", timeout=_timeout())
+        data_group, model_group = _axis_groups(rank, data, model)
     return Mesh(data=data, model=model, rank=rank, world=world, device=dev,
-                backend=backend, group=group, host_group=host_group)
+                backend=backend, group=group, host_group=host_group,
+                data_group=data_group, model_group=model_group)
 
 
 def lane_range(mesh: Optional[Mesh], B: int) -> Tuple[int, int]:
-    """The rank's lanes ``[lo, hi)`` of a global env axis of ``B`` lanes
-    (all of them without a mesh).  Raises where the ranks cannot hold equal
+    """The rank's lanes ``[lo, hi)`` of a global env axis of ``B`` lanes,
+    by its data index (all of them without a mesh; the ranks of a model
+    group share theirs).  Raises where the data axis cannot hold equal
     shards."""
     if mesh is None:
         return 0, B
@@ -172,7 +217,7 @@ def lane_range(mesh: Optional[Mesh], B: int) -> Tuple[int, int]:
         raise ValueError(f"batch {B} is not divisible by the data axis "
                          f"{mesh.data}")
     n = B // mesh.data
-    return mesh.rank * n, (mesh.rank + 1) * n
+    return mesh.data_index * n, (mesh.data_index + 1) * n
 
 
 def _slice_lanes(x, lo: int, hi: int):
@@ -182,40 +227,131 @@ def _slice_lanes(x, lo: int, hi: int):
 
 
 def shard_vec_state(mesh: Optional[Mesh], state):
-    """A global ``VecState`` (or bare ``EnvState``) sliced to the rank's
-    lanes: every tensor's trailing env axis; the Philox keys and the clock
-    are the same on every rank."""
+    """A global ``VecState`` (or a bare ``EnvState`` or ``BeerGameState``)
+    sliced to the rank's lanes: every tensor's trailing env axis; the
+    Philox keys and the clock are the same on every rank."""
     inner = state.env if hasattr(state, "key") else state
-    B = inner.stock.shape[-1]
+    B = next(v for v in inner
+             if isinstance(v, torch.Tensor) and v.dim() >= 1).shape[-1]
     lo, hi = lane_range(mesh, B)
     inner = type(inner)(*(_slice_lanes(v, lo, hi) for v in inner))
     return state._replace(env=inner) if hasattr(state, "key") else inner
 
 
 def place_train_state(mesh: Optional[Mesh], state):
-    """A global train state placed on the mesh: the parameters, the Adam
-    state and the generator stay whole on every rank (the trainers keep
-    them equal), the scan trainer's env lanes are sliced
-    (``shard_vec_state``)."""
+    """A global train state placed on the mesh: the env lanes are sliced
+    to the rank's (``shard_vec_state``); the parameters, the Adam state
+    and the generator are left as they are (the checkpoint restores a
+    model axis's trunk rows itself)."""
     if getattr(state, "env", None) is None:
         return state
     return state._replace(env=shard_vec_state(mesh, state.env))
 
 
 def sharded(mesh: Optional[Mesh]) -> bool:
-    """Whether ``mesh`` spans more than one process (the collectives are
-    no-ops otherwise)."""
+    """Whether ``mesh`` spans more than one process."""
     return mesh is not None and mesh.world > 1
 
 
+def data_parallel(mesh: Optional[Mesh]) -> bool:
+    """Whether ``mesh`` splits the env batch over more than one rank."""
+    return mesh is not None and mesh.data > 1
+
+
+def tensor_parallel(mesh: Optional[Mesh]) -> bool:
+    """Whether ``mesh`` splits the hidden units over more than one rank."""
+    return mesh is not None and mesh.model > 1
+
+
+def _count(mesh: Mesh, axis: str) -> None:
+    mesh.stats[axis] += 1
+
+
 def all_reduce_mean_(mesh: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
-    """``x`` averaged over the ranks, in place (one ``all_reduce``);
-    ``x`` unchanged without a mesh."""
-    if sharded(mesh):
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.group)
-        x.div_(mesh.world)
-        mesh.stats["calls"] += 1
+    """``x`` averaged over the data axis, in place (one ``all_reduce`` over
+    the data group); ``x`` unchanged without one."""
+    if data_parallel(mesh):
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.data_group)
+        x.div_(mesh.data)
+        _count(mesh, "data")
     return x
+
+
+def model_all_reduce_(mesh: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the model group, in place; unchanged without a
+    model axis."""
+    if tensor_parallel(mesh):
+        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.model_group)
+        _count(mesh, "model")
+    return x
+
+
+def local_rows(mesh: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
+    """The rank's rows of ``x`` (its leading axis split over the model
+    axis, in model order); ``x`` without a model axis."""
+    if not tensor_parallel(mesh):
+        return x
+    if x.shape[0] % mesh.model:
+        raise ValueError(f"{x.shape[0]} rows are not divisible by the model "
+                         f"axis {mesh.model}")
+    r = x.shape[0] // mesh.model
+    return x[mesh.model_index * r:(mesh.model_index + 1) * r]
+
+
+def _same_dtype(xs) -> torch.dtype:
+    dtypes = {x.dtype for x in xs}
+    if len(dtypes) != 1:
+        raise ValueError(f"one packed collective takes one dtype, got "
+                         f"{sorted(map(str, dtypes))}")
+    return dtypes.pop()
+
+
+def gather_rows(mesh: Optional[Mesh], xs: Sequence[torch.Tensor]
+                ) -> List[torch.Tensor]:
+    """Every ``x [r, ...]`` of ``xs`` gathered over the model group into
+    ``[model * r, ...]`` (rank ``m``'s rows at ``m * r``), all in one
+    collective on one packed buffer."""
+    xs = list(xs)
+    if not tensor_parallel(mesh) or not xs:
+        return xs
+    M, m = mesh.model, mesh.model_index
+    _same_dtype(xs)
+    flat = torch.cat([x.reshape(-1) for x in xs])
+    out = flat.new_zeros((M, flat.numel()))
+    out[m] = flat
+    bits = out.view(torch.int32) if out.element_size() == 4 else out
+    dist.all_reduce(bits, op=dist.ReduceOp.SUM, group=mesh.model_group)
+    _count(mesh, "model")
+    full, off = [], 0
+    for x in xs:
+        n = x.numel()
+        full.append(out[:, off:off + n].reshape((M * x.shape[0],)
+                                                + tuple(x.shape[1:])))
+        off += n
+    return full
+
+
+def reduce_scatter_rows(mesh: Optional[Mesh], gs: Sequence[torch.Tensor]
+                        ) -> List[torch.Tensor]:
+    """Every ``g [model * r, ...]`` of ``gs`` summed over the model group,
+    of which the rank keeps its rows ``[r, ...]``: ``gather_rows``'
+    adjoint, in one collective on one packed buffer."""
+    gs = list(gs)
+    if not tensor_parallel(mesh) or not gs:
+        return gs
+    M, m = mesh.model, mesh.model_index
+    _same_dtype(gs)
+    packed = torch.cat([g.reshape(M, -1) for g in gs], dim=1)
+    dist.all_reduce(packed, op=dist.ReduceOp.SUM, group=mesh.model_group)
+    mine = packed[m]
+    _count(mesh, "model")
+    local, off = [], 0
+    for g in gs:
+        n = g.numel() // M
+        local.append(mine[off:off + n].reshape((g.shape[0] // M,)
+                                               + tuple(g.shape[1:])))
+        off += n
+    return local
 
 
 def host_all_gather(mesh: Optional[Mesh], x: torch.Tensor

@@ -17,14 +17,18 @@ The generator's state and the env's Philox keys (``VecState.key``,
 ``EnvState.ep_key``) are in it, so a resumed run continues the same random
 streams and repeats the uninterrupted run bit for bit.
 
-Data-parallel runs (``mesh=``, ``parallel/mesh.py``; the JAX package's
-``_fetch_full`` and ``_reshard_like``): the parameters, Adam's state and
-the generator are equal on every rank, and the scan trainer's env lanes
-are gathered into global lane order on host copies, so rank 0 writes the
-file a single process would write while every rank waits at a barrier.
-Restoring slices the rank's lanes (``place_train_state``), so a checkpoint
-written by 2 ranks restores into 1 process and one written by 1 process
-into 2.
+Runs over a mesh (``mesh=``, ``parallel/mesh.py``; the JAX package's
+``_fetch_full`` and ``_reshard_like``): rank 0 writes the file a single
+process would write while every rank waits at a barrier.  The generator
+and the replicated leaves are equal on every rank; where a model axis
+splits the trunk rows (the parameters themselves say so: the scan and
+beer-game trainers split them, ``make_ppo_fused`` keeps them whole), the
+rows and their Adam moments are gathered over the model group into the
+global parameters; the env lanes (a scan trainer's ``EnvState``
+or the beer game's ``BeerGameState``) are gathered over the data axis into
+global lane order on host copies.  Restoring slices the rank's rows and
+lanes (``place_train_state``), so a file moves between 1 process and any
+``data x model`` mesh of the same trainer.
 """
 from __future__ import annotations
 
@@ -37,8 +41,9 @@ from ..core.beergame import BeerGameState
 from ..core.step import EnvState
 from ..envs.vector import VecState
 from ..models.policy import ActorCritic, DiscreteActorCritic, MLPConfig
-from ..parallel.mesh import (barrier, host_all_gather, place_train_state,
-                             sharded)
+from ..parallel.mesh import (barrier, gather_rows, host_all_gather,
+                             local_rows, place_train_state, sharded,
+                             tensor_parallel)
 
 __all__ = ["FORMAT", "save_checkpoint", "restore_checkpoint"]
 
@@ -68,23 +73,71 @@ def _env_from_dict(d: dict, device) -> VecState:
 
 def _gather_env(mesh, env: VecState) -> VecState:
     """The ranks' env lanes in global order (CPU tensors): every tensor of
-    the inner state concatenated along its trailing env axis."""
+    the inner state concatenated along its trailing env axis, one shard a
+    data index (the ranks of a model group hold the same lanes)."""
     inner = env.env
     return env._replace(env=type(inner)(*(
-        torch.cat(host_all_gather(mesh, v), dim=-1)
+        torch.cat(host_all_gather(mesh, v)[::mesh.model], dim=-1)
         if isinstance(v, torch.Tensor) and v.dim() >= 1 else v
         for v in inner)))
+
+
+def _split_rows(mesh, params) -> bool:
+    """Whether ``params`` holds the rank's rows of its trunks (fewer than
+    the hidden width) rather than whole layers."""
+    return (tensor_parallel(mesh)
+            and params.actor[0].w.shape[0] != params.cfg.hidden[0])
+
+
+def _is_trunk(name: str) -> bool:
+    """Whether a parameter of the actor-critic's state dict is a trunk
+    layer's (split over a model axis)."""
+    return name.startswith(("actor.", "critic."))
+
+
+def _global_params(mesh, params, opt_state: dict):
+    """``(state dict, Adam state dict)`` of the whole net: the trunk rows
+    and their moments gathered over the model group in one collective."""
+    names = [n for n, _ in params.named_parameters()]
+    sd = {k: v.detach() for k, v in params.state_dict().items()}
+    moments = [(i, k) for i, n in enumerate(names) if _is_trunk(n)
+               for k in ("exp_avg", "exp_avg_sq")
+               if k in opt_state["state"].get(i, {})]
+    keys = [n for n in names if _is_trunk(n)]
+    full = gather_rows(mesh, [sd[n] for n in keys]
+                       + [opt_state["state"][i][k] for i, k in moments])
+    sd.update(zip(keys, full))
+    state = {i: dict(v) for i, v in opt_state["state"].items()}
+    for (i, k), x in zip(moments, full[len(keys):]):
+        state[i][k] = x
+    return sd, {**opt_state, "state": state}
+
+
+def _local_params(mesh, params, sd: dict, opt_state: dict):
+    """The rank's rows of a global state dict and Adam state dict."""
+    names = [n for n, _ in params.named_parameters()]
+    sd = {k: local_rows(mesh, v).clone() if _is_trunk(k) else v
+          for k, v in sd.items()}
+    state = {i: {k: (local_rows(mesh, x).clone() if _is_trunk(names[i])
+                     and k in ("exp_avg", "exp_avg_sq") else x)
+                 for k, x in v.items()}
+             for i, v in opt_state["state"].items()}
+    return sd, {**opt_state, "state": state}
 
 
 def save_checkpoint(path: str, state: Any, step: int = 0, mesh=None) -> str:
     """Write ``state`` (a ``TrainState`` or ``FusedTrainState``) as
     ``<path>/step_<step>.pt``; returns the file.  With a ``mesh`` every rank
-    calls it: the env lanes are gathered, rank 0 writes, and every rank
-    returns after the write."""
+    calls it: the split trunks and the env lanes are gathered, rank 0
+    writes, and every rank returns after the write."""
     cfg = state.params.cfg
     env = getattr(state, "env", None)
     if env is not None and sharded(mesh):
         env = _gather_env(mesh, env)
+    params = {k: v.detach() for k, v in state.params.state_dict().items()}
+    opt = state.opt.state_dict()
+    if _split_rows(mesh, state.params):
+        params, opt = _global_params(mesh, state.params, opt)
     mlp = {"obs_dim": cfg.obs_dim, "act_dim": cfg.act_dim,
            "hidden": list(cfg.hidden)}
     if isinstance(state.params, DiscreteActorCritic):
@@ -92,9 +145,8 @@ def save_checkpoint(path: str, state: Any, step: int = 0, mesh=None) -> str:
     payload = {
         "format": FORMAT, "step": int(step), "kind": type(state).__name__,
         "mlp": mlp,
-        "params": {k: v.detach().cpu()
-                   for k, v in state.params.state_dict().items()},
-        "opt": state.opt.state_dict(),
+        "params": {k: v.cpu() for k, v in params.items()},
+        "opt": opt,
         "gen": {"device": str(state.gen.device),
                 "state": state.gen.get_state()},
         "env": None if env is None else _env_to_dict(env),
@@ -129,7 +181,9 @@ def restore_checkpoint(path: str, like: Any = None, mesh=None) -> Any:
     same trainer) the parameters, the optimizer state and the generator are
     loaded into ``like``'s objects in place, and the state is returned with
     its env rebuilt on ``like``'s device; with a ``mesh``, the env's lanes
-    are the rank's (``like`` is the rank's state).  Without it, the result
+    are the rank's, and so are the trunk rows where ``like``'s are split
+    (``like`` is the rank's state).
+    Without it, the result
     is a dict:
     ``params`` an ``ActorCritic`` (a ``DiscreteActorCritic`` where the file
     holds ``n_choices``) on the CPU rebuilt from the stored ``MLPConfig``,
@@ -155,8 +209,11 @@ def restore_checkpoint(path: str, like: Any = None, mesh=None) -> Any:
         raise ValueError(f"{path} holds an actor-critic {mlp} with "
                          f"{n_choices} choices, not {like.params.cfg} with "
                          f"{getattr(like.params, 'n_choices', None)}")
-    like.params.load_state_dict(payload["params"])
-    like.opt.load_state_dict(payload["opt"])
+    sd, opt = payload["params"], payload["opt"]
+    if _split_rows(mesh, like.params):
+        sd, opt = _local_params(mesh, like.params, sd, opt)
+    like.params.load_state_dict(sd)
+    like.opt.load_state_dict(opt)
     like.gen.set_state(payload["gen"]["state"])
     if payload["env"] is None:
         return like

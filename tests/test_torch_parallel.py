@@ -288,7 +288,11 @@ def test_train_cli_multihost_without_a_group_stops(monkeypatch, env):
 
 
 def test_mesh_refuses_tensor_parallelism_and_uneven_shards():
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """One process holds no model axis (a world of 1 is no ``1x2`` mesh);
+    the data axis refuses uneven shards, and a rank's lanes are its data
+    index's (``tests/test_torch_tensor_parallel.py`` runs the model
+    axis)."""
+    with pytest.raises(ValueError, match="1x2 != 1 processes"):
         pm.make_mesh(model=2, device="cpu")
     mesh = pm.make_mesh(device="cpu")
     assert (mesh.world, mesh.rank, mesh.data) == (1, 0, 1)
@@ -297,6 +301,10 @@ def test_mesh_refuses_tensor_parallelism_and_uneven_shards():
     two = pm.Mesh(data=2, model=1, rank=1, world=2,
                   device=torch.device("cpu"), backend="gloo")
     assert pm.lane_range(two, 16) == (8, 16)
+    two_by_two = pm.Mesh(data=2, model=2, rank=3, world=4,
+                         device=torch.device("cpu"), backend="gloo")
+    assert (two_by_two.data_index, two_by_two.model_index) == (1, 1)
+    assert pm.lane_range(two_by_two, 16) == (8, 16)
     with pytest.raises(ValueError, match="divisible"):
         pm.lane_range(two, 15)
     cc = sct.make_chain("supplychain-ntom-v0", total_time_steps=T)
@@ -402,8 +410,9 @@ def test_multihost_scaling_benchmark_on_the_cpu():
     they wrote resumes bit for bit, and the all-reduce is counted."""
     from gym_supplychain_tpu_torch.benchmarks import multihost_scaling
 
-    r1, r2 = multihost_scaling.run((1, 2), envs=B, horizon=T, hidden=HIDDEN,
-                                   iters=2, device="cpu", timeout=240)
+    r1, r2 = multihost_scaling.run(((1, 1), (2, 1)), envs=B, horizon=T,
+                                   hidden=HIDDEN, iters=2, device="cpu",
+                                   timeout=240)
     assert (r1["processes"], r2["processes"]) == (1, 2)
     assert (r2["backend"], r2["lanes_per_rank"]) == ("gloo", B // 2)
     for k, w in r1["first"].items():

@@ -448,18 +448,22 @@ def test_train_cli_resolves_the_engine_flags(flags, fused, fused_update,
     assert (args.fused, args.fused_update) == (False, False)
 
 
-@pytest.mark.parametrize("flags", [
-    ["--model-axis", "2"], ["--model-axis", "4"],
-    ["--env", "beergame-v2", "--fused-update"],
-    ["--env", "beergame-v0", "--learner-dtype", "bf16"],
-    ["--env", "beergame-v0", "--fused"],
-    ["--env", "beergame-v0", "--multihost"]])
-def test_train_cli_refuses_unported_flags(flags):
-    """Flags whose modules are not ported (tensor parallelism) stop with an
-    error; so do the supply chains' options with the beer game's trainer,
-    which is single-process as in the JAX package.  (``--multihost`` and
-    ``--trace-dir`` run: ``tests/test_torch_parallel.py``.)"""
-    beergame = "--env" in flags
-    with pytest.raises(SystemExit, match="continuous-action" if beergame
-                       else "not ported"):
+@pytest.mark.parametrize("flags, match", [
+    (["--model-axis", "2"], "pass --multihost"),
+    (["--model-axis", "4", "--fused"], "--model-axis applies to the "
+                                       "scan-path trainer only"),
+    (["--env", "beergame-v2", "--fused-update"], "continuous-action"),
+    (["--env", "beergame-v0", "--learner-dtype", "bf16"], "continuous-action"),
+    (["--env", "beergame-v0", "--fused"], "continuous-action"),
+    (["--model-axis", "3", "--multihost", "--hidden", "8"],
+     "does not divide the --hidden widths")],
+    ids=[f"flags{i}" for i in range(6)])
+def test_train_cli_refuses_unported_flags(flags, match):
+    """Flags that do not go together stop with an error before training: a
+    model axis without ``--multihost`` (the JAX CLI ignores it on one
+    device), ``--fused`` with a model axis (JAX's message), a model axis
+    that does not divide the widths, and the supply chains' options with
+    the beer game's trainer.  (``--multihost`` with ``--model-axis`` runs:
+    ``tests/test_torch_tensor_parallel.py``.)"""
+    with pytest.raises(SystemExit, match=match):
         train.main(flags + ["--iters", "1", "--device", "cpu"])
