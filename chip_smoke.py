@@ -16,7 +16,9 @@ learner (the update kernel's tensor-core mode), the beer game's
 trainer, evaluator and order-up-to baseline, the host-parity MT19937
 streams with the reference-compatible single envs, data-parallel
 training over processes with the bf16 update on every net it takes, and
-tensor-parallel training over the mesh's model axis.
+tensor-parallel training over the mesh's model axis, and learning: the
+JAX package's sc-2perstage learning bar on the scan trainer, the fused
+engine and the bf16 learner.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -147,6 +149,26 @@ Phases, in order; any failure exits nonzero:
      ms an iteration beside 1 process, the data and model groups'
      collectives (ms a call, calls an iteration); K2 and K2 bf16 at the
      path's shape (M = 16 x 4096) against their plain versions, timed
+  18. learning on the card: the JAX package's sc-2perstage bar
+     (``tests/test_vector_learn.py::test_supplychain_ppo_beats_base_stock``:
+     T = 60, 256 envs, hidden (64, 64), lr 3e-3, 4 epochs, 220 iterations)
+     through ``learn.compare_baseline`` at ``--seed`` (``learn/bars.py``)
+     on three engines: the scan trainer (autograd; its greedy return must
+     beat base stock at z = 2.0 by > 5%, the JAX bar: one draw of a seed,
+     so a miss there is a draw first; the 5-iteration parity below,
+     deterministic on the card, is what detects a fault), the fused
+     engine (K1 ``policy``
+     collection and K2, an episode an iteration) and the bf16 learner (K1
+     ``policy`` and K2 bf16), each of which must beat the tuned base-stock
+     grid, with the greedy rollout kernel (K4) and the scan evaluator
+     within 1e-5 on the final policy; the greedy return every 22
+     iterations, the margins, the train seconds and the launches of K1
+     ``policy``, K2, K2 bf16 and K4 a run (each fused run launches K1 220
+     times and its update kernel 880); the fused engine on the kernels
+     against the same trainer on their plain versions over 5 iterations
+     from one seed (cumulative parameter change cosine >= 0.999, mean
+     reward and loss within 1e-4 relative); then those four kernels at
+     the phase's shapes against their plain versions, timed
 The line before the last is a JSON summary of the kernels, each with its
 bound: the larger of the bytes it must move over 3.35 TB/s and the float32
 operations it must do over 67 TFLOP/s, the bf16 K2's over the tensor
@@ -160,6 +182,8 @@ the package beside it, it prints the reason and no result and exits 2.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import math
 import statistics
@@ -183,7 +207,7 @@ PRE_ATOL, VALUE_ATOL = 1e-4, 1e-4   # policy outputs (the JAX collect tests')
 LOGP_RTOL, LOGP_ATOL = 1e-4, 1e-3
 TRAIN_REPS, PLAIN_TRAIN_REPS = 5, 3  # phase 8: timed iterations (median)
 EVAL_EPISODES = 4          # phase 10: the evaluate CLI's episodes
-PLAIN_REPS = 2             # phases 9-10: timed plain calls (median)
+PLAIN_REPS = 2             # phases 5, 9-10: timed plain calls (median)
 EVAL_RTOL = 1e-5           # phase 10: kernel vs scan evaluator, mean return
 RAGGED = 7                 # phases 4, 6, 12: B + 7 envs, a ragged last block
 DENSE_REPS = 3             # phase 11: timed calls of the dense kernel (median)
@@ -216,6 +240,15 @@ TP_HORIZON = 360           # phase 17: the train CLI's default horizon
 TP_ITERS = 2               # phase 17: timed iterations after the first
 TP_SCAN = ("scan", "scan-k2", "scan-k2-bf16")   # autograd, K2, K2 bf16
 TP_CASES = TP_SCAN + ("fused", "beergame")      # phase 17's trainers on 1x2
+# phase 18: the JAX package's sc-2perstage learning bar
+# (tests/test_vector_learn.py::test_supplychain_ppo_beats_base_stock, as
+# gym_supplychain_tpu_torch/learn/bars.py gives it to the compare CLI) on
+# three engines; the scan trainer is held to the bar (5% over base stock at
+# z = 2.0), the fused engines to beating the tuned grid
+LEARN_BAR = "sc2perstage"
+LEARN_PARITY_ITERS = 5     # the fused engine's kernels against plain
+LEARN_ENGINES = (("scan", "scan", None), ("fused", "fused", None),
+                 ("fused-bf16", "fused", "bf16"))
 
 
 def _cmd(args):
@@ -490,10 +523,11 @@ def phase_main_path(B, episodes, seed, reps):
               "beergame_collect": bgc.launch_beergame_collect.launches}
 
     print(f"phase 5: main path, mode 'random', B={B}, episodes={episodes}, "
-          f"median of {reps} after a warm-up (CUDA events)")
+          f"median of {reps} (plain: {PLAIN_REPS}) after a warm-up (CUDA "
+          f"events)")
     for env_id, (_, _, S, plain) in runs.items():
         r = results[env_id]
-        plain_ms, p = _timed(plain, reps)
+        plain_ms, p = _timed(plain, PLAIN_REPS)
         r["plain_ms"] = plain_ms
         k = r.pop("out")
         # the main path's output against the plain run on the same seed
@@ -569,11 +603,11 @@ def _beergame_alone(spec, bg_kw, bg_dem, B, episodes, seed, results):
             raise RuntimeError(f"beergame v2 stochastic B={b}: not bit-exact")
 
 
-def _policy_model(cc, seed, dev):
+def _policy_model(cc, seed, dev, hidden=HIDDEN):
     import torch
     from gym_supplychain_tpu_torch.models.policy import ActorCritic, MLPConfig
 
-    model = ActorCritic(MLPConfig(cc.obs_dim, cc.A, HIDDEN),
+    model = ActorCritic(MLPConfig(cc.obs_dim, cc.A, hidden),
                         torch.Generator().manual_seed(seed), device=dev)
     with torch.no_grad():
         model.mu.w.mul_(100.0)        # non-degenerate actions
@@ -2281,8 +2315,230 @@ def phase_tensor_parallel(seed):
     return dict(one=one, tp=tp, dp=dp, f32=f32, bf16=b16, M=M)
 
 
-def _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, hs, mh, tp, sc_errs,
-                  bg_errs, pol_errs, pu_errs, ep_errs, dm_errs):
+def _learn_bar():
+    """Phase 18's bar: its compare-CLI flags, parsed, and its entry of
+    ``learn/bars.py``."""
+    from gym_supplychain_tpu_torch.learn import bars
+
+    return bars.parse(LEARN_BAR), bars.BARS[LEARN_BAR]
+
+
+def _learn_kernels(seed):
+    """Phase 18's kernels at its shapes (the bar's env, B = 256, T = 60,
+    hidden (64, 64), mu.w x100) against their plain versions, timed: K1
+    ``policy`` sample-major, K2 and K2 bf16 at M = T x B, K4 on random
+    tables.  Returns each one's row."""
+    import torch
+    import gym_supplychain_tpu_torch as sct
+    from gym_supplychain_tpu_torch.ops import supplychain_collect as scc
+    from gym_supplychain_tpu_torch.ops import supplychain_episode as sce
+    from gym_supplychain_tpu_torch.ops._mlp import MlpLayout
+    from gym_supplychain_tpu_torch.ops.supplychain_dense import (
+        dense_descriptor)
+
+    dev = torch.device("cuda")
+    bar, _ = _learn_bar()
+    B, T, H = bar.envs, bar.horizon, tuple(bar.hidden)
+    cc = sct.make_chain(bar.env, total_time_steps=T)
+    O, A, M = cc.obs_dim, cc.A, T * B
+    model = _policy_model(cc, seed, dev, H)
+    lay = MlpLayout(O, A, H)
+    desc = torch.as_tensor(dense_descriptor(cc), device=dev)
+    ints = torch.as_tensor(lay.ints, device=dev)
+    rows, errs = {}, []
+
+    def k1():
+        return scc.launch_supplychain_policy(desc, cc, lay, ints,
+                                             lay.pack(model.flat()), T, B,
+                                             "policy", seed=seed,
+                                             sample_major=True)
+
+    def k1_plain():
+        return scc.supplychain_collect_plain(cc, 1, B, "policy", seed=seed,
+                                             params=model, sample_major=True,
+                                             device=dev)
+
+    tag = f"{bar.env} B={B} T={T} hidden {H}"
+    _check_policy(f"K1 policy, {tag}, kernel vs plain", k1(), k1_plain(),
+                  errs)
+    ms, _ = _timed(k1, REPS)
+    plain_ms, _ = _timed(k1_plain, PLAIN_REPS)
+    rows["k1"] = dict(err=errs[-1], ms=ms, plain_ms=plain_ms, bound=_bound(
+        4 * (sum(lay.wsec) + M * (O + A + 3) + cc.N * cc.P * B),
+        2 * _macs(lay, [0, 1]) * M))
+
+    dem, lt, _ = _episode_tables(cc, B, seed, dev)
+    pack = lay.pack(model.flat())
+
+    def k4():
+        return sce.launch_supplychain_greedy(desc, cc, lay, ints, pack, B,
+                                             dem, lt)
+
+    def k4_plain():
+        return sce.supplychain_episode_plain(cc, B, "policy", dem, lt,
+                                             params=model)
+
+    _check_episode(f"K4, {tag}, greedy kernel vs plain", k4(), k4_plain(),
+                   errs)
+    ms, _ = _timed(k4, REPS)
+    plain_ms, _ = _timed(k4_plain, PLAIN_REPS)
+    tables = 4 * (dem.numel() + (lt.numel() if lt is not None else 0))
+    rows["k4"] = dict(err=errs[-1], ms=ms, plain_ms=plain_ms, bound=_bound(
+        tables + 4 * (T * B + cc.N * cc.P * B) + 4 * lay.wsec[0],
+        2 * _macs(lay, [0]) * T * B))
+
+    f32 = _f32_update(cc, model, M, H, seed)
+    print(f"  K2 at M={M}, {tag}: max abs err kernel {f32['err_k']:.3e}, "
+          f"plain float32 {f32['err_p']:.3e} against float64 (gate "
+          f"{4 * f32['err_p'] + 1e-7 * f32['scale']:.3e}); two launches "
+          f"bit-identical {f32['same']}; {f32['card_ms']:.4f} ms a call on "
+          f"the card ({BACK_TO_BACK} back to back), plain autograd "
+          f"{f32['plain_ms']:.3f} ms")
+    if not f32["ok"]:
+        raise RuntimeError("phase 18: K2 disagrees with float64 autograd")
+    macs = 3 * _macs(lay, [0, 1]) - O * 2 * H[0]
+    rows["k2"] = dict(err=f32["err_k"], ms=f32["card_ms"],
+                      plain_ms=f32["plain_ms"], bound=_bound(
+                          4 * (M * (O + A + 3) + 2 * lay.n_params),
+                          2 * macs * M))
+    rows["k2_bf16"] = _bf16_net(bar.env, H, seed, dev, M=M,
+                                tag="K2 bf16 at phase 18's shape:")
+    return rows
+
+
+def _learn_parity(seed):
+    """The fused engine with the kernels (K1 ``policy``, K2) against the
+    same trainer on their plain versions (``plain=True``: plain collection,
+    autograd), ``LEARN_PARITY_ITERS`` iterations from one seed at phase 18's
+    shape: after each, the cumulative parameter change's cosine (>= 0.999)
+    and the mean reward and loss (within 1e-4 relative).  A weight pack a
+    version behind Adam, a ``log_std`` that does not reach the sampler or a
+    clip that parts from autograd's shows from the second iteration on.
+    The bf16 learner's cosine against the float32 kernel trainer is
+    printed beside it."""
+    import torch
+    import gym_supplychain_tpu_torch as sct
+    from gym_supplychain_tpu_torch.learn import ppo
+
+    bar, _ = _learn_bar()
+    cc = sct.make_chain(bar.env, total_time_steps=bar.horizon)
+    cfg = ppo.PPOConfig(hidden=tuple(bar.hidden), lr=bar.lr,
+                        epochs=bar.epochs, fused_update=True)
+    runs = {}
+    for name, plain, dtype in (("kernel", False, None), ("plain", True, None),
+                               ("kernel bf16", False, torch.bfloat16)):
+        init_fn, step = ppo.make_ppo_fused(
+            cc, bar.envs, cfg._replace(learner_dtype=dtype), device="cuda",
+            plain=plain)
+        state = init_fn(seed)
+        p0 = torch.cat([x.detach().reshape(-1) for x in state.params.flat()])
+        rows = []
+        for _ in range(LEARN_PARITY_ITERS):
+            state, m = step(state)
+            rows.append(([torch.cat([x.detach().reshape(-1) for x in
+                                     state.params.flat()]) - p0],
+                         float(m["mean_reward"]), float(m["loss"])))
+        runs[name] = rows
+    ok = True
+    for it, (k, p, b) in enumerate(zip(runs["kernel"], runs["plain"],
+                                       runs["kernel bf16"])):
+        cos = _flat_cos(k[0], p[0])
+        rew = abs(k[1] - p[1]) / abs(p[1])
+        loss = abs(k[2] - p[2]) / abs(p[2])
+        print(f"  iteration {it + 1}: kernels against plain: cosine of the "
+              f"parameter change {cos:.8f} (>= 0.999), mean reward "
+              f"{rew:.3e} and loss {loss:.3e} relative (tol 1e-4); bf16 "
+              f"learner against float32: cosine {_flat_cos(b[0], k[0]):.6f}")
+        ok = ok and cos >= 0.999 and rew <= 1e-4 and loss <= 1e-4
+    return ok
+
+
+def phase_learning(seed):
+    """Phase 18: learning on the card.  The sc-2perstage bar of the JAX
+    package (T = 60, 256 envs, hidden (64, 64), lr 3e-3, 4 epochs, 220
+    iterations, greedy evaluation on key seed + 1 beside the base-stock
+    grid on key seed) through ``learn.compare_baseline`` (``learn/bars.py``
+    gives the flags) on the scan trainer, the fused engine (K1 ``policy`` + K2) and the bf16 learner
+    (K1 ``policy`` + K2 bf16), launch counts zeroed before each run; the
+    fused engine's kernels against plain over 5 iterations
+    (``_learn_parity``); then the four kernels at the phase's shapes
+    against their plain versions (``_learn_kernels``).  Returns each run's
+    launches and the kernels' rows."""
+    import torch
+    from gym_supplychain_tpu_torch.learn import bars
+    from gym_supplychain_tpu_torch.ops import ppo_update as pu
+    from gym_supplychain_tpu_torch.ops import supplychain_collect as scc
+    from gym_supplychain_tpu_torch.ops import supplychain_episode as sce
+
+    smi = _cmd(["nvidia-smi", "--query-gpu=name,power.limit",
+                "--format=csv,noheader"])
+    bar, spec = _learn_bar()
+    print(f"phase 18: learning on the card, {bar.env}, T={bar.horizon}, "
+          f"{bar.envs} envs, hidden {tuple(bar.hidden)}, lr {bar.lr:g}, "
+          f"{bar.epochs} epochs, {bar.iters} iterations, seed {seed}")
+    counters = {"K1 policy": scc.launch_supplychain_policy,
+                "K2": pu.launch_ppo_update,
+                "K2 bf16": pu.launch_ppo_update_bf16,
+                "K2 bf16 mma.sync": pu.launch_ppo_update_bf16_mma,
+                "K4": sce.launch_supplychain_greedy}
+    runs, failed = {}, []
+    t_phase = time.perf_counter()
+    for name, engine, dtype in LEARN_ENGINES:
+        for fn in counters.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):   # its JSON report
+            rep = bars.run(LEARN_BAR, "--seed", str(seed), "--engine",
+                           engine, *(["--learner-dtype", dtype] if dtype
+                                     else []))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        ppo_r, bs = rep["ppo"], rep["base_stock"]
+        z2, tuned = bs["grid"][str(spec.z)], bs["mean_return"]
+        trained = ppo_r["greedy_mean_return"]
+        m2, mt = bars.margin(rep, spec.z), bars.margin(rep)
+        curve = [(c["iter"], c["greedy_mean_return"]) for c in ppo_r["curve"]]
+        print(f"  {name}: greedy return every {bar.iters // 10} iterations "
+              f"{curve}")
+        print(f"  {name} {smi}: trained {trained:.1f}; base stock "
+              f"z={spec.z} {z2:.1f}, tuned (z={bs['best_z']}) {tuned:.1f}; "
+              f"margin over z={spec.z} {m2:.2%}, over the tuned {mt:.2%} "
+              f"(the JAX bar: {spec.margin:.0%} over z={spec.z}; a miss is "
+              f"a draw first, the parity below the fault detector); train "
+              f"{ppo_r['train_seconds']} s, the run "
+              f"{wall:.1f} s with the grid and evaluations (host clock); "
+              f"launches {launches}")
+        ok = all(math.isfinite(v) for _, v in curve) and math.isfinite(
+            trained)
+        if engine == "scan":
+            ok = ok and bars.passes(LEARN_BAR, rep)
+        else:
+            rel = ppo_r["kernel_vs_scan_relative"]
+            update = (launches["K2"] if dtype is None
+                      else launches["K2 bf16"] + launches["K2 bf16 mma.sync"])
+            print(f"  {name}: the greedy rollout kernel (K4) "
+                  f"{ppo_r['kernel_greedy_mean_return']:.1f} against the scan"
+                  f" evaluator, {rel:.3e} relative (tol {EVAL_RTOL:g})")
+            ok = (ok and mt > 0 and rel <= EVAL_RTOL and launches["K4"] >= 1
+                  and launches["K1 policy"] == bar.iters
+                  and update == bar.epochs * bar.iters)
+        if not ok:
+            failed.append(name)
+        runs[name] = launches
+    print(f"  the fused engine, kernels against plain over "
+          f"{LEARN_PARITY_ITERS} iterations:")
+    if not _learn_parity(seed):
+        failed.append("kernels against plain")
+    kernels = _learn_kernels(seed)
+    print(f"  phase 18: {time.perf_counter() - t_phase:.1f} s (host clock)")
+    if failed:
+        raise RuntimeError(f"phase 18: learning bar missed by {failed}")
+    return dict(runs=runs, kernels=kernels, env=bar.env)
+
+
+def _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, hs, mh, tp, ln,
+                  sc_errs, bg_errs, pol_errs, pu_errs, ep_errs, dm_errs):
     """The ``kernels`` summary: each kernel with its main-path launches,
     its error against plain, its time, its plain version's and its bound
     at the main path's shapes (no single PyTorch call computes any of these
@@ -2418,6 +2674,26 @@ def _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, hs, mh, tp, sc_errs,
          "gym_supplychain_tpu/ops/ppo_update_pallas.py:91",
          sum(tp["tp"]["cases"]["scan-k2-bf16"]["launches"].values()),
          b["err"], b["ms"], b["plain_ms"], b["bound"])
+    # phase 18: the four kernels of the learning runs at their shapes;
+    # launches summed over the three engines' runs
+    k, runs = ln["kernels"], ln["runs"].values()
+    tag = f"learning {ln['env']}"
+    for name, source, replaces, key, row in (
+            (f"supplychain_collect[policy, {tag}]", "supplychain_policy.cu",
+             f"{sc_pallas}:791", ("K1 policy",), k["k1"]),
+            (f"ppo_update[{tag}]", "ppo_update.cu",
+             "gym_supplychain_tpu/ops/ppo_update_pallas.py:91", ("K2",),
+             k["k2"]),
+            (f"ppo_update[bf16, {tag}]",
+             "ppo_update_bf16.cuh" if k["k2_bf16"]["kernel"] == "wgmma"
+             else "ppo_update_bf16_mma.cu",
+             "gym_supplychain_tpu/ops/ppo_update_pallas.py:91",
+             ("K2 bf16", "K2 bf16 mma.sync"), k["k2_bf16"]),
+            (f"supplychain_episode[policy, {tag}]", "supplychain_policy.cu",
+             f"{sc_pallas}:736", ("K4",), k["k4"])):
+        line(name, source, replaces,
+             sum(r[c] for r in runs for c in key), row["err"],
+             row["ms"], row["plain_ms"], row["bound"])
     return lines
 
 
@@ -2479,25 +2755,37 @@ def main(argv=None) -> int:
     chains = {env_id: sct.make_chain(env_id)
               for env_id in ("supplychain-linear-v0", "supplychain-ntom-v0")}
     sc_errs, bg_errs, pol_errs, pu_errs, ep_errs = [], [], [], [], []
-    phase_supplychain(chains, B, CHECK_EPISODES, args.seed, sc_errs)
-    phase_beergame(B, CHECK_EPISODES, args.seed, bg_errs)
-    res = phase_main_path(B, MAIN_EPISODES, args.seed, REPS)
-    phase_policy(B, CHECK_EPISODES, args.seed, pol_errs)
-    upd = phase_ppo_update(args.seed, pu_errs)
-    tr = phase_trainer(args.seed)
-    ep = phase_episode(B, args.seed, ep_errs)
-    ev = phase_eval(args.seed)
-    dn = phase_dense(B, args.seed)
-    bge = phase_beergame_episode(B, args.seed)
-    dm_errs = []
-    dm = phase_demand(B, args.seed, dm_errs)
-    bf = phase_bf16_beergame(args.seed)
-    hs = phase_host_streams(B, args.seed)
-    mh = phase_multihost(args.seed)
-    tp = phase_tensor_parallel(args.seed)
+    dm_errs, seconds = [], {1: round(time.perf_counter() - t0, 1)}
+
+    def timed(n, phase, *a):
+        """Run phase ``n`` and keep its seconds on the host clock."""
+        t = time.perf_counter()
+        out = phase(*a)
+        seconds[n] = round(time.perf_counter() - t, 1)
+        return out
+
+    seed = args.seed
+    timed(2, phase_supplychain, chains, B, CHECK_EPISODES, seed, sc_errs)
+    timed(4, phase_beergame, B, CHECK_EPISODES, seed, bg_errs)
+    res = timed(5, phase_main_path, B, MAIN_EPISODES, seed, REPS)
+    timed(6, phase_policy, B, CHECK_EPISODES, seed, pol_errs)
+    upd = timed(7, phase_ppo_update, seed, pu_errs)
+    tr = timed(8, phase_trainer, seed)
+    ep = timed(9, phase_episode, B, seed, ep_errs)
+    ev = timed(10, phase_eval, seed)
+    dn = timed(11, phase_dense, B, seed)
+    bge = timed(12, phase_beergame_episode, B, seed)
+    dm = timed(13, phase_demand, B, seed, dm_errs)
+    bf = timed(14, phase_bf16_beergame, seed)
+    hs = timed(15, phase_host_streams, B, seed)
+    mh = timed(16, phase_multihost, seed)
+    tp = timed(17, phase_tensor_parallel, seed)
+    ln = timed(18, phase_learning, seed)
+    print(f"seconds a phase (host clock; phase 2 holds 3, phase 1 the build): "
+          f"{seconds}, all {round(time.perf_counter() - t0, 1)}")
 
     kernels = _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, hs, mh, tp,
-                            sc_errs, bg_errs, pol_errs, pu_errs, ep_errs,
+                            ln, sc_errs, bg_errs, pol_errs, pu_errs, ep_errs,
                             dm_errs)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

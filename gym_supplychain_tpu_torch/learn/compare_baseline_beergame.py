@@ -18,7 +18,7 @@ import json
 import time
 
 
-def main(argv=None):
+def parser():
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--envs", type=int, default=256)
     p.add_argument("--iters", type=int, default=2000)
@@ -42,7 +42,21 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default; an error where there is no card) or "
                         "cpu")
-    args = p.parse_args(argv)
+    return p
+
+
+def env_kwargs(args):
+    """The beer game's ``make_beergame_ppo`` / evaluator keywords of the
+    parsed flags."""
+    return dict(levels=4, weeks=args.weeks, max_order=args.max_order,
+                customer_demand=tuple(args.dem_range),
+                shipment_delays=tuple(args.delay_range), v2=True,
+                max_stock=args.max_stock,
+                exceeded_capacity_penalty=args.penalty)
+
+
+def main(argv=None):
+    args = parser().parse_args(argv)
     from .train import device_from_flag
 
     device = device_from_flag(args.device)
@@ -57,11 +71,7 @@ def main(argv=None):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
-    kw = dict(levels=4, weeks=args.weeks, max_order=args.max_order,
-              customer_demand=tuple(args.dem_range),
-              shipment_delays=tuple(args.delay_range), v2=True,
-              max_stock=args.max_stock,
-              exceeded_capacity_penalty=args.penalty)
+    kw = env_kwargs(args)
 
     t0 = time.time()
     best_s, (heur, heur_std), scores = best_beergame_base_stock(

@@ -41,8 +41,8 @@ def test_port_imports_no_jax():
                  "utils.checkpoint", "ops.supplychain_dense",
                  "ops.beergame_episode", "benchmarks.large_topologies",
                  "ops.ppo_update", "learn.ppo", "models.policy",
-                 "learn.compare_baseline_beergame", "native", "rng.host",
-                 "rng.gym_compat", "envs.strict_obs", "envs.single",
+                 "learn.compare_baseline_beergame", "learn.bars", "native",
+                 "rng.host", "rng.gym_compat", "envs.strict_obs", "envs.single",
                  "envs.beergame", "envs.gym_registry", "parallel.mesh",
                  "benchmarks.multihost_scaling", "utils.profiling"):
         assert "gym_supplychain_tpu_torch." + name in loaded, name
