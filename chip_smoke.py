@@ -49,8 +49,14 @@ Phases, in order; any failure exits nonzero:
      host apart)
   8. the trainer's path: the train CLI, then ``make_ppo_fused`` timed per
      phase (collect / gae / update) against the plain trainer, whose first
-     iteration must match the kernel trainer's; then K1 ``policy`` alone at
-     the trainer's shape beside its plain version
+     iteration must match the kernel trainer's; the program's spans on the
+     kernel trainer (``utils/profiling.py``): an iteration's host time with
+     them off and on, in turns, each span's host time, ``ppo.gae`` inside
+     ``ppo.prepare``, no record dropped, the weight packs an iteration (one
+     for K1, one a K2 call), and in a traced iteration the device
+     operations launched under ``ppo.gae``, which must be
+     ``learn/ppo.py``'s count (8 a step, 5 around the loop); then K1
+     ``policy`` alone at the trainer's shape beside its plain version
   9. the episode kernel against plain at B = 4096, T = 360 (linear, ntom):
      ``actions`` on random tables, ``seeded`` against ``actions`` fed its
      Philox rows (bit for bit), greedy ``policy`` at hidden (128, 128);
@@ -60,8 +66,10 @@ Phases, in order; any failure exits nonzero:
      must repeat the uninterrupted one bit for bit, the evaluate CLI runs
      both engines on it (B = 4096, T = 360, 4 episodes; they share their
      inputs, so their mean returns agree within 1e-5), ``best_base_stock``
-     runs at the same size; both evaluators are timed, and the kernel
-     evaluator's table draw alone
+     runs at the same size; both evaluators are timed (the kernel
+     evaluator packs its weights once and reuses the pack), and the kernel
+     evaluator's table draw alone; the device operations launched under
+     the draw's span (``rng.episode_tables``) in traced calls
   11. the dense collect kernel (K5) at B = 4096, T = 360 on the configs of
      ``gym_supplychain_tpu_torch.benchmarks.large_topologies``: ``actions``
      on random tables against plain over 2 episodes (all three), ``random``
@@ -186,6 +194,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -254,6 +263,43 @@ LEARN_ENGINES = (("scan", "scan", None), ("fused", "fused", None),
 def _cmd(args):
     res = subprocess.run(args, capture_output=True, text=True, timeout=60)
     return (res.stdout or res.stderr).strip()
+
+
+def _launches(kernel: str) -> int:
+    """The launches of ``kernel`` counted so far (the counter
+    ``launch.<kernel>`` of ``utils/profiling.py``)."""
+    from gym_supplychain_tpu_torch.utils.profiling import counters
+
+    return counters().get("launch." + kernel, 0)
+
+
+def _span_launches(path, name):
+    """The device operations launched inside each instance of the
+    program's span ``name``, in order, in a Chrome trace that
+    ``utils.profiling.trace`` wrote: an operation's ``correlation`` id
+    names the runtime call that launched it, whose start lies in the
+    span."""
+    with open(path) as fh:
+        events = json.load(fh)
+    if isinstance(events, dict):
+        events = events.get("traceEvents", [])
+    xs = [e for e in events if e.get("ph") == "X" and "ts" in e]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                   for e in xs if e.get("cat") == "user_annotation"
+                   and e.get("name") == "gsc." + name)
+    launched = {(e.get("args") or {}).get("correlation"): float(e["ts"])
+                for e in xs if e.get("cat") in ("cuda_runtime",
+                                                "cuda_driver")}
+    counts = [0] * len(spans)
+    for e in xs:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        t = launched.get((e.get("args") or {}).get("correlation"))
+        for i, (a, b) in enumerate(spans):
+            if t is not None and a <= t <= b:
+                counts[i] += 1
+                break
+    return counts
 
 
 def _timed(fn, reps):
@@ -480,13 +526,14 @@ def phase_main_path(B, episodes, seed, reps):
     import gym_supplychain_tpu_torch as sct
     from gym_supplychain_tpu_torch.ops import beergame_collect as bgc
     from gym_supplychain_tpu_torch.ops import supplychain_collect as scc
+    from gym_supplychain_tpu_torch.utils.profiling import reset_counters
 
     dev = torch.device("cuda")
     runs, plans = {}, {}
     for env_id in ("supplychain-linear-v0", "supplychain-ntom-v0"):
         cc = sct.make_chain(env_id)
         plans[env_id] = "; " + _plan(cc, "collect", B)
-        runs[env_id] = (scc.launch_supplychain_collect,
+        runs[env_id] = ("supplychain_collect",
                         scc.make_supplychain_collect(
                             cc, cc.T, B, mode="random", episodes=episodes,
                             device="cuda"),
@@ -503,7 +550,7 @@ def phase_main_path(B, episodes, seed, reps):
     S_bg = episodes * spec.weeks
     bg_dem = torch.as_tensor(spec.demand, dtype=torch.int32, device=dev)
     runs["beergame-v0"] = (
-        bgc.launch_beergame_collect,
+        "beergame_collect",
         lambda seed: bg_run(spec.demand, seed), S_bg,
         lambda: bgc.beergame_collect_plain(
             spec.weeks, spec.levels, B, episodes, "random",
@@ -511,16 +558,15 @@ def phase_main_path(B, episodes, seed, reps):
             seed=seed, **bg_kw))
 
     # launch counts: zero, drive the main path, read
-    scc.launch_supplychain_collect.launches = 0
-    bgc.launch_beergame_collect.launches = 0
+    reset_counters()
     results = {}
-    for env_id, (launcher, run, S, _) in runs.items():
-        before = launcher.launches
+    for env_id, (kernel, run, S, _) in runs.items():
+        before = _launches(kernel)
         ms, out = _timed(lambda: run(seed), reps)
-        results[env_id] = dict(ms=ms, launches=launcher.launches - before,
+        results[env_id] = dict(ms=ms, launches=_launches(kernel) - before,
                                out=out, S=S)
-    counts = {"supplychain_collect": scc.launch_supplychain_collect.launches,
-              "beergame_collect": bgc.launch_beergame_collect.launches}
+    counts = {"supplychain_collect": _launches("supplychain_collect"),
+              "beergame_collect": _launches("beergame_collect")}
 
     print(f"phase 5: main path, mode 'random', B={B}, episodes={episodes}, "
           f"median of {reps} (plain: {PLAIN_REPS}) after a warm-up (CUDA "
@@ -854,32 +900,93 @@ def _first_step(init_fn, step, seed):
     return [p1 - p0], float(m["loss"])
 
 
+def _program_spans(step, state, cfg, T, reps):
+    """The program's spans and counters on the fused trainer (phase 8)."""
+    import tempfile
+    import torch
+    from gym_supplychain_tpu_torch.utils import profiling
+
+    def iteration():
+        seed = step.draw_seed(state.gen)
+        _, data = step.prepare(*step.collect(state.params, seed))
+        step.update(state.params, state.opt, data, state.gen)
+        torch.cuda.synchronize()
+
+    iteration()
+    profiling.take()
+    profiling.reset_counters()
+    host_ms = {False: [], True: []}
+    span_ms, nested = {}, True
+    for r in range(reps):
+        for on in ((False, True) if r % 2 == 0 else (True, False)):
+            was = profiling.enable(on)
+            t0 = time.perf_counter()
+            iteration()
+            host_ms[on].append(1e3 * (time.perf_counter() - t0))
+            profiling.enable(was)
+            sums = {}
+            for rec in profiling.take():
+                sums[rec.name] = (sums.get(rec.name, 0.0)
+                                  + (rec.end_ns - rec.start_ns) / 1e6)
+                if rec.name == "ppo.gae":
+                    nested &= rec.parent == "ppo.prepare"
+            for k, v in sums.items():
+                span_ms.setdefault(k, []).append(v)
+    got = profiling.counters()
+    packs = (1 + cfg.epochs * cfg.minibatches) * 2 * reps
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            iteration()
+            iteration()
+        gae = _span_launches(os.path.join(tmp, "trace.rank0.json"),
+                             "ppo.gae")
+    want = 8 * T + 5
+    med = {k: round(statistics.median(v), 4)
+           for k, v in sorted(span_ms.items())}
+    print(f"  program spans, kernel trainer: an iteration "
+          f"{statistics.median(host_ms[False]):.3f} ms off, "
+          f"{statistics.median(host_ms[True]):.3f} ms on (host clock, "
+          f"median of {reps} each, in turns); each span's host ms an "
+          f"iteration {med}; "
+          f"ppo.gae inside ppo.prepare {nested}; counters {got} over "
+          f"{2 * reps} iterations (weight packs expected {packs}); device "
+          f"operations under ppo.gae in 2 traced iterations {gae} "
+          f"(learn/ppo.py: 8 x {T} + 5 = {want})")
+    if not (nested and set(span_ms) == {
+            "ppo.collect", "ops.collect", "ops.pack", "ppo.prepare",
+            "ppo.gae", "ppo.normalize", "ppo.update", "ppo.grads",
+            "ops.ppo_update", "ppo.clip", "ppo.adam"}
+            and not got.get("spans.dropped")
+            and got.get("ops.pack") == packs
+            and not got.get("ops.pack_reused") and gae[-1:] == [want]):
+        raise RuntimeError("trainer: the program's spans or counters are "
+                           "not where they belong")
+    return dict(off_ms=statistics.median(host_ms[False]),
+                on_ms=statistics.median(host_ms[True]), gae_launches=gae[-1])
+
+
 def phase_trainer(seed):
     """Phase 8: the trainer's path through the train CLI, then
     ``make_ppo_fused`` timed per phase against the plain trainer."""
     import torch
     import gym_supplychain_tpu_torch as sct
     from gym_supplychain_tpu_torch.learn import ppo, train
-    from gym_supplychain_tpu_torch.ops import beergame_collect as bgc
-    from gym_supplychain_tpu_torch.ops import ppo_update as pu
     from gym_supplychain_tpu_torch.ops import supplychain_collect as scc
+    from gym_supplychain_tpu_torch.utils.profiling import reset_counters
 
     B, T = ENVS, TRAIN_T
     print(f"phase 8: trainer, supplychain-ntom-v0, B={B}, hidden {HIDDEN}, "
           f"horizon {T}, epochs 2, minibatches 1")
     # launch counts: zero, drive the path, read
-    for launcher in (scc.launch_supplychain_collect,
-                     scc.launch_supplychain_policy, pu.launch_ppo_update,
-                     bgc.launch_beergame_collect):
-        launcher.launches = 0
+    reset_counters()
     _, metrics = train.main([
         "--env", "supplychain-ntom-v0", "--envs", str(B), "--hidden",
         *map(str, HIDDEN), "--horizon", str(T), "--iters", "3", "--epochs",
         "2", "--log-every", "1", "--seed", str(seed)])
     torch.cuda.synchronize()
     counts = {"supplychain_collect[policy]":
-              scc.launch_supplychain_policy.launches,
-              "ppo_update": pu.launch_ppo_update.launches}
+              _launches("supplychain_policy"),
+              "ppo_update": _launches("ppo_update")}
     loss = float(metrics["loss"])
     print(f"  train CLI, 3 iterations: final loss {loss:.6f}; launch counts "
           f"{counts}")
@@ -900,6 +1007,8 @@ def phase_trainer(seed):
               f"{r['collect']:.3f}, gae {r['gae']:.3f}, update "
               f"{r['update']:.3f} ms (median of {reps} after a warm-up, CUDA "
               f"events)")
+        if not plain:
+            spans = _program_spans(step, init_fn(seed), cfg, T, reps)
 
     # one iteration of each from the same weights and seed
     deltas, losses = [], []
@@ -940,7 +1049,7 @@ def phase_trainer(seed):
           f"bound without FMA {_issue_bound_ms(macs):.4f} ms; "
           f"{_policy_plan(cc, lay, B, 2)}")
     return dict(counts=counts, kernel=res[False], plain=res[True],
-                k1=dict(ms=k1_ms, plain_ms=k1_plain))
+                k1=dict(ms=k1_ms, plain_ms=k1_plain), spans=spans)
 
 
 def _episode_tables(cc, B, seed, device):
@@ -985,6 +1094,7 @@ def phase_episode(B, seed, errs):
     import gym_supplychain_tpu_torch as sct
     from gym_supplychain_tpu_torch.ops import supplychain_episode as sce
     from gym_supplychain_tpu_torch.ops._mlp import MlpLayout
+    from gym_supplychain_tpu_torch.utils.profiling import reset_counters
 
     dev = torch.device("cuda")
     print(f"phase 9: supplychain_episode, B={B}, T=360, modes actions / "
@@ -1060,9 +1170,9 @@ def phase_episode(B, seed, errs):
                                                            device="cuda")
     for mode, run, last in (("seeded", run_seeded, seed),
                             ("actions", run_actions, act)):
-        sce.launch_supplychain_episode.launches = 0
+        reset_counters()
         ms, rew = _timed(lambda: run(dem, lt, last), REPS)
-        res[mode]["launches"] = sce.launch_supplychain_episode.launches
+        res[mode]["launches"] = _launches("supplychain_episode")
         print(f"  sweep through make_supplychain_episode, {mode}: {ms:.3f} ms"
               f" per episode, launches {res[mode]['launches']}, rewards "
               f"{tuple(rew.shape)}, finite {bool(torch.isfinite(rew).all())}"
@@ -1080,9 +1190,12 @@ def phase_eval(seed):
     import torch
     import gym_supplychain_tpu_torch as sct
     from gym_supplychain_tpu_torch.learn import evaluate, heuristics, train
-    from gym_supplychain_tpu_torch.ops import supplychain_episode as sce
     from gym_supplychain_tpu_torch.rng.device import device_episode_tables
+    import tempfile
     from gym_supplychain_tpu_torch.utils.checkpoint import restore_checkpoint
+    from gym_supplychain_tpu_torch.utils.profiling import (counters,
+                                                           reset_counters,
+                                                           trace)
 
     B, work = ENVS, ROOT / "gym_supplychain_tpu_torch" / "_build" / "ckpt"
     shutil.rmtree(work, ignore_errors=True)
@@ -1107,10 +1220,10 @@ def phase_eval(seed):
 
     argv = ["--restore", str(work / "b"), "--envs", str(B), "--horizon",
             "360", "--episodes", str(EVAL_EPISODES), "--seed", str(seed)]
-    sce.launch_supplychain_greedy.launches = 0
+    reset_counters()
     stats_k = evaluate.main(argv + ["--engine", "kernel"])
     torch.cuda.synchronize()
-    launches = sce.launch_supplychain_greedy.launches
+    launches = _launches("supplychain_greedy")
     stats_s = evaluate.main(argv + ["--engine", "scan"])
     rel = (abs(stats_k["mean_return"] - stats_s["mean_return"])
            / abs(stats_s["mean_return"]))
@@ -1141,7 +1254,9 @@ def phase_eval(seed):
     params = restore_checkpoint(str(work / "b"))["params"].to("cuda")
     fused = evaluate.make_fused_evaluator(cc, B, HIDDEN, device="cuda")
     scan = evaluate.make_evaluator(cc, B, device="cuda")
+    reset_counters()
     k_ms, _ = _timed(lambda: fused(params, seed, 1), REPS)
+    packs = counters()
     s_ms, _ = _timed(lambda: scan(params, seed, 1), PLAIN_REPS)
     t_ms, _ = _timed(lambda: device_episode_tables((seed, 0), cc, B,
                                                    device="cuda"), REPS)
@@ -1151,9 +1266,23 @@ def phase_eval(seed):
               f"env-steps/s")
     print(f"  its table draw alone (device_episode_tables): {t_ms:.3f} ms "
           f"an episode (median of {REPS})")
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            fused(params, seed, 1)
+            fused(params, seed, 1)
+        draw = _span_launches(os.path.join(tmp, "trace.rank0.json"),
+                              "rng.episode_tables")
+    print(f"  kernel evaluator's weight packs over {REPS + 1} calls: "
+          f"ops.pack {packs.get('ops.pack', 0)}, ops.pack_reused "
+          f"{packs.get('ops.pack_reused', 0)}; device operations under "
+          f"rng.episode_tables in 2 traced calls {draw}")
+    if not (packs.get("ops.pack") == 1 and packs.get("ops.pack_reused")
+            == REPS and len(draw) == 2 and min(draw) > 0):
+        raise RuntimeError("evaluation: the weight pack is not reused or the "
+                           "draw's span launched nothing")
     shutil.rmtree(work, ignore_errors=True)
     return dict(launches=launches, kernel_ms=k_ms, scan_ms=s_ms,
-                tables_ms=t_ms, grid_s=grid_s)
+                tables_ms=t_ms, grid_s=grid_s, draw_launches=draw[-1])
 
 
 def phase_dense(B, seed):
@@ -1163,6 +1292,7 @@ def phase_dense(B, seed):
     import torch
     from gym_supplychain_tpu_torch.benchmarks import large_topologies as lt
     from gym_supplychain_tpu_torch.ops import supplychain_dense as scd
+    from gym_supplychain_tpu_torch.utils.profiling import reset_counters
 
     dev = torch.device("cuda")
     print(f"phase 11: supplychain_dense (K5), B={B}, T=360, configs "
@@ -1200,11 +1330,11 @@ def phase_dense(B, seed):
     # run, read just after
     res = {}
     for name in lt.CONFIGS:
-        scd.launch_supplychain_dense.launches = 0
+        reset_counters()
         out = lt.run_benchmark("cuda", B, 360, reps=DENSE_REPS,
                                eager_steps=EAGER_STEPS, parity_episodes=0,
                                plain_reps=1, seed=seed, configs=[name])
-        launches = scd.launch_supplychain_dense.launches
+        launches = _launches("supplychain_dense")
         r = out[name]
         d, cc = r["dense"], lt.config_chain(name)
         bound = _collect_bound(cc, cc.T, B)
@@ -1235,6 +1365,7 @@ def phase_beergame_episode(B, seed):
     from gym_supplychain_tpu_torch.benchmarks.beergame import device_ms
     from gym_supplychain_tpu_torch.ops import beergame_episode as bge
     from gym_supplychain_tpu_torch.ops.beergame_collect import beergame_block
+    from gym_supplychain_tpu_torch.utils.profiling import reset_counters
 
     dev = torch.device("cuda")
     spec = sct.make_chain("beergame-v0")
@@ -1267,11 +1398,11 @@ def phase_beergame_episode(B, seed):
             if not torch.equal(k, p):
                 raise RuntimeError(f"beergame episode B={b} {kw}: not "
                                    "bit-exact")
-    bge.launch_beergame_episode.launches = 0
+    reset_counters()
     ms, rew = _timed(lambda: bge.beergame_episode(*args, device="cuda",
                                                   delay=spec.delay, **base),
                      REPS)
-    launches = bge.launch_beergame_episode.launches
+    launches = _launches("beergame_episode")
     alone = device_ms(lambda: bge.launch_beergame_episode(
         *args, delay=spec.delay, **base), REPS)
     plain_ms, _ = _timed(lambda: bge.beergame_episode_plain(
@@ -1318,12 +1449,11 @@ def phase_demand(B, seed, errs):
     import shutil
     import torch
     from gym_supplychain_tpu_torch.learn import evaluate, ppo, train
-    from gym_supplychain_tpu_torch.ops import ppo_update as pu
     from gym_supplychain_tpu_torch.ops import supplychain_collect as scc
     from gym_supplychain_tpu_torch.ops import supplychain_dense as scd
-    from gym_supplychain_tpu_torch.ops import supplychain_episode as sce
     from gym_supplychain_tpu_torch.ops._mlp import MlpLayout
     from gym_supplychain_tpu_torch.rng.device import demand_constants
+    from gym_supplychain_tpu_torch.utils.profiling import reset_counters
 
     dev = torch.device("cuda")
     seasonal = "sc-2perstage-seasonal-v0"
@@ -1416,9 +1546,9 @@ def phase_demand(B, seed, errs):
         run = scc.make_supplychain_collect(cc, cc.T, B, mode="random",
                                            episodes=MAIN_EPISODES,
                                            device="cuda")
-        scc.launch_supplychain_collect.launches = 0
+        reset_counters()
         ms, out = _timed(lambda: run(seed), REPS)
-        launches = scc.launch_supplychain_collect.launches
+        launches = _launches("supplychain_collect")
         plain_ms, _ = _timed(lambda: scc.supplychain_collect_plain(
             cc, MAIN_EPISODES, B, "random", seed=seed, device=dev), 1)
         finite = bool(torch.isfinite(out[0]).all()
@@ -1442,9 +1572,9 @@ def phase_demand(B, seed, errs):
                          stochastic_leadtimes=True))):
         run = scd.make_supplychain_dense_collect(cc, cc.T, B, mode="random",
                                                  device="cuda")
-        scd.launch_supplychain_dense.launches = 0
+        reset_counters()
         ms, out = _timed(lambda: run(seed), DENSE_REPS)
-        launches = scd.launch_supplychain_dense.launches
+        launches = _launches("supplychain_dense")
         plain_ms, _ = _timed(lambda: scd.supplychain_dense_collect_plain(
             cc, 1, B, "random", seed=seed, device=dev), 1)
         res[name] = dict(ms=ms, plain_ms=plain_ms, launches=launches,
@@ -1466,8 +1596,7 @@ def phase_demand(B, seed, errs):
     # checkpoint, one episode
     work = ROOT / "gym_supplychain_tpu_torch" / "_build" / "ckpt_seasonal"
     shutil.rmtree(work, ignore_errors=True)
-    for launcher in (scc.launch_supplychain_policy, pu.launch_ppo_update):
-        launcher.launches = 0
+    reset_counters()
     _, metrics = train.main([
         "--env", seasonal, "--envs", str(B), "--hidden", *map(str, HIDDEN),
         "--horizon", str(TRAIN_T), "--iters", "3", "--epochs", "2",
@@ -1475,8 +1604,8 @@ def phase_demand(B, seed, errs):
         str(work)])
     torch.cuda.synchronize()
     counts = {"supplychain_collect[policy]":
-              scc.launch_supplychain_policy.launches,
-              "ppo_update": pu.launch_ppo_update.launches}
+              _launches("supplychain_policy"),
+              "ppo_update": _launches("ppo_update")}
     loss = float(metrics["loss"])
     print(f"  (e) train CLI on {seasonal}, B={B}, hidden {HIDDEN}, T="
           f"{TRAIN_T}, 3 iterations: final loss {loss:.6f}; launch counts "
@@ -1494,10 +1623,10 @@ def phase_demand(B, seed, errs):
           f"update {tr['update']:.3f} ms (median of {TRAIN_REPS})")
     argv = ["--env", seasonal, "--restore", str(work), "--envs", str(B),
             "--horizon", "360", "--episodes", "1", "--seed", str(seed)]
-    sce.launch_supplychain_greedy.launches = 0
+    reset_counters()
     stats_k = evaluate.main(argv + ["--engine", "kernel"])
     torch.cuda.synchronize()
-    launches = sce.launch_supplychain_greedy.launches
+    launches = _launches("supplychain_greedy")
     stats_s = evaluate.main(argv + ["--engine", "scan"])
     rel = (abs(stats_k["mean_return"] - stats_s["mean_return"])
            / abs(stats_s["mean_return"]))
@@ -1550,8 +1679,8 @@ def phase_bf16_beergame(seed):
                                                  evaluate, heuristics, ppo,
                                                  train)
     from gym_supplychain_tpu_torch.ops import ppo_update as pu
-    from gym_supplychain_tpu_torch.ops import supplychain_collect as scc
     from gym_supplychain_tpu_torch.ops._mlp import MlpLayout
+    from gym_supplychain_tpu_torch.utils.profiling import reset_counters
 
     dev = torch.device("cuda")
     cc = sct.make_chain("supplychain-ntom-v0", total_time_steps=TRAIN_T)
@@ -1639,9 +1768,7 @@ def phase_bf16_beergame(seed):
     # (b) the train CLI with the bf16 learner at phase 8's shape, then the
     # trainer's phases beside the float32 one, and the first iteration's
     # parameter change against the float32 trainer's from the same state
-    for launcher in (scc.launch_supplychain_policy, pu.launch_ppo_update,
-                     pu.launch_ppo_update_bf16):
-        launcher.launches = 0
+    reset_counters()
     _, metrics = train.main([
         "--env", "supplychain-ntom-v0", "--envs", str(B), "--hidden",
         *map(str, HIDDEN), "--horizon", str(TRAIN_T), "--iters", "3",
@@ -1649,9 +1776,9 @@ def phase_bf16_beergame(seed):
         "--learner-dtype", "bf16"])
     torch.cuda.synchronize()
     counts = {"supplychain_collect[policy]":
-              scc.launch_supplychain_policy.launches,
-              "ppo_update_bf16": pu.launch_ppo_update_bf16.launches,
-              "ppo_update": pu.launch_ppo_update.launches}
+              _launches("supplychain_policy"),
+              "ppo_update_bf16": _launches("ppo_update_bf16"),
+              "ppo_update": _launches("ppo_update")}
     loss = float(metrics["loss"])
     print(f"  (b) train CLI --learner-dtype bf16, ntom, B={B}, T={TRAIN_T}, 3"
           f" iterations: final loss {loss:.6f}; launch counts {counts}")
@@ -2037,18 +2164,16 @@ def _recorded_on_card(dev):
 def phase_host_streams(B, seed, dev="cuda"):
     """Phase 15: the host-parity MT19937 streams on the card."""
     import torch
-    from gym_supplychain_tpu_torch.ops import beergame_collect as bgc
-    from gym_supplychain_tpu_torch.ops import supplychain_collect as scc
+    from gym_supplychain_tpu_torch.utils.profiling import reset_counters
 
     dev = torch.device(dev)
     t0 = time.perf_counter()
-    scc.launch_supplychain_collect.launches = 0
-    bgc.launch_beergame_collect.launches = 0
+    reset_counters()
     sc = _host_lanes(B, seed, dev)
     bg = _host_beergame(seed, dev)
     _recorded_on_card(dev)
-    sc["launches"] = scc.launch_supplychain_collect.launches
-    bg["launches"] = bgc.launch_beergame_collect.launches
+    sc["launches"] = _launches("supplychain_collect")
+    bg["launches"] = _launches("beergame_collect")
     print(f"  launch counts of phase 15: supplychain_collect "
           f"{sc['launches']}, beergame_collect {bg['launches']}; phase "
           f"{time.perf_counter() - t0:.1f} s")
@@ -2126,9 +2251,8 @@ def phase_multihost(seed):
     import gym_supplychain_tpu_torch as sct
     from gym_supplychain_tpu_torch.benchmarks import multihost_scaling
     from gym_supplychain_tpu_torch.learn import ppo, train
-    from gym_supplychain_tpu_torch.ops import ppo_update as pu
-    from gym_supplychain_tpu_torch.ops import supplychain_collect as scc
     from gym_supplychain_tpu_torch.utils.profiling import (kernel_busy_share,
+                                                           reset_counters,
                                                            trace)
 
     dev = torch.device("cuda")
@@ -2138,10 +2262,8 @@ def phase_multihost(seed):
             for env_id, hidden in RESTORED_NETS]
     # the user's path: the train CLI with the bf16 learner on the restored
     # mma.sync kernel's net and on the new wgmma instance's
-    launchers = (scc.launch_supplychain_policy, pu.launch_ppo_update_bf16,
-                 pu.launch_ppo_update_bf16_mma)
-    for fn in launchers:
-        fn.launches = 0
+    kernels = ("supplychain_policy", "ppo_update_bf16", "ppo_update_bf16_mma")
+    reset_counters()
     for hidden in ((64, 128), (64, 64, 64)):
         _, m = train.main(["--env", "sc-2perstage-multiproduct-v0", "--envs",
                            str(ENVS), "--horizon", str(TRAIN_T), "--hidden",
@@ -2150,7 +2272,7 @@ def phase_multihost(seed):
                            str(seed)])
         if not math.isfinite(float(m["loss"])):
             raise RuntimeError(f"train CLI bf16 {hidden}: loss not finite")
-    counts = {fn.__name__: fn.launches for fn in launchers}
+    counts = {k: _launches(k) for k in kernels}
     print(f"  (a) launch counts of the two CLI runs: {counts}")
     if min(counts.values()) < 1:
         raise RuntimeError("phase 16 (a): a kernel of the bf16 path was not "
@@ -2466,9 +2588,7 @@ def phase_learning(seed):
     launches and the kernels' rows."""
     import torch
     from gym_supplychain_tpu_torch.learn import bars
-    from gym_supplychain_tpu_torch.ops import ppo_update as pu
-    from gym_supplychain_tpu_torch.ops import supplychain_collect as scc
-    from gym_supplychain_tpu_torch.ops import supplychain_episode as sce
+    from gym_supplychain_tpu_torch.utils.profiling import reset_counters
 
     smi = _cmd(["nvidia-smi", "--query-gpu=name,power.limit",
                 "--format=csv,noheader"])
@@ -2476,16 +2596,14 @@ def phase_learning(seed):
     print(f"phase 18: learning on the card, {bar.env}, T={bar.horizon}, "
           f"{bar.envs} envs, hidden {tuple(bar.hidden)}, lr {bar.lr:g}, "
           f"{bar.epochs} epochs, {bar.iters} iterations, seed {seed}")
-    counters = {"K1 policy": scc.launch_supplychain_policy,
-                "K2": pu.launch_ppo_update,
-                "K2 bf16": pu.launch_ppo_update_bf16,
-                "K2 bf16 mma.sync": pu.launch_ppo_update_bf16_mma,
-                "K4": sce.launch_supplychain_greedy}
+    kernels = {"K1 policy": "supplychain_policy", "K2": "ppo_update",
+               "K2 bf16": "ppo_update_bf16",
+               "K2 bf16 mma.sync": "ppo_update_bf16_mma",
+               "K4": "supplychain_greedy"}
     runs, failed = {}, []
     t_phase = time.perf_counter()
     for name, engine, dtype in LEARN_ENGINES:
-        for fn in counters.values():
-            fn.launches = 0
+        reset_counters()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):   # its JSON report
             rep = bars.run(LEARN_BAR, "--seed", str(seed), "--engine",
@@ -2493,7 +2611,7 @@ def phase_learning(seed):
                                      else []))
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {k: fn.launches for k, fn in counters.items()}
+        launches = {k: _launches(n) for k, n in kernels.items()}
         ppo_r, bs = rep["ppo"], rep["base_stock"]
         z2, tuned = bs["grid"][str(spec.z)], bs["mean_return"]
         trained = ppo_r["greedy_mean_return"]
@@ -2643,7 +2761,7 @@ def _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, hs, mh, tp, ln,
     line(f"ppo_update[bf16 mma.sync, {n['env']} {list(n['hidden'])}]",
          "ppo_update_bf16_mma.cu",
          "gym_supplychain_tpu/ops/ppo_update_pallas.py:91",
-         mh["bf16_counts"]["launch_ppo_update_bf16_mma"],
+         mh["bf16_counts"]["ppo_update_bf16_mma"],
          max(x["err"] for x in mma), n["ms"], n["plain_ms"], n["bound"])
     # phase 16 (b): K1 `policy` and K2 on each of 2 ranks of 4096 lanes
     # (phases 6-8's shape and times); launches summed over the ranks

@@ -44,6 +44,7 @@ import torch
 from .. import make_chain
 from ..envs.vector import make_vec_env
 from ..ops import supplychain_dense as scd
+from ..utils.profiling import counters
 
 CONFIGS = {
     "nperstage-5-4-7-10-x4": ("sc-Nperstage-multiproduct-v0",
@@ -159,9 +160,9 @@ def dense_timing(cc, B: int, reps: int, plain_reps: int, seed: int,
     for eps in (1, 2):
         run = scd.make_supplychain_dense_collect(cc, cc.T, B, mode="random",
                                                  episodes=eps, device=device)
-        before = scd.launch_supplychain_dense.launches
+        before = counters().get("launch.supplychain_dense", 0)
         ms[eps], (obs, rew) = _timed(lambda: run(seed), reps, device)
-        launches += scd.launch_supplychain_dense.launches - before
+        launches += counters().get("launch.supplychain_dense", 0) - before
         if not (obs.shape == (eps * cc.T, cc.obs_dim, B)
                 and bool(torch.isfinite(obs).all())
                 and bool(torch.isfinite(rew).all())):

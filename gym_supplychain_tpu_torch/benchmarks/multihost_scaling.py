@@ -88,17 +88,14 @@ def _flat(params):
 
 
 def _trainer(case: str, args, mesh, device):
-    """``(init_fn, step, env-steps an iteration, the launch counters by
-    kernel name, whether the trunks are sharded over the model axis)`` of
-    a case."""
+    """``(init_fn, step, env-steps an iteration, the launch counters
+    (``utils/profiling.py``) by kernel name, whether the trunks are sharded
+    over the model axis)`` of a case."""
     import torch
 
     from .. import make_chain
     from ..learn.ppo import (PPOConfig, make_beergame_ppo, make_ppo,
                              make_ppo_fused)
-    from ..ops import ppo_update as pu
-    from ..ops import supplychain_collect as scc
-
     cuda = torch.device(device).type == "cuda"
     cfg = PPOConfig(epochs=args.epochs, hidden=tuple(args.hidden))
     if case == "beergame":
@@ -112,18 +109,18 @@ def _trainer(case: str, args, mesh, device):
             cc, args.envs, cfg._replace(fused_update=cuda), device=device,
             mesh=mesh)
         return (init_fn, step, cc.T,
-                {"supplychain_collect[policy]": scc.launch_supplychain_policy,
-                 "ppo_update": pu.launch_ppo_update}, False)
+                {"supplychain_collect[policy]": "launch.supplychain_policy",
+                 "ppo_update": "launch.ppo_update"}, False)
     bf16 = case == "scan-k2-bf16"
     cfg = cfg._replace(fused_update=case != "scan",
                        learner_dtype=torch.bfloat16 if bf16 else None)
-    counters = {
-        "scan": {}, "scan-k2": {"ppo_update": pu.launch_ppo_update},
-        "scan-k2-bf16": {"ppo_update_bf16": pu.launch_ppo_update_bf16,
-                         "ppo_update_bf16_mma": pu.launch_ppo_update_bf16_mma},
+    kernels = {
+        "scan": {}, "scan-k2": {"ppo_update": "launch.ppo_update"},
+        "scan-k2-bf16": {"ppo_update_bf16": "launch.ppo_update_bf16",
+                         "ppo_update_bf16_mma": "launch.ppo_update_bf16_mma"},
     }[case]
     init_fn, step = make_ppo(cc, args.envs, cfg, device=device, mesh=mesh)
-    return init_fn, step, cfg.rollout_steps, counters, True
+    return init_fn, step, cfg.rollout_steps, kernels, True
 
 
 def _median_ms(fn, mesh, sync, reps: int) -> float:
@@ -211,20 +208,20 @@ def _case(case: str, args, mesh, work: str) -> dict:
     from ..models.policy import gather_params, shard_params, trunk_leaves
     from ..parallel.mesh import barrier, replicated
     from ..utils.checkpoint import restore_checkpoint, save_checkpoint
+    from ..utils.profiling import counters, reset_counters
 
     def sync():
         if mesh.device.type == "cuda":
             torch.cuda.synchronize(mesh.device)
         barrier(mesh)
 
-    init_fn, step, steps, counters, sharded = _trainer(case, args, mesh,
-                                                       mesh.device)
+    init_fn, step, steps, kernels, sharded = _trainer(case, args, mesh,
+                                                      mesh.device)
 
     def whole(params):
         return gather_params(params, mesh) if sharded else params
 
-    for fn in counters.values():
-        fn.launches = 0
+    reset_counters()
     state = init_fn(args.seed)
     checks = {}
     if case == "beergame":
@@ -240,8 +237,9 @@ def _case(case: str, args, mesh, work: str) -> dict:
     dt = time.perf_counter() - t0
     per_iter = {k: (mesh.stats[k] - stats0[k]) / args.iters
                 for k in ("data", "model")}
-    launches = torch.tensor([fn.launches for fn in counters.values()] or [0],
-                            dtype=torch.int64, device=mesh.device)
+    counted = counters()
+    launches = torch.tensor([counted.get(k, 0) for k in kernels.values()]
+                            or [0], dtype=torch.int64, device=mesh.device)
     fewest = launches.clone()
     if mesh.world > 1:
         dist.all_reduce(launches, group=mesh.group)
@@ -281,7 +279,7 @@ def _case(case: str, args, mesh, work: str) -> dict:
         checks["to_one_bit_exact"] = ok
     checks = dict(zip(checks, _all_true(mesh, checks.values())))
     global_steps = args.envs * steps * args.iters
-    names = list(counters)
+    names = list(kernels)
     return dict(
         first=first, iter_ms=dt / args.iters * 1e3,
         train_env_steps_per_s=global_steps / dt,

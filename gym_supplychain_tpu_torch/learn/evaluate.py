@@ -36,6 +36,7 @@ import torch
 from ..core.compile import CompiledChain
 from ..envs.vector import _as_key, beergame_table_config, make_vec_env
 from ..models.policy import actor_critic_forward, discrete_forward
+from ..utils.profiling import span
 
 __all__ = ["make_evaluator", "make_fused_evaluator",
            "make_beergame_evaluator", "main"]
@@ -100,13 +101,14 @@ def make_fused_evaluator(cc: CompiledChain, batch_size: int,
 
     @torch.no_grad()
     def evaluate(params, key, episodes: int = 1):
-        seed, n = _as_key(key)
-        per_env = []
-        for e in range(episodes):
-            demands, leadtimes = draw_tables((seed, n + e))
-            lt = [leadtimes] if cc.stochastic_leadtimes else []
-            per_env.append(run_policy(demands, *lt, params).sum(dim=0))
-        return _stats(torch.stack(per_env))
+        with span("evaluate"):
+            seed, n = _as_key(key)
+            per_env = []
+            for e in range(episodes):
+                demands, leadtimes = draw_tables((seed, n + e))
+                lt = [leadtimes] if cc.stochastic_leadtimes else []
+                per_env.append(run_policy(demands, *lt, params).sum(dim=0))
+            return _stats(torch.stack(per_env))
 
     return evaluate
 

@@ -73,6 +73,7 @@ from ..ops.supplychain_collect import (make_supplychain_collect,
                                        supplychain_collect_plain)
 from ..parallel.mesh import (Mesh, all_reduce_mean_, data_parallel,
                              lane_range, model_all_reduce_, tensor_parallel)
+from ..utils.profiling import span
 
 __all__ = ["PPOConfig", "TrainState", "FusedTrainState", "Trajectory",
            "make_ppo", "make_ppo_fused", "make_beergame_ppo",
@@ -163,18 +164,20 @@ def _make_gae(cfg: PPOConfig):
     """Generalized advantage estimation over a [S, B] trajectory, a reverse
     loop over S (``done`` is one flag per step: lockstep batches)."""
     def gae(traj: Trajectory, last_value):
-        S = traj.reward.shape[0]
-        nonterm = torch.where(traj.done, 0.0, 1.0).to(traj.reward.dtype)
-        adv = torch.empty_like(traj.reward)
-        g = torch.zeros_like(last_value)
-        next_value = last_value
-        for s in reversed(range(S)):
-            nt = nonterm[s]
-            delta = traj.reward[s] + cfg.gamma * next_value * nt - traj.value[s]
-            g = delta + cfg.gamma * cfg.lam * nt * g
-            adv[s] = g
-            next_value = traj.value[s]
-        return adv, adv + traj.value
+        with span("ppo.gae"):
+            S = traj.reward.shape[0]
+            nonterm = torch.where(traj.done, 0.0, 1.0).to(traj.reward.dtype)
+            adv = torch.empty_like(traj.reward)
+            g = torch.zeros_like(last_value)
+            next_value = last_value
+            for s in reversed(range(S)):
+                nt = nonterm[s]
+                delta = (traj.reward[s] + cfg.gamma * next_value * nt
+                         - traj.value[s])
+                g = delta + cfg.gamma * cfg.lam * nt * g
+                adv[s] = g
+                next_value = traj.value[s]
+            return adv, adv + traj.value
 
     return gae
 
@@ -217,12 +220,13 @@ def _normalized(adv, mesh: Optional[Mesh] = None):
     Under a data axis the batch is every rank's: the global mean from one
     all-reduced sum, then the std from the all-reduced sum of squared
     deviations (two passes, not E[x^2] - E[x]^2)."""
-    if not data_parallel(mesh):
-        return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
-    mean = all_reduce_mean_(mesh, adv.mean().reshape(1))
-    dev = adv - mean
-    var = all_reduce_mean_(mesh, (dev * dev).mean().reshape(1))
-    return dev / (torch.sqrt(var) + 1e-8)
+    with span("ppo.normalize"):
+        if not data_parallel(mesh):
+            return (adv - adv.mean()) / (adv.std(correction=0) + 1e-8)
+        mean = all_reduce_mean_(mesh, adv.mean().reshape(1))
+        dev = adv - mean
+        var = all_reduce_mean_(mesh, (dev * dev).mean().reshape(1))
+        return dev / (torch.sqrt(var) + 1e-8)
 
 
 def _flatten_traj(traj: Trajectory, adv, ret, mesh: Optional[Mesh] = None):
@@ -280,46 +284,54 @@ def _make_update(cfg: PPOConfig, loss_fn, dims=None,
     grads_fns = {}
 
     def update(params, opt, data, generator=None):
-        Bb = data[0].shape[-1]
-        mb = int(cfg.minibatches)
-        if Bb % mb != 0:
-            raise ValueError(f"minibatches {mb} must divide env batch {Bb}")
-        bs = Bb // mb
-        sz = data[0].shape[-2] * bs
-        if cfg.fused_update and sz not in grads_fns:
-            grads_fns[sz] = make_ppo_update_grads(
-                dims[0], dims[1], cfg.hidden, sz, clip=cfg.clip,
-                vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef,
-                pre_tanh_reg=cfg.pre_tanh_reg,
-                compute_dtype=cfg.learner_dtype)
-        if generator is None or mb == 1:
-            order = list(range(mb)) * cfg.epochs
-        else:
-            order = [i for _ in range(cfg.epochs)
-                     for i in torch.randperm(mb, generator=generator,
-                                             device=generator.device).tolist()]
-        leaves = params.flat()
-        shards = trunk_leaves(params) if sharded_params else []
-        split = {id(p) for p in shards}
-        whole = [p for p in leaves if id(p) not in split]
-        losses = []
-        for i in order:
-            chunk = data if mb == 1 else tuple(
-                d[..., i * bs:(i + 1) * bs] for d in data)
-            flat = tuple(_flat2(d) for d in chunk)
-            if cfg.fused_update:
-                net = gather_flat(params, mesh) if sharded_params else params
-                loss = fused_ppo_loss(grads_fns[sz], net, flat)
+        with span("ppo.update"):
+            Bb = data[0].shape[-1]
+            mb = int(cfg.minibatches)
+            if Bb % mb != 0:
+                raise ValueError(f"minibatches {mb} must divide env batch "
+                                 f"{Bb}")
+            bs = Bb // mb
+            sz = data[0].shape[-2] * bs
+            if cfg.fused_update and sz not in grads_fns:
+                grads_fns[sz] = make_ppo_update_grads(
+                    dims[0], dims[1], cfg.hidden, sz, clip=cfg.clip,
+                    vf_coef=cfg.vf_coef, ent_coef=cfg.ent_coef,
+                    pre_tanh_reg=cfg.pre_tanh_reg,
+                    compute_dtype=cfg.learner_dtype)
+            if generator is None or mb == 1:
+                order = list(range(mb)) * cfg.epochs
             else:
-                loss, _ = loss_fn(params, *flat)
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            if data_parallel(mesh):
-                loss = _mean_grads_(mesh, leaves, loss)
-            clip_by_global_norm_(whole, cfg.max_grad_norm, mesh, shards)
-            opt.step()
-            losses.append(loss.detach())
-        return torch.stack(losses)
+                order = [i for _ in range(cfg.epochs)
+                         for i in torch.randperm(
+                             mb, generator=generator,
+                             device=generator.device).tolist()]
+            leaves = params.flat()
+            shards = trunk_leaves(params) if sharded_params else []
+            split = {id(p) for p in shards}
+            whole = [p for p in leaves if id(p) not in split]
+            losses = []
+            for i in order:
+                chunk = data if mb == 1 else tuple(
+                    d[..., i * bs:(i + 1) * bs] for d in data)
+                flat = tuple(_flat2(d) for d in chunk)
+                with span("ppo.grads"):
+                    if cfg.fused_update:
+                        net = (gather_flat(params, mesh) if sharded_params
+                               else params)
+                        loss = fused_ppo_loss(grads_fns[sz], net, flat)
+                    else:
+                        loss, _ = loss_fn(params, *flat)
+                    opt.zero_grad(set_to_none=True)
+                    loss.backward()
+                    if data_parallel(mesh):
+                        loss = _mean_grads_(mesh, leaves, loss)
+                with span("ppo.clip"):
+                    clip_by_global_norm_(whole, cfg.max_grad_norm, mesh,
+                                         shards)
+                with span("ppo.adam"):
+                    opt.step()
+                losses.append(loss.detach())
+            return torch.stack(losses)
 
     return update
 
@@ -505,22 +517,25 @@ def make_ppo_fused(cc: CompiledChain, batch_size: int,
     @torch.no_grad()
     def _collect(params, seed: int):
         """-> (obs [O, S*B], act_pre [A, S*B], logp, value, reward [S, B])."""
-        if noise == "prng":
-            return run(params, seed)
-        dem, lt, eps = philox_tables(cc, seed, range(S), B, device,
-                                     policy=True, lane0=lo)
-        return run(params, demands=dem, leadtimes=lt, eps=eps)
+        with span("ppo.collect"):
+            if noise == "prng":
+                return run(params, seed)
+            dem, lt, eps = philox_tables(cc, seed, range(S), B, device,
+                                         policy=True, lane0=lo)
+            return run(params, demands=dem, leadtimes=lt, eps=eps)
 
     @torch.no_grad()
     def _prepare(obs, pre, logp, value, rew):
         """Collected rows -> (trajectory, update data)."""
-        traj = Trajectory(obs=obs, act_pre=pre, logp=logp,
-                          reward=rew * reward_scale, value=value, done=done)
-        adv, ret = _gae(traj, torch.zeros_like(value[-1]))
-        # free views of the [X, S*B] layout as [X, S, B]
-        data = (obs.view(O, S, B), pre.view(A, S, B), logp,
-                _normalized(adv, mesh), ret)
-        return traj, data
+        with span("ppo.prepare"):
+            traj = Trajectory(obs=obs, act_pre=pre, logp=logp,
+                              reward=rew * reward_scale, value=value,
+                              done=done)
+            adv, ret = _gae(traj, torch.zeros_like(value[-1]))
+            # free views of the [X, S*B] layout as [X, S, B]
+            data = (obs.view(O, S, B), pre.view(A, S, B), logp,
+                    _normalized(adv, mesh), ret)
+            return traj, data
 
     def train_step(state: FusedTrainState):
         traj, data = _prepare(*_collect(state.params, _draw_seed(state.gen)))

@@ -20,7 +20,9 @@ chains' and stop with an error there, as in the JAX CLI).  One JSON line
 of metrics every ``--log-every`` iterations.  ``--checkpoint-dir`` writes the train state
 after the last iteration (``step_<iters>.pt``); ``--restore`` loads one
 before the first (``utils/checkpoint.py``).  ``--trace-dir`` traces the
-training loop (``utils/profiling.py::trace``: a Chrome trace a rank).
+training loop (``utils/profiling.py::trace``: a Chrome trace a rank that
+carries the program's spans, ``gsc.ppo.collect``, ``gsc.ppo.gae``,
+``gsc.ops.ppo_update`` and the rest, beside the device's operations).
 
 ``--multihost`` trains over the processes of a group on a ``data x
 model`` mesh (``parallel/mesh.py``): launch one process a rank with
@@ -170,7 +172,8 @@ def main(argv=None):
     p.add_argument("--restore", default=None)
     p.add_argument("--trace-dir", default=None,
                    help="write a Chrome trace of the training loop a rank "
-                        "(torch.profiler) under this directory")
+                        "(torch.profiler, with the program's gsc.* spans) "
+                        "under this directory")
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--device", default="cuda",
                    help="cuda (default; an error where there is no card) or "

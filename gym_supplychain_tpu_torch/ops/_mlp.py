@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..models.policy import split_params
+from ..utils.profiling import count, span
 
 MAX_LAYERS = 4          # hidden layers the kernels take
 SMEM_MAX = 232448       # shared memory a block may use on the H100
@@ -83,31 +84,34 @@ class MlpLayout:
     def pack(self, flat) -> torch.Tensor:
         """Flat parameters (``_flat_actor_critic`` order) -> the packed
         float32 buffer, on the parameters' device."""
-        flat = [p.detach().to(torch.float32) for p in flat]
-        if len(flat) != 4 * self.nL + 5:
-            raise ValueError(f"{len(flat)} tensors for {self.nL} hidden "
-                             "layers")
-        actor, mu, critic, v, _ = split_params(flat)
-        nets = (actor + [mu], critic + [v])
-        parts = []
-        for net, rows in enumerate(self.layers):
-            for l, (K, J, Jp, *_) in enumerate(rows):
-                w, b = nets[net][l]
-                if tuple(w.shape) != (J, K) or tuple(b.shape) != (J, 1):
-                    raise ValueError(f"layer {l} of net {net}: w "
-                                     f"{tuple(w.shape)}, b {tuple(b.shape)}; "
-                                     f"expected ({J}, {K}), ({J}, 1)")
-                parts.append(torch.nn.functional.pad(w.t(), (0, Jp - J))
-                             .reshape(-1))
-                parts.append(torch.nn.functional.pad(b.reshape(-1),
-                                                     (0, Jp - J)))
-            if net == 0:
-                ls = flat[-1].reshape(-1)
-                parts.append(torch.nn.functional.pad(
-                    ls, (0, _pad8(self.A) - self.A)))
-        out = torch.cat(parts).contiguous()
-        assert out.numel() == self.wsec[0] + self.wsec[1]
-        return out
+        count("ops.pack")
+        with span("ops.pack"):
+            flat = [p.detach().to(torch.float32) for p in flat]
+            if len(flat) != 4 * self.nL + 5:
+                raise ValueError(f"{len(flat)} tensors for {self.nL} hidden "
+                                 "layers")
+            actor, mu, critic, v, _ = split_params(flat)
+            nets = (actor + [mu], critic + [v])
+            parts = []
+            for net, rows in enumerate(self.layers):
+                for l, (K, J, Jp, *_) in enumerate(rows):
+                    w, b = nets[net][l]
+                    if tuple(w.shape) != (J, K) or tuple(b.shape) != (J, 1):
+                        raise ValueError(
+                            f"layer {l} of net {net}: w {tuple(w.shape)}, b "
+                            f"{tuple(b.shape)}; expected ({J}, {K}), "
+                            f"({J}, 1)")
+                    parts.append(torch.nn.functional.pad(
+                        w.t(), (0, Jp - J)).reshape(-1))
+                    parts.append(torch.nn.functional.pad(b.reshape(-1),
+                                                         (0, Jp - J)))
+                if net == 0:
+                    ls = flat[-1].reshape(-1)
+                    parts.append(torch.nn.functional.pad(
+                        ls, (0, _pad8(self.A) - self.A)))
+            out = torch.cat(parts).contiguous()
+            assert out.numel() == self.wsec[0] + self.wsec[1]
+            return out
 
     def unflat_grads(self, row: torch.Tensor, like):
         """The first ``n_params`` floats of a gradient row -> views shaped

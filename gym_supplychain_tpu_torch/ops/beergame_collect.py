@@ -27,6 +27,7 @@ import torch
 
 from ..core.beergame import make_beergame_kernels
 from ..rng.device import philox_words
+from ..utils.profiling import count
 from .supplychain_collect import _check, resolve_device, seed_key
 
 __all__ = ["make_beergame_collect", "launch_beergame_collect",
@@ -219,11 +220,8 @@ def launch_beergame_collect(weeks: int, levels: int, B: int, episodes: int,
         actions.data_ptr() if mode == "actions" else None, k0, k1,
         obs.data_ptr(), rew.data_ptr())
     check(code, "beergame collect")
-    launch_beergame_collect.launches += 1
+    count("launch.beergame_collect")
     return obs, rew
-
-
-launch_beergame_collect.launches = 0
 
 
 def make_beergame_collect(weeks: int, levels: int, B: int, episodes: int = 1,

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from ..core.beergame import make_beergame_kernels
+from ..utils.profiling import count
 from . import beergame_collect as _bgc
 from .supplychain_collect import _check, resolve_device
 
@@ -97,11 +98,8 @@ def launch_beergame_episode(demand, actions, initial_inventory,
         G.bit_length() - 1, E, demand.data_ptr(), actions.data_ptr(),
         initial_inventory.data_ptr(), rew.data_ptr())
     check(code, "beergame episode")
-    launch_beergame_episode.launches += 1
+    count("launch.beergame_episode")
     return rew
-
-
-launch_beergame_episode.launches = 0
 
 
 def beergame_episode(demand, actions, initial_inventory, delay: int = 2,

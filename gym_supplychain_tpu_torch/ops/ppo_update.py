@@ -44,6 +44,7 @@ import torch
 
 from ..models.policy import (LOG_STD_MAX, LOG_STD_MIN, flat_params,
                              split_params)
+from ..utils.profiling import count, span
 from ._mlp import LAYOUT_INTS, SMEM_MAX, MlpLayout
 
 __all__ = ["make_ppo_update_grads", "launch_ppo_update",
@@ -379,11 +380,8 @@ def launch_ppo_update(prep: _Launch, flat, obs, pre, old_logp, adv, ret,
     grads)``, grads as views of one buffer, shaped like ``flat``."""
     out = _launch(prep, flat, obs, pre, old_logp, adv, ret, clip, vf_coef,
                   ent_coef, pre_tanh_reg)
-    launch_ppo_update.launches += 1
+    count("launch.ppo_update")
     return out
-
-
-launch_ppo_update.launches = 0
 
 
 def launch_ppo_update_bf16(prep: _Launch, flat, obs, pre, old_logp, adv, ret,
@@ -393,11 +391,8 @@ def launch_ppo_update_bf16(prep: _Launch, flat, obs, pre, old_logp, adv, ret,
     current stream; as ``launch_ppo_update``."""
     out = _launch(prep, flat, obs, pre, old_logp, adv, ret, clip, vf_coef,
                   ent_coef, pre_tanh_reg)
-    launch_ppo_update_bf16.launches += 1
+    count("launch.ppo_update_bf16")
     return out
-
-
-launch_ppo_update_bf16.launches = 0
 
 
 def launch_ppo_update_bf16_mma(prep: _Launch, flat, obs, pre, old_logp, adv,
@@ -407,11 +402,8 @@ def launch_ppo_update_bf16_mma(prep: _Launch, flat, obs, pre, old_logp, adv,
     takes) on the current stream; as ``launch_ppo_update``."""
     out = _launch(prep, flat, obs, pre, old_logp, adv, ret, clip, vf_coef,
                   ent_coef, pre_tanh_reg)
-    launch_ppo_update_bf16_mma.launches += 1
+    count("launch.ppo_update_bf16_mma")
     return out
-
-
-launch_ppo_update_bf16_mma.launches = 0
 
 
 def make_ppo_update_grads(obs_dim: int, act_dim: int, hidden, M: int,
@@ -443,15 +435,17 @@ def make_ppo_update_grads(obs_dim: int, act_dim: int, hidden, M: int,
     cache = {}
 
     def grads(params, obs, pre, old_logp, adv, ret):
-        if obs.shape[-1] != M:
-            raise ValueError(f"{obs.shape[-1]} samples, built for {M}")
-        if obs.device.type == "cpu":
-            return ppo_update_plain(params, obs, pre, old_logp, adv, ret,
-                                    compute_dtype=compute_dtype, **consts)
-        if obs.device not in cache:        # the library checked once
-            cache[obs.device] = _Launch(layout, M, bf16, obs.device)
-        return launch(cache[obs.device], params, obs, pre, old_logp, adv,
-                      ret, **consts)
+        with span("ops.ppo_update"):
+            if obs.shape[-1] != M:
+                raise ValueError(f"{obs.shape[-1]} samples, built for {M}")
+            if obs.device.type == "cpu":
+                return ppo_update_plain(params, obs, pre, old_logp, adv, ret,
+                                        compute_dtype=compute_dtype,
+                                        **consts)
+            if obs.device not in cache:        # the library checked once
+                cache[obs.device] = _Launch(layout, M, bf16, obs.device)
+            return launch(cache[obs.device], params, obs, pre, old_logp,
+                          adv, ret, **consts)
 
     return grads
 

@@ -68,6 +68,7 @@ from ..models.policy import (LOG_STD_MAX, LOG_STD_MIN, flat_params,
 from ..rng.device import (any_normal_demand, box_muller, demand_constants,
                           demand_from_uniforms, leadtimes_from_uniform,
                           philox_uniform, poisson_clip_thresholds)
+from ..utils.profiling import count, span
 from ._mlp import MlpLayout
 
 __all__ = ["make_supplychain_collect", "launch_supplychain_collect",
@@ -181,14 +182,14 @@ def descriptor_words(cc: CompiledChain, fields) -> np.ndarray:
         **{"dem_" + k: [c[k] for c in dem] for k in dem[0]})
     words = np.zeros(sum(c for _, _, c in fields), np.int32)
     off = 0
-    for name, kind, count in fields:
+    for name, kind, n in fields:
         v = np.ravel(np.asarray(vals[name]))
-        assert v.size <= count, (name, v.size, count)
+        assert v.size <= n, (name, v.size, n)
         if kind == "f":
             words[off:off + v.size] = v.astype(np.float32).view(np.int32)
         else:
             words[off:off + v.size] = v.astype(np.int32)
-        off += count
+        off += n
     return words.view(np.uint8)
 
 
@@ -399,11 +400,8 @@ def launch_supplychain_collect(desc: torch.Tensor, cc: CompiledChain, S: int,
         ptrs = _check_tables(cc, S, B, device, demands, leadtimes, actions,
                              "actions")
     out = launch_lanes(desc, cc, "collect", S, B, mode, seed, ptrs)
-    launch_supplychain_collect.launches += 1
+    count("launch.supplychain_collect")
     return out
-
-
-launch_supplychain_collect.launches = 0
 
 
 def launch_supplychain_policy(desc: torch.Tensor, cc: CompiledChain,
@@ -437,11 +435,8 @@ def launch_supplychain_policy(desc: torch.Tensor, cc: CompiledChain,
         ptrs = _check_tables(cc, S, B, device, demands, leadtimes, eps, "eps")
     out = launch_policy_lanes(desc, cc, layout, layout_dev, weights, mode, S,
                               B, seed, ptrs, sample_major, lane0)
-    launch_supplychain_policy.launches += 1
+    count("launch.supplychain_policy")
     return out
-
-
-launch_supplychain_policy.launches = 0
 
 
 def make_supplychain_collect(cc: CompiledChain, T: int, B: int,
@@ -509,28 +504,30 @@ def make_supplychain_collect(cc: CompiledChain, T: int, B: int,
         return x
 
     def _run(params=None, **kw):
-        if not policy:
+        with span("ops.collect"):
+            if not policy:
+                if desc is not None:
+                    obs, rew, _ = launch_supplychain_collect(
+                        desc, cc, S, B, mode, **kw)
+                else:
+                    obs, rew, _ = supplychain_collect_plain(
+                        cc, episodes, B, mode, device=device, **kw)
+                return obs, rew
+            flat = flat_params(params)
+            for p in flat:
+                if p.device != device:
+                    raise ValueError(f"params on {p.device}, the collector on "
+                                     f"{device}")
             if desc is not None:
-                obs, rew, _ = launch_supplychain_collect(desc, cc, S, B, mode,
-                                                         **kw)
+                out = launch_supplychain_policy(
+                    desc, cc, layout, layout_dev, layout.pack(flat), S, B,
+                    mode, sample_major=sample_major, lane0=lane0, **kw)
             else:
-                obs, rew, _ = supplychain_collect_plain(cc, episodes, B, mode,
-                                                        device=device, **kw)
-            return obs, rew
-        flat = flat_params(params)
-        for p in flat:
-            if p.device != device:
-                raise ValueError(f"params on {p.device}, the collector on "
-                                 f"{device}")
-        if desc is not None:
-            out = launch_supplychain_policy(
-                desc, cc, layout, layout_dev, layout.pack(flat), S, B, mode,
-                sample_major=sample_major, lane0=lane0, **kw)
-        else:
-            out = supplychain_collect_plain(
-                cc, episodes, B, mode, params=flat,
-                sample_major=sample_major, device=device, lane0=lane0, **kw)
-        return out[:5]
+                out = supplychain_collect_plain(
+                    cc, episodes, B, mode, params=flat,
+                    sample_major=sample_major, device=device, lane0=lane0,
+                    **kw)
+            return out[:5]
 
     if mode == "random":
         return lambda seed: _run(seed=seed)

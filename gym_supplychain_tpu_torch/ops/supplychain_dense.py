@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from ..core.compile import CompiledChain
+from ..utils.profiling import count
 from ._mlp import LAYOUT_INTS, SMEM_MAX, MlpLayout
 from .supplychain_collect import (_MAX, _check, _check_tables, _desc_fields,
                                   check_kernel_support, descriptor_words,
@@ -363,11 +364,8 @@ def launch_supplychain_dense(desc: torch.Tensor, cc: CompiledChain, S: int,
         ptrs = _check_tables(cc, S, B, device, demands, leadtimes, actions,
                              "actions")
     out = launch_lanes(desc, cc, "dense", S, B, mode, seed, ptrs)
-    launch_supplychain_dense.launches += 1
+    count("launch.supplychain_dense")
     return out
-
-
-launch_supplychain_dense.launches = 0
 
 
 def make_supplychain_dense_collect(cc: CompiledChain, T: int, B: int,

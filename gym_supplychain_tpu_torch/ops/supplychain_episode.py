@@ -47,6 +47,7 @@ from ..core.compile import CompiledChain
 from ..core.step import make_supplychain_kernels
 from ..models.policy import flat_params, split_params
 from ..rng.device import philox_uniform
+from ..utils.profiling import count, span
 from ._mlp import MlpLayout
 from .supplychain_collect import (_check, _mlp_ordered, resolve_device,
                                   seed_key)
@@ -136,11 +137,8 @@ def launch_supplychain_episode(desc: torch.Tensor, cc: CompiledChain, B: int,
         act_ptr = actions.data_ptr()
     _, rew, stock = launch_lanes(desc, cc, "episode", cc.T, B, mode, seed,
                                  (demands.data_ptr(), lt_ptr, act_ptr))
-    launch_supplychain_episode.launches += 1
+    count("launch.supplychain_episode")
     return rew, stock
-
-
-launch_supplychain_episode.launches = 0
 
 
 def launch_supplychain_greedy(desc: torch.Tensor, cc: CompiledChain,
@@ -156,11 +154,8 @@ def launch_supplychain_greedy(desc: torch.Tensor, cc: CompiledChain,
     lt_ptr = _check_tables(cc, B, device, demands, leadtimes)
     out = launch_policy_lanes(desc, cc, layout, layout_dev, weights, "greedy",
                               cc.T, B, 0, (demands.data_ptr(), lt_ptr, None))
-    launch_supplychain_greedy.launches += 1
+    count("launch.supplychain_greedy")
     return out[4:]
-
-
-launch_supplychain_greedy.launches = 0
 
 
 def _setup(cc: CompiledChain, T: int, device):
@@ -259,19 +254,22 @@ def make_supplychain_policy_rollout(cc: CompiledChain, T: int, B: int,
         if (len(flat) != len(packed[0]) or versions != packed[1]
                 or any(a is not b for a, b in zip(flat, packed[0]))):
             packed[:] = [tuple(flat), versions, layout.pack(flat)]
+        else:
+            count("ops.pack_reused")
         return packed[2]
 
     def run_policy(demands, *rest):
-        dem, lt, params = _tables_of(cc, device, demands, rest)
-        flat = flat_params(params)
-        for p in flat:
-            if p.device != device:
-                raise ValueError(f"params on {p.device}, the runner on "
-                                 f"{device}")
-        if desc is not None:
-            return launch_supplychain_greedy(desc, cc, layout, layout_dev,
-                                             _packed(flat), B, dem, lt)[0]
-        return supplychain_episode_plain(cc, B, "policy", dem, lt,
-                                         params=flat)[0]
+        with span("ops.policy_rollout"):
+            dem, lt, params = _tables_of(cc, device, demands, rest)
+            flat = flat_params(params)
+            for p in flat:
+                if p.device != device:
+                    raise ValueError(f"params on {p.device}, the runner on "
+                                     f"{device}")
+            if desc is not None:
+                return launch_supplychain_greedy(desc, cc, layout, layout_dev,
+                                                 _packed(flat), B, dem, lt)[0]
+            return supplychain_episode_plain(cc, B, "policy", dem, lt,
+                                             params=flat)[0]
 
     return run_policy

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..core.compile import CompiledChain, DemandConfig
+from ..utils.profiling import span
 
 __all__ = ["poisson_clip_thresholds", "philox4x32", "philox_uniform",
            "philox_words", "uniform_from_bits", "box_muller",
@@ -289,15 +290,16 @@ def device_episode_tables(ep_key, cc: CompiledChain, B: int,
     ``ep_key`` step through the same inputs.  ``lane0`` as
     ``philox_words``.
     """
-    K = cc.K if cc.stochastic_leadtimes else 0
-    u = philox_uniform(ep_key, range(cc.T + 1), K + cc.R * cc.P, B, device,
-                       lane0)
-    demands = _demand_rows(u[:, K:], cc, 0, dtype)
-    leadtimes = None
-    if cc.stochastic_leadtimes:
-        leadtimes = leadtimes_from_uniform(
-            u[1:, :K], poisson_clip_thresholds(cc.Lavg - 1, cc.Lmax))
-    return demands, leadtimes
+    with span("rng.episode_tables"):
+        K = cc.K if cc.stochastic_leadtimes else 0
+        u = philox_uniform(ep_key, range(cc.T + 1), K + cc.R * cc.P, B,
+                           device, lane0)
+        demands = _demand_rows(u[:, K:], cc, 0, dtype)
+        leadtimes = None
+        if cc.stochastic_leadtimes:
+            leadtimes = leadtimes_from_uniform(
+                u[1:, :K], poisson_clip_thresholds(cc.Lavg - 1, cc.Lmax))
+        return demands, leadtimes
 
 
 def device_demand_tables(ep_key, cc: CompiledChain, B: int,

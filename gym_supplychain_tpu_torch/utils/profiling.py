@@ -1,30 +1,142 @@
-"""Device traces, a steps/s meter and JSONL metric lines (the counterpart
-of ``gym_supplychain_tpu/utils/profiling.py``).
+"""The port's spans and counters, device traces, a steps/s meter and JSONL
+metric lines (the counterpart of ``gym_supplychain_tpu/utils/profiling.py``).
+
+Spans mark the layer boundaries of the trainers, the evaluator, the table
+draw and the ``ops/*`` wrappers: ``with span("ppo.gae"):``.  One switch,
+``enable(on)``, turns them on; off (the default) ``span`` hands back one
+shared no-op object, so an off span costs a flag test: no
+``record_function``, no clock, no allocation.  On, a span enters
+``torch.profiler.record_function("gsc." + name)``, so it lands in a running
+``torch.profiler`` trace (a ``user_annotation`` event) on the timeline of
+the device operations launched inside it, and keeps a record of its name,
+its parent (the enclosing open span) and its host start and end
+(``time.perf_counter_ns``) in memory, up to ``MAX_SPANS`` records, the
+oldest dropped first (the counter ``spans.dropped`` counts them);
+``take()`` hands the records over and clears them.  No span synchronizes
+the device.
+
+Counters are always on: ``count(name, n)`` adds to one integer registry,
+``counters()`` reads it and ``reset_counters()`` clears it.  The kernels'
+launchers count their launches there (``launch.<kernel>``), and the
+wrappers their weight packs (``ops.pack``, and ``ops.pack_reused`` where
+the greedy runner reuses its last pack).
 
 ``trace(logdir)`` records the CPU and, where there is a card, the CUDA
-activity of its block with ``torch.profiler`` and writes a Chrome trace a
-rank (``trace.rank<r>.json``, viewable in Perfetto or chrome://tracing);
-``kernel_busy_share`` reads one back: the card's busy time as the union of
-its kernels' intervals, over the traced window.
+activity of its block with ``torch.profiler``, with the spans on, and
+writes a Chrome trace a rank (``trace.rank<r>.json``, viewable in Perfetto
+or chrome://tracing); ``kernel_busy_share`` reads one back: the card's busy
+time as the union of its kernels' intervals, over the traced window.
 """
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import os
 import sys
 import time
-from typing import Optional
+from time import perf_counter_ns
+from typing import NamedTuple, Optional
 
-__all__ = ["trace", "kernel_busy_share", "Throughput", "log_metrics"]
+from torch.profiler import record_function
+
+__all__ = ["span", "enable", "enabled", "take", "SpanRecord", "MAX_SPANS",
+           "count", "counters", "reset_counters", "trace",
+           "kernel_busy_share", "Throughput", "log_metrics"]
+
+SPAN_PREFIX = "gsc."
+MAX_SPANS = 1 << 16       # span records kept between two take() calls
+
+
+class SpanRecord(NamedTuple):
+    name: str
+    parent: Optional[str]     # the span open around it, None at the top
+    start_ns: int             # perf_counter_ns() on entry
+    end_ns: int               # and on exit
+
+
+_on = False
+_open = []                    # names of the spans open now, innermost last
+_records = collections.deque()
+_counts = collections.Counter()
+
+
+_OFF = contextlib.nullcontext()    # what ``span`` hands back while off
+
+
+class _Span:
+    __slots__ = ("name", "parent", "rf", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        self.parent = _open[-1] if _open else None
+        _open.append(self.name)
+        self.rf = record_function(SPAN_PREFIX + self.name)
+        self.rf.__enter__()
+        self.t0 = perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        t1 = perf_counter_ns()
+        self.rf.__exit__(*exc)
+        _open.pop()
+        if len(_records) >= MAX_SPANS:
+            _records.popleft()
+            _counts["spans.dropped"] += 1
+        _records.append(SpanRecord(self.name, self.parent, self.t0, t1))
+        return False
+
+
+def span(name: str):
+    """A context manager marking a layer boundary ``name`` (the module
+    docstring); the shared no-op while the spans are off."""
+    return _Span(name) if _on else _OFF
+
+
+def enable(on: bool = True) -> bool:
+    """Turn the spans on or off; returns whether they were on."""
+    global _on
+    was, _on = _on, bool(on)
+    return was
+
+
+def enabled() -> bool:
+    """Whether the spans are on."""
+    return _on
+
+
+def take() -> list:
+    """The span records kept since the last call (``SpanRecord``s in the
+    order the spans closed), clearing them."""
+    out = list(_records)
+    _records.clear()
+    return out
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    _counts[name] += n
+
+
+def counters() -> dict:
+    """Every counter's value, ``{name: int}`` (a copy)."""
+    return dict(_counts)
+
+
+def reset_counters() -> None:
+    """Set every counter back to nothing."""
+    _counts.clear()
 
 
 @contextlib.contextmanager
 def trace(logdir: Optional[str]):
     """Trace the block with ``torch.profiler`` (CPU activity, and CUDA's
-    where a card is available) into ``<logdir>/trace.rank<r>.json``, r the
-    process group's rank (0 outside one).  A no-op for a falsy ``logdir``.
-    Yields the profiler (None when off)."""
+    where a card is available), the spans on, into
+    ``<logdir>/trace.rank<r>.json``, r the process group's rank (0 outside
+    one).  A no-op for a falsy ``logdir``.  Yields the profiler (None when
+    off)."""
     if not logdir:
         yield None
         return
@@ -38,8 +150,12 @@ def trace(logdir: Optional[str]):
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(logdir, exist_ok=True)
-    with profile(activities=acts) as prof:
-        yield prof
+    was = enable(True)
+    try:
+        with profile(activities=acts) as prof:
+            yield prof
+    finally:
+        enable(was)
     prof.export_chrome_trace(os.path.join(logdir, f"trace.rank{rank}.json"))
 
 

@@ -18,6 +18,7 @@ from gym_supplychain_tpu.ops.beergame_pallas import (  # noqa: E402
     beergame_episode_pallas)
 
 from gym_supplychain_tpu_torch.ops import beergame_episode as bge  # noqa: E402
+from gym_supplychain_tpu_torch.utils.profiling import counters  # noqa: E402
 
 
 def _case(name):
@@ -79,6 +80,6 @@ def test_wrapper_checks():
     with pytest.raises(ValueError, match="sweep on cpu"):
         bge.beergame_episode(dem.to("meta"), act, inv, device="cpu")
     # a launch never happens for CPU tensors
-    before = bge.launch_beergame_episode.launches
+    before = counters().get("launch.beergame_episode", 0)
     bge.beergame_episode(dem, act, inv, device="cpu")
-    assert bge.launch_beergame_episode.launches == before
+    assert counters().get("launch.beergame_episode", 0) == before

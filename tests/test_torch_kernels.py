@@ -30,6 +30,12 @@ from gym_supplychain_tpu_torch.ops import supplychain_episode as sce  # noqa: E4
 from gym_supplychain_tpu_torch.ops._mlp import MlpLayout  # noqa: E402
 from gym_supplychain_tpu_torch.ops.supplychain_dense import (  # noqa: E402
     dense_descriptor)
+from gym_supplychain_tpu_torch.utils.profiling import counters  # noqa: E402
+
+
+def launches(kernel: str) -> int:
+    """The launches of ``kernel`` counted so far (``launch.<kernel>``)."""
+    return counters().get("launch." + kernel, 0)
 
 
 def _device():
@@ -61,9 +67,9 @@ def test_supplychain_kernel_matches_plain(env_id, mode):
                                        .astype(np.int32), device=dev)
                        if cc.stochastic_leadtimes else None),
             actions=torch.as_tensor(act, device=dev))
-    before = scc.launch_supplychain_collect.launches
+    before = launches("supplychain_collect")
     k = scc.launch_supplychain_collect(desc, cc, S, B, mode, **kw)
-    assert scc.launch_supplychain_collect.launches == before + 1
+    assert launches("supplychain_collect") == before + 1
     p = scc.supplychain_collect_plain(cc, E, B, mode, device=dev, **kw)
     assert float((k[0] - p[0]).abs().max()) <= 1e-6
     assert float((k[1] - p[1]).abs().max()) <= 1e-5 * float(p[1].abs().max())
@@ -126,16 +132,16 @@ def test_beergame_kernel_matches_plain(case):
 def test_wrappers_launch_the_kernels_for_cuda_devices():
     _device()
     cc = make_chain("supplychain-linear-v0", total_time_steps=6)
-    before = scc.launch_supplychain_collect.launches
+    before = launches("supplychain_collect")
     obs, rew = scc.make_supplychain_collect(cc, 6, 64, mode="random",
                                             episodes=2, device="cuda")(1)
-    assert scc.launch_supplychain_collect.launches == before + 1
+    assert launches("supplychain_collect") == before + 1
     assert obs.is_cuda and obs.shape == (12, cc.obs_dim, 64)
-    before = bgc.launch_beergame_collect.launches
+    before = launches("beergame_collect")
     spec = make_chain("beergame-v0")
     obs, rew = bgc.make_beergame_collect(spec.weeks, spec.levels, 64,
                                          device="cuda")(spec.demand, 1)
-    assert bgc.launch_beergame_collect.launches == before + 1
+    assert launches("beergame_collect") == before + 1
     assert rew.is_cuda and rew.shape == (spec.weeks, 64)
 
 
@@ -191,9 +197,9 @@ def test_supplychain_policy_kernel_matches_plain(env_id, mode, sample_major):
                                          policy=True)
         args = (dem,) + ((lt,) if cc.stochastic_leadtimes else ()) + (eps,
                                                                       model)
-    before = scc.launch_supplychain_policy.launches
+    before = launches("supplychain_policy")
     k = run(*args)
-    assert scc.launch_supplychain_policy.launches == before + 1
+    assert launches("supplychain_policy") == before + 1
     p = scc.supplychain_collect_plain(
         cc, E, B, mode, seed=seed, params=model, sample_major=sample_major,
         device=dev, **({} if mode == "policy" else dict(
@@ -318,10 +324,10 @@ def _check_ppo_update_kernel(O, A, hidden, M, model, data):
     from gym_supplychain_tpu_torch.ops import ppo_update as pu
 
     gf = pu.make_ppo_update_grads(O, A, hidden, M)
-    before = pu.launch_ppo_update.launches
+    before = launches("ppo_update")
     lk, gk = gf(model, *data)
     lk2, gk2 = gf(model, *data)
-    assert pu.launch_ppo_update.launches == before + 2
+    assert launches("ppo_update") == before + 2
     assert torch.equal(lk, lk2) and all(torch.equal(a, b)
                                         for a, b in zip(gk, gk2))
     lp, gp = pu.ppo_update_plain(model, *data)
@@ -386,13 +392,12 @@ def test_ppo_update_bf16_kernel_matches_plain_and_repeats(O, A, hidden, M):
     data = (obs, pre, old, adv, ret)
     gf = pu.make_ppo_update_grads(O, A, hidden, M,
                                   compute_dtype=torch.bfloat16)
-    launcher = {"wgmma": pu.launch_ppo_update_bf16,
-                "mma": pu.launch_ppo_update_bf16_mma}[
-                    pu.ppo_update_bf16_plan(MlpLayout(O, A, hidden))["kernel"]]
-    before = launcher.launches
+    launcher = {"wgmma": "ppo_update_bf16", "mma": "ppo_update_bf16_mma"}[
+        pu.ppo_update_bf16_plan(MlpLayout(O, A, hidden))["kernel"]]
+    before = launches(launcher)
     lk, gk = gf(model, *data)
     lk2, gk2 = gf(model, *data)
-    assert launcher.launches == before + 2
+    assert launches(launcher) == before + 2
     assert torch.equal(lk, lk2) and all(torch.equal(a, b)
                                         for a, b in zip(gk, gk2))
     lp, gp = pu.ppo_update_plain(model, *data, compute_dtype=torch.bfloat16)
@@ -477,36 +482,34 @@ def test_policy_kernel_lane0_slices_equal_the_whole(env_id):
 @pytest.mark.cuda
 def test_bf16_trainer_launches_the_bf16_update_kernel():
     from gym_supplychain_tpu_torch.learn.ppo import PPOConfig, make_ppo_fused
-    from gym_supplychain_tpu_torch.ops import ppo_update as pu
 
     _device()
     cc = make_chain("supplychain-ntom-v0", total_time_steps=10)
     init_fn, train_step = make_ppo_fused(
         cc, 64, PPOConfig(hidden=(16, 16), epochs=2, fused_update=True,
                           learner_dtype=torch.bfloat16), device="cuda")
-    k2 = pu.launch_ppo_update.launches
-    k2b = pu.launch_ppo_update_bf16.launches
+    k2 = launches("ppo_update")
+    k2b = launches("ppo_update_bf16")
     state, metrics = train_step(init_fn(0))
-    assert pu.launch_ppo_update_bf16.launches == k2b + 2
-    assert pu.launch_ppo_update.launches == k2
+    assert launches("ppo_update_bf16") == k2b + 2
+    assert launches("ppo_update") == k2
     assert bool(torch.isfinite(metrics["loss"]))
 
 
 @pytest.mark.cuda
 def test_fused_trainer_launches_both_kernels():
     from gym_supplychain_tpu_torch.learn.ppo import PPOConfig, make_ppo_fused
-    from gym_supplychain_tpu_torch.ops import ppo_update as pu
 
     _device()
     cc = make_chain("supplychain-ntom-v0", total_time_steps=10)
     init_fn, train_step = make_ppo_fused(
         cc, 64, PPOConfig(hidden=(16, 16), epochs=2, fused_update=True),
         device="cuda")
-    k1 = scc.launch_supplychain_policy.launches
-    k2 = pu.launch_ppo_update.launches
+    k1 = launches("supplychain_policy")
+    k2 = launches("ppo_update")
     state, metrics = train_step(init_fn(0))
-    assert scc.launch_supplychain_policy.launches == k1 + 1
-    assert pu.launch_ppo_update.launches == k2 + 2
+    assert launches("supplychain_policy") == k1 + 1
+    assert launches("ppo_update") == k2 + 2
     assert bool(torch.isfinite(metrics["loss"]))
 
 
@@ -538,14 +541,14 @@ def test_supplychain_episode_kernel_matches_plain(env_id, mode):
     if mode == "policy":
         run = sce.make_supplychain_policy_rollout(cc, T, B, hidden=hidden,
                                                   device="cuda")
-        launcher = sce.launch_supplychain_greedy
+        launcher = "supplychain_greedy"
     else:
         run = sce.make_supplychain_episode(cc, T, B, device="cuda")[
             mode == "actions"]
-        launcher = sce.launch_supplychain_episode
-    before = launcher.launches
+        launcher = "supplychain_episode"
+    before = launches(launcher)
     rew = run(*tables, *kw.values())
-    assert launcher.launches == before + 1 and rew.device == dem.device
+    assert launches(launcher) == before + 1 and rew.device == dem.device
     if mode == "policy":
         desc = torch.as_tensor(dense_descriptor(cc), device=dev)
         lay = MlpLayout(cc.obs_dim, cc.A, hidden)
@@ -791,12 +794,12 @@ def test_supplychain_dense_kernel_matches_plain(chain, mode):
     assert torch.equal(k[2], p[2])
     run = scd.make_supplychain_dense_collect(cc, T, B, mode=mode, episodes=E,
                                              device="cuda")
-    before = scd.launch_supplychain_dense.launches
+    before = launches("supplychain_dense")
     args = ((5,) if mode == "random" else
             tuple(x for x in (kw["demands"], kw["leadtimes"], kw["actions"])
                   if x is not None))
     obs, rew = run(*args)
-    assert scd.launch_supplychain_dense.launches == before + 1
+    assert launches("supplychain_dense") == before + 1
     assert torch.equal(obs, k[0]) and torch.equal(rew, k[1])
 
 
@@ -854,9 +857,9 @@ def test_beergame_episode_kernel_matches_plain(delay, init_delay, L, B):
             put(rs.randint(0, 25, size=(L, B)).astype(np.int32)))
     kw = dict(delay=delay, init_delay=init_delay, init_ship=5, inv_cost=2,
               backlog_cost=3)
-    before = bge.launch_beergame_episode.launches
+    before = launches("beergame_episode")
     k = bge.beergame_episode(*args, device="cuda", **kw)
-    assert bge.launch_beergame_episode.launches == before + 1
+    assert launches("beergame_episode") == before + 1
     p = bge.beergame_episode_plain(*args, **kw)
     assert k.device == args[0].device and torch.equal(k, p)
 

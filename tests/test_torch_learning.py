@@ -294,28 +294,28 @@ def test_fused_engine_beats_tuned_base_stock(learner):
     iterations, the same net and lr): the greedy rollout kernel and the
     scan evaluator agree within 1e-5 and the policy beats the tuned base
     stock (the scan trainer's 5% is printed beside its margin, not held)."""
-    from gym_supplychain_tpu_torch.ops import ppo_update as pu
-    from gym_supplychain_tpu_torch.ops import supplychain_episode as sce
+    from gym_supplychain_tpu_torch.utils.profiling import (counters,
+                                                           reset_counters)
 
-    counters = (scc.launch_supplychain_policy, pu.launch_ppo_update,
-                pu.launch_ppo_update_bf16, pu.launch_ppo_update_bf16_mma,
-                sce.launch_supplychain_greedy)
-    for fn in counters:
-        fn.launches = 0
+    reset_counters()
     report = _card_bar("sc2perstage", "--engine", "fused",
                        *(["--learner-dtype", "bf16"] if learner == "bf16"
                          else []))
-    launches = {fn.__name__: fn.launches for fn in counters}
+    counted = counters()
+    launches = {k: counted.get("launch." + k, 0)
+                for k in ("supplychain_policy", "ppo_update",
+                          "ppo_update_bf16", "ppo_update_bf16_mma",
+                          "supplychain_greedy")}
     run = report["ppo"]
     print(f"  against the scan bar's 5% over z = 2.0: "
           f"{bars.margin(report, 2.0):.2%}; greedy rollout kernel "
           f"{run['kernel_greedy_mean_return']:.1f}; launches {launches}")
     assert run["kernel_vs_scan_relative"] <= EVAL_RTOL
-    update = (launches["launch_ppo_update"] if learner == "float32"
-              else launches["launch_ppo_update_bf16"]
-              + launches["launch_ppo_update_bf16_mma"])
-    assert launches["launch_supplychain_policy"] == 220 and update == 4 * 220
-    assert launches["launch_supplychain_greedy"] == 1
+    update = (launches["ppo_update"] if learner == "float32"
+              else launches["ppo_update_bf16"]
+              + launches["ppo_update_bf16_mma"])
+    assert launches["supplychain_policy"] == 220 and update == 4 * 220
+    assert launches["supplychain_greedy"] == 1
     assert bars.margin(report) > 0, report
 
 
