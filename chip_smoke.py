@@ -68,8 +68,11 @@ Phases, in order; any failure exits nonzero:
      inputs, so their mean returns agree within 1e-5), ``best_base_stock``
      runs at the same size; both evaluators are timed (the kernel
      evaluator packs its weights once and reuses the pack), and the kernel
-     evaluator's table draw alone; the device operations launched under
-     the draw's span (``rng.episode_tables``) in traced calls
+     evaluator's table draw alone, the draw kernel beside the plain draw;
+     the draw kernel's tables must equal the plain draw's bit for bit at
+     B = 4096, T = 360 and launch once an evaluator call, and the draw's
+     span (``rng.episode_tables``) must hold one device operation in each
+     traced call
   11. the dense collect kernel (K5) at B = 4096, T = 360 on the configs of
      ``gym_supplychain_tpu_torch.benchmarks.large_topologies``: ``actions``
      on random tables against plain over 2 episodes (all three), ``random``
@@ -1190,7 +1193,8 @@ def phase_eval(seed):
     import torch
     import gym_supplychain_tpu_torch as sct
     from gym_supplychain_tpu_torch.learn import evaluate, heuristics, train
-    from gym_supplychain_tpu_torch.rng.device import device_episode_tables
+    from gym_supplychain_tpu_torch.rng.device import (device_episode_tables,
+                                                       episode_tables_plain)
     import tempfile
     from gym_supplychain_tpu_torch.utils.checkpoint import restore_checkpoint
     from gym_supplychain_tpu_torch.utils.profiling import (counters,
@@ -1257,32 +1261,59 @@ def phase_eval(seed):
     reset_counters()
     k_ms, _ = _timed(lambda: fused(params, seed, 1), REPS)
     packs = counters()
+    # the draw kernel against its plain version on one key, bit for bit
+    key = (seed, 0)
+    dem, lt = device_episode_tables(key, cc, B, device="cuda")
+    dem_p, lt_p = episode_tables_plain(key, cc, B, device="cuda")
+    draw_err = max((dem - dem_p).abs().max().item(),
+                   (lt - lt_p).abs().max().item())
+    draw_equal = torch.equal(dem, dem_p) and torch.equal(lt, lt_p)
+    print(f"  the draw kernel's tables at B={B}, T={cc.T} against the plain "
+          f"draw's on the same key: equal {draw_equal}, max abs err "
+          f"{draw_err:g}; launch.episode_tables over the kernel evaluator's "
+          f"{REPS + 1} calls {packs.get('launch.episode_tables', 0)}")
+    if not (draw_equal and packs.get("launch.episode_tables") == REPS + 1):
+        raise RuntimeError("evaluation: the draw kernel differs from the "
+                           "plain draw or is not one launch a call")
+    # demands [T+1,R,P,B] float32 and lead-times [T,K,B] int32 written
+    draw_bytes = 4 * (dem.numel() + lt.numel())
+    del dem, lt, dem_p, lt_p
     s_ms, _ = _timed(lambda: scan(params, seed, 1), PLAIN_REPS)
     t_ms, _ = _timed(lambda: device_episode_tables((seed, 0), cc, B,
+                                                   device="cuda"), REPS)
+    tp_ms, _ = _timed(lambda: episode_tables_plain((seed, 0), cc, B,
                                                    device="cuda"), REPS)
     for name, ms, reps in (("kernel", k_ms, REPS), ("scan", s_ms, PLAIN_REPS)):
         print(f"  {name} evaluator: {ms:.3f} ms per episode (tables "
               f"included; median of {reps}) = {cc.T * B / ms * 1e3:.4e} "
               f"env-steps/s")
-    print(f"  its table draw alone (device_episode_tables): {t_ms:.3f} ms "
-          f"an episode (median of {REPS})")
+    print(f"  its table draw alone (device_episode_tables, the kernel): "
+          f"{t_ms:.3f} ms an episode; the plain draw (episode_tables_plain) "
+          f"on the card {tp_ms:.3f} ms (medians of {REPS})")
+    # the profiler can drop a traced stretch's first operations, so the
+    # first of the three traced calls is not held to the count
     with tempfile.TemporaryDirectory() as tmp:
         with trace(tmp):
-            fused(params, seed, 1)
-            fused(params, seed, 1)
+            for _ in range(3):
+                fused(params, seed, 1)
         draw = _span_launches(os.path.join(tmp, "trace.rank0.json"),
                               "rng.episode_tables")
     print(f"  kernel evaluator's weight packs over {REPS + 1} calls: "
           f"ops.pack {packs.get('ops.pack', 0)}, ops.pack_reused "
           f"{packs.get('ops.pack_reused', 0)}; device operations under "
-          f"rng.episode_tables in 2 traced calls {draw}")
+          f"rng.episode_tables in 3 traced calls {draw} (the draw kernel: "
+          f"1 a call)")
     if not (packs.get("ops.pack") == 1 and packs.get("ops.pack_reused")
-            == REPS and len(draw) == 2 and min(draw) > 0):
+            == REPS and len(draw) == 3 and draw[0] <= 1
+            and draw[1:] == [1, 1]):
         raise RuntimeError("evaluation: the weight pack is not reused or the "
-                           "draw's span launched nothing")
+                           "draw is not one operation a call")
     shutil.rmtree(work, ignore_errors=True)
     return dict(launches=launches, kernel_ms=k_ms, scan_ms=s_ms,
-                tables_ms=t_ms, grid_s=grid_s, draw_launches=draw[-1])
+                tables_ms=t_ms, tables_plain_ms=tp_ms, grid_s=grid_s,
+                draw_launches=draw[-1],
+                draw_kernel=dict(launches=packs["launch.episode_tables"],
+                                 err=draw_err, bound=_bound(draw_bytes, 0)))
 
 
 def phase_dense(B, seed):
@@ -2725,6 +2756,12 @@ def _kernel_lines(res, tr, upd, ep, ev, dn, bge, dm, bf, hs, mh, tp, ln,
              f"{sc_pallas}:736",
              ev["launches"] if mode == "policy" else r["launches"],
              max(ep_errs), r["ms"], r["plain_ms"], r["bound"])
+    # phase 10: the evaluator's table draw, a kernel of the port alone
+    r = ev["draw_kernel"]
+    line("episode_tables[supplychain-ntom-v0]", "episode_tables.cu",
+         "none: port-only, the JAX package draws its tables with jax.random",
+         r["launches"], r["err"], ev["tables_ms"], ev["tables_plain_ms"],
+         r["bound"])
     for name, r in dn.items():
         line(f"supplychain_dense_collect[{name}]", "supplychain_dense.cu",
              "gym_supplychain_tpu/ops/supplychain_pallas_dense.py:470",

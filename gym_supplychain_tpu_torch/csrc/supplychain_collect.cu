@@ -33,5 +33,6 @@ extern "C" const char* gst_error_string(int code) {
   if (code == -5) return "shared memory too small for the block's envs";
   if (code == -6) return "no lane-kernel instance for these lanes, envs and slots";
   if (code == -7) return "no bf16 update-kernel instance for these widths";
+  if (code == -8) return "episode-table shapes out of range or descriptor too short";
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -12,7 +12,10 @@
 * ``supplychain_dense``: trajectory collection for large chains (replaces
   ``make_supplychain_dense_collect_pallas``);
 * ``beergame_episode``: one rewards-only beer-game episode (replaces
-  ``beergame_episode_pallas``).
+  ``beergame_episode_pallas``);
+* ``episode_tables``: one episode's demand and lead-time tables from
+  Philox in one launch (``rng/device.py``'s eager draw is its plain
+  version; replaces no TPU kernel).
 
 The CUDA sources build with nvcc at first use (``_build``), never at import.
 """

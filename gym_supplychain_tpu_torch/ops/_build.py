@@ -55,6 +55,9 @@ _SIGNATURES = {
                                _F, _F, _F, _F, _F, _P, _P, _I, _P, _I, _I,
                                _I, _I, _I],
     "ppo_bf16_smem_bytes": [_I, _I, _I, _I],
+    # the episode-table draw: descriptor, its words, T, B, R, P, K, lane0,
+    # the key, float64, the tables, the stream
+    "episode_tables_launch": [_P] + [_I] * 6 + [_U, _U, _U, _I, _P, _P, _P],
     "dn_chain_bytes": [],
     "dn_edges_bytes": [],
     "mlp_layout_ints": [],

@@ -25,8 +25,9 @@ __all__ = ["poisson_clip_thresholds", "philox4x32", "philox_uniform",
            "demand_from_uniform", "DEMAND_KINDS", "demand_constants",
            "any_normal_demand", "demand_from_uniforms",
            "leadtimes_from_uniform",
-           "stateless_step_rows", "device_demand_tables",
-           "device_leadtime_tables", "device_episode_tables"]
+           "stateless_step_rows", "seasonal_base", "device_demand_tables",
+           "device_leadtime_tables", "device_episode_tables",
+           "episode_tables_plain"]
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57        # Philox4x32 multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85        # Weyl key increments
@@ -147,11 +148,17 @@ def demand_from_uniform(u: torch.Tensor, cfg: DemandConfig, t, T: int,
     else:
         lo, hi = int(-3 * std), int(3 * std)
         perturb = torch.floor(u * (hi - lo + 1)) + lo
+    return torch.round(torch.clamp(seasonal_base(cfg, t, T) + perturb,
+                                   cfg.minv, cfg.maxv)).to(dtype)
+
+
+def seasonal_base(cfg: DemandConfig, t, T: int) -> float:
+    """A seasonal process's base at period ``t`` of ``T``, in double:
+    ``minavg + half * (1 + sin(sen_peaks * 2 pi * t / T))``, ``half`` being
+    ``(maxavg - minavg) / 2``."""
     half = (cfg.maxavg - cfg.minavg) / 2
-    base = cfg.minavg + half * (1 + math.sin(cfg.sen_peaks * 2 * math.pi
+    return cfg.minavg + half * (1 + math.sin(cfg.sen_peaks * 2 * math.pi
                                              * t / T))
-    return torch.round(torch.clamp(base + perturb, cfg.minv,
-                                   cfg.maxv)).to(dtype)
 
 
 # the kernels' demand processes (DEM_* of csrc/supplychain_step.cuh)
@@ -278,6 +285,21 @@ def _demand_rows(u: torch.Tensor, cc: CompiledChain, t0: int, dtype):
     return torch.stack(cols, dim=2)
 
 
+def episode_tables_plain(ep_key, cc: CompiledChain, B: int,
+                         dtype=torch.float32, device="cuda", lane0: int = 0):
+    """Plain version of ``device_episode_tables``: the Philox words of every
+    period on tensors, then the lead-time and demand processes."""
+    K = cc.K if cc.stochastic_leadtimes else 0
+    u = philox_uniform(ep_key, range(cc.T + 1), K + cc.R * cc.P, B, device,
+                       lane0)
+    demands = _demand_rows(u[:, K:], cc, 0, dtype)
+    leadtimes = None
+    if cc.stochastic_leadtimes:
+        leadtimes = leadtimes_from_uniform(
+            u[1:, :K], poisson_clip_thresholds(cc.Lavg - 1, cc.Lmax))
+    return demands, leadtimes
+
+
 def device_episode_tables(ep_key, cc: CompiledChain, B: int,
                           dtype=torch.float32, device="cuda", lane0: int = 0):
     """One episode's tables from one Philox draw per period:
@@ -288,17 +310,25 @@ def device_episode_tables(ep_key, cc: CompiledChain, B: int,
     ``t`` of an episode ships with the lead-times drawn at period ``t``), so
     the table engine fed these tables and the stateless engine keyed
     ``ep_key`` step through the same inputs.  ``lane0`` as
-    ``philox_words``.
+    ``philox_words``.  On a CUDA device one kernel writes the tables
+    (``ops/episode_tables.py``); elsewhere ``episode_tables_plain`` draws
+    them, with the same bits.
     """
     with span("rng.episode_tables"):
-        K = cc.K if cc.stochastic_leadtimes else 0
-        u = philox_uniform(ep_key, range(cc.T + 1), K + cc.R * cc.P, B,
-                           device, lane0)
-        demands = _demand_rows(u[:, K:], cc, 0, dtype)
-        leadtimes = None
-        if cc.stochastic_leadtimes:
-            leadtimes = leadtimes_from_uniform(
-                u[1:, :K], poisson_clip_thresholds(cc.Lavg - 1, cc.Lmax))
+        device = torch.device(device)
+        if device.type != "cuda":
+            return episode_tables_plain(ep_key, cc, B, dtype, device, lane0)
+        from ..ops.episode_tables import (episode_tables_descriptor,
+                                          launch_episode_tables)
+
+        desc = episode_tables_descriptor(cc, device)
+        device = desc.device
+        demands = torch.empty((cc.T + 1, cc.R, cc.P, B), dtype=dtype,
+                              device=device)
+        leadtimes = (torch.empty((cc.T, cc.K, B), dtype=torch.int32,
+                                 device=device)
+                     if cc.stochastic_leadtimes else None)
+        launch_episode_tables(cc, desc, ep_key, demands, leadtimes, lane0)
         return demands, leadtimes
 
 

@@ -18,6 +18,17 @@
   equal.
 * The evaluate and compare CLIs end to end on the CPU, and every public
   constructor of the port defaults to the card.
+* The episode-table kernel (``ops/episode_tables.py``): on the CPU the
+  draw takes the plain path and launches nothing, the wrapper refuses
+  tables of another device, shape or dtype, and the descriptor read as the
+  kernel reads it gives the plain tables; on the card (marked ``cuda``) the
+  kernel's tables equal the plain draw's bit for bit, one launch a draw, at
+  any horizon.
+
+The JAX package is imported inside the tests that compare with it, so the
+card's part runs where there is no jax:
+
+    python -m pytest tests/test_torch_evaluate.py -m cuda --noconftest -q
 """
 import inspect
 import json
@@ -29,30 +40,26 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-import jax  # noqa: E402
-import jax.numpy as jnp  # noqa: E402
-import gym_supplychain_tpu as jsct  # noqa: E402
-from gym_supplychain_tpu.core.step import (  # noqa: E402
-    make_supplychain_kernels as jax_kernels)
-from gym_supplychain_tpu.learn import heuristics as jheur  # noqa: E402
-from gym_supplychain_tpu.models.policy import (  # noqa: E402
-    MLPConfig as JMLPConfig, init_actor_critic)
-from gym_supplychain_tpu.ops.supplychain_pallas import (  # noqa: E402
-    make_supplychain_policy_rollout_pallas)
-from gym_supplychain_tpu.rng import device as jrng  # noqa: E402
-
 import gym_supplychain_tpu_torch as tsct  # noqa: E402
 from gym_supplychain_tpu_torch.core.step import state_from_numpy  # noqa: E402
 from gym_supplychain_tpu_torch.learn import (  # noqa: E402
     compare_baseline, evaluate, heuristics, train)
 from gym_supplychain_tpu_torch.models.policy import (  # noqa: E402
     ActorCritic, MLPConfig, params_from_jax)
+from gym_supplychain_tpu_torch.ops import episode_tables as et  # noqa: E402
 from gym_supplychain_tpu_torch.rng.device import (  # noqa: E402
     device_demand_tables, device_episode_tables, device_leadtime_tables,
-    poisson_clip_thresholds, stateless_step_rows)
+    episode_tables_plain, philox_uniform, poisson_clip_thresholds,
+    stateless_step_rows)
+from gym_supplychain_tpu_torch.utils.profiling import (  # noqa: E402
+    counters, reset_counters)
 
 
 def _tree(cc, hidden, seed, mu_scale=100.0):
+    import jax
+    from gym_supplychain_tpu.models.policy import (
+        MLPConfig as JMLPConfig, init_actor_critic)
+
     params = init_actor_critic(jax.random.PRNGKey(seed),
                                JMLPConfig(cc.obs_dim, cc.A, hidden))
     params["mu"]["w"] = params["mu"]["w"] * mu_scale
@@ -70,6 +77,12 @@ def _stats_close(got, want, rtol=1e-5):
     ("supplychain-linear-v0", 10, 6, (16, 16), 1)])
 def test_fused_evaluator_matches_jax_on_its_tables(env_id, T, B, hidden,
                                                    episodes):
+    import jax
+    import gym_supplychain_tpu as jsct
+    from gym_supplychain_tpu.ops.supplychain_pallas import (
+        make_supplychain_policy_rollout_pallas)
+    from gym_supplychain_tpu.rng import device as jrng
+
     cc = jsct.make(env_id, total_time_steps=T).cc
     tree = _tree(cc, hidden, 5)
     run = make_supplychain_policy_rollout_pallas(cc, T, B, hidden=hidden,
@@ -146,10 +159,179 @@ def test_episode_table_marginals():
                                atol=6 * 0.5 / math.sqrt(dem.numel()))
 
 
+# the draw's cases: (env id, chain keywords), one of each demand process
+# and lead-time kind
+_DRAW_CHAINS = {
+    "ntom": ("supplychain-ntom-v0", {}),
+    "constant-leadtimes": ("sc-2perstage-v0", {}),
+    "seasonal-uniform": ("sc-2perstage-seasonal-v0",
+                         dict(demand_std=10, demand_perturb_norm=False)),
+    "seasonal-normal": ("sc-2perstage-seasonal-v0", {}),
+    "normal": ("supplychain-oneonen-v0", dict(num_retailers=3,
+                                              demand_std=10)),
+    "by-product": ("sc-2perstage-multiproduct-v1",
+                   dict(num_products=3, demand_std=10,
+                        demand_perturb_norm=True)),
+}
+
+
+def _kernel_mirror(ep_key, cc, B, dtype, lane0):
+    """``csrc/episode_tables.cu`` in numpy, reading the descriptor words
+    (the inverse normal CDF from torch on the CPU)."""
+    words = et.episode_tables_words(cc)
+    T, R, P, K = et._shape(cc)
+    n_cdf = len(et._thresholds(cc))
+    assert len(words) == n_cdf + 8 * P + P * (T + 1)
+    f32 = words.view(np.float32)
+    prod = words[n_cdf:n_cdf + 8 * P].reshape(P, 8)
+    base = f32[n_cdf + 8 * P:].reshape(P, T + 1)
+    u = philox_uniform(ep_key, range(T + 1), K + R * P, B, "cpu",
+                       lane0).numpy()
+    dem = np.zeros((T + 1, R * P, B), np.float32)
+    lt = np.ones((T, K, B), np.int32)
+    for i in range(K):
+        lt[:, i] += (u[1:, i, :, None] >= f32[None, None, :n_cdf]).sum(-1)
+    for e in range(R * P):
+        c, ue = prod[e % P], u[:, K + e]
+        n, lo, std, mid, minv, maxv = c[1:7].view(np.float32)
+        if c[0] in (0, 3):                     # uniform integers
+            x = np.floor(ue * n) + lo
+        else:
+            z = torch.special.ndtri(torch.from_numpy(ue).double())
+            x = z.float().numpy() * std
+        if c[0] == 0:
+            dem[:, e] = x
+            continue
+        x = x + mid if c[0] == 1 else base[e % P][:, None] + x
+        dem[:, e] = np.rint(np.where(np.isnan(x), x, np.clip(x, minv, maxv)))
+    dem = torch.from_numpy(dem.reshape(T + 1, R, P, B)).to(dtype)
+    return dem, torch.from_numpy(lt) if K else None
+
+
+@pytest.mark.parametrize("case", list(_DRAW_CHAINS))
+def test_episode_table_descriptor_gives_the_plain_tables(case):
+    env_id, kw = _DRAW_CHAINS[case]
+    cc = tsct.make_chain(env_id, total_time_steps=9, **kw)
+    for key, lane0, dtype in [((3, 1), 0, torch.float32),
+                              ((2 ** 31 + 5, 2 ** 32 - 1), 7, torch.float64),
+                              ((2 ** 32 - 1, 4), 2 ** 32 + 3,
+                               torch.float32)]:
+        dem, lt = episode_tables_plain(key, cc, 37, dtype, "cpu", lane0)
+        dem2, lt2 = _kernel_mirror(key, cc, 37, dtype, lane0)
+        assert dem.dtype == dem2.dtype and torch.equal(dem, dem2)
+        assert (lt is None) == (lt2 is None)
+        assert lt is None or torch.equal(lt, lt2)
+
+
+def test_episode_tables_take_the_plain_path_on_the_cpu():
+    cc = tsct.make_chain("supplychain-ntom-v0", total_time_steps=7)
+    reset_counters()
+    for dtype in (torch.float32, torch.float64):
+        dem, lt = device_episode_tables((4, 2), cc, 6, dtype, "cpu", 5)
+        want = episode_tables_plain((4, 2), cc, 6, dtype, "cpu", 5)
+        assert torch.equal(dem, want[0]) and torch.equal(lt, want[1])
+        assert dem.dtype == dtype and dem.device.type == "cpu"
+    assert counters().get("launch.episode_tables", 0) == 0
+    with pytest.raises(ValueError, match="CUDA"):
+        et.episode_tables_descriptor(cc, "cpu")
+
+
+def test_episode_table_wrapper_refuses_what_its_descriptor_does_not_hold():
+    T, B = 5, 4
+    cc = tsct.make_chain("supplychain-ntom-v0", total_time_steps=T)
+    desc = torch.as_tensor(et.episode_tables_words(cc), device="meta")
+    meta = dict(device="meta")
+    dem = torch.empty((T + 1, cc.R, cc.P, B), **meta)
+    lt = torch.empty((T, cc.K, B), dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="is on cpu"):
+        et.launch_episode_tables(cc, desc, (1, 0),
+                                 torch.empty_like(dem, device="cpu"), lt)
+    with pytest.raises(ValueError, match="is on cpu"):
+        et.launch_episode_tables(cc, desc, (1, 0), dem,
+                                 torch.empty_like(lt, device="cpu"))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        et.launch_episode_tables(cc, desc, (1, 0), dem.to(torch.float16), lt)
+    with pytest.raises(TypeError, match="dtype"):
+        et.launch_episode_tables(cc, desc, (1, 0), dem, lt.to(torch.int64))
+    with pytest.raises(ValueError, match="shape"):
+        et.launch_episode_tables(cc, desc, (1, 0), dem[:T], lt)
+    # the lead-time table's B is the demand table's
+    with pytest.raises(ValueError, match="shape"):
+        et.launch_episode_tables(cc, desc, (1, 0), dem, lt[..., :B - 1])
+    longer = tsct.make_chain("supplychain-ntom-v0", total_time_steps=T + 1)
+    with pytest.raises(ValueError, match="shape"):
+        et.launch_episode_tables(longer, desc, (1, 0), dem, lt)
+    with pytest.raises(ValueError, match="CUDA"):
+        et.launch_episode_tables(cc, desc, (1, 0), dem, lt)
+    flat = tsct.make_chain("sc-2perstage-v0", total_time_steps=T)
+    with pytest.raises(ValueError, match="constant"):
+        et.launch_episode_tables(
+            flat, torch.as_tensor(et.episode_tables_words(flat), **meta),
+            (1, 0), torch.empty((T + 1, flat.R, flat.P, B), **meta), lt)
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc (the CUDA kernels)")
+    return torch.device("cuda")
+
+
+# (chain case, B, lane0, dtype, key offset): every chain at 4096 envs, then
+# lane0 != 0, a B no multiple of the kernel's 256-thread block, float64
+# tables and keys with k0 >= 2**31
+_CARD_DRAWS = [(case, 4096, 0, torch.float32, 0) for case in _DRAW_CHAINS] + [
+    ("ntom", 4096, 3 * 4096 + 5, torch.float32, 0),
+    ("ntom", 1000, 0, torch.float32, 0),
+    ("by-product", 99, 17, torch.float64, 0),
+    ("ntom", 4096, 0, torch.float64, 0),
+    ("seasonal-normal", 777, 0, torch.float32, 2 ** 31),
+    ("ntom", 4096, 2 ** 32 - 9, torch.float32, 2 ** 32 - 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,B,lane0,dtype,k_off", _CARD_DRAWS,
+                         ids=lambda v: str(v).replace("torch.", ""))
+def test_episode_table_kernel_matches_the_plain_draw(case, B, lane0, dtype,
+                                                     k_off):
+    dev = _cuda()
+    env_id, kw = _DRAW_CHAINS[case]
+    cc = tsct.make_chain(env_id, **kw)
+    reset_counters()
+    for seed in range(24):
+        key = (k_off + 7919 * seed, seed ^ 0x9E3779B9)
+        dem, lt = device_episode_tables(key, cc, B, dtype, dev, lane0)
+        assert counters()["launch.episode_tables"] == seed + 1
+        want, want_lt = episode_tables_plain(key, cc, B, dtype, dev, lane0)
+        assert dem.dtype == dtype and dem.is_cuda
+        assert torch.equal(dem, want), (seed, (dem != want).sum().item())
+        assert ((lt is None) == (want_lt is None)
+                == (not cc.stochastic_leadtimes))
+        assert lt is None or torch.equal(lt, want_lt), seed
+
+
+@pytest.mark.cuda
+def test_episode_table_kernel_covers_any_horizon():
+    # more periods than a grid's y axis holds (65535)
+    dev = _cuda()
+    cc = tsct.make_chain("supplychain-ntom-v0", total_time_steps=70000)
+    for seed in range(3):
+        key = (2 ** 31 + seed, seed)
+        dem, lt = device_episode_tables(key, cc, 37, torch.float32, dev, 5)
+        want, want_lt = episode_tables_plain(key, cc, 37, torch.float32, dev,
+                                             5)
+        assert torch.equal(dem, want) and torch.equal(lt, want_lt), seed
+
+
 @pytest.mark.parametrize("env_id", ["supplychain-ntom-v0",
                                     "supplychain-2perstage-v0",
                                     "supplychain-linear-v0"])
 def test_base_stock_policy_matches_jax(env_id):
+    import jax.numpy as jnp
+    import gym_supplychain_tpu as jsct
+    from gym_supplychain_tpu.core.step import (
+        make_supplychain_kernels as jax_kernels)
+    from gym_supplychain_tpu.learn import heuristics as jheur
+
     T, B = 10, 6
     cc = jsct.make(env_id, total_time_steps=T).cc
     rs = np.random.RandomState(1)
