@@ -36,7 +36,12 @@ trainers call the collectives themselves (``learn/ppo.py``).
 
 Every collective and barrier has the group's deadline (``TIMEOUT_S``): a
 rank that dies fails the others instead of hanging them.  ``mesh.stats``
-counts the trainers' collectives over each group (``data``, ``model``).
+counts the trainers' collectives over each group (``data``, ``model``), and
+so do the always-on counters of ``utils/profiling.py``:
+``collective.<axis>`` and ``collective.<axis>_bytes`` (the bytes each rank
+hands the collective).  ``all_reduce_mean_`` and ``model_all_reduce_`` run
+in the program spans ``mesh.data_all_reduce`` and ``mesh.model_all_reduce``.
+Without a data or model axis nothing is counted and no span is opened.
 """
 from __future__ import annotations
 
@@ -47,6 +52,8 @@ from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
+
+from ..utils.profiling import count, span
 
 __all__ = ["Mesh", "init_distributed", "make_mesh", "lane_range",
            "shard_vec_state", "place_train_state", "replicated",
@@ -263,17 +270,21 @@ def tensor_parallel(mesh: Optional[Mesh]) -> bool:
     return mesh is not None and mesh.model > 1
 
 
-def _count(mesh: Mesh, axis: str) -> None:
+def _count(mesh: Mesh, axis: str, x: torch.Tensor) -> None:
+    """One collective over ``axis``'s group on the buffer ``x``."""
     mesh.stats[axis] += 1
+    count(f"collective.{axis}")
+    count(f"collective.{axis}_bytes", x.numel() * x.element_size())
 
 
 def all_reduce_mean_(mesh: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
     """``x`` averaged over the data axis, in place (one ``all_reduce`` over
     the data group); ``x`` unchanged without one."""
     if data_parallel(mesh):
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.data_group)
-        x.div_(mesh.data)
-        _count(mesh, "data")
+        with span("mesh.data_all_reduce"):
+            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.data_group)
+            x.div_(mesh.data)
+        _count(mesh, "data", x)
     return x
 
 
@@ -281,8 +292,9 @@ def model_all_reduce_(mesh: Optional[Mesh], x: torch.Tensor) -> torch.Tensor:
     """``x`` summed over the model group, in place; unchanged without a
     model axis."""
     if tensor_parallel(mesh):
-        dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.model_group)
-        _count(mesh, "model")
+        with span("mesh.model_all_reduce"):
+            dist.all_reduce(x, op=dist.ReduceOp.SUM, group=mesh.model_group)
+        _count(mesh, "model", x)
     return x
 
 
@@ -321,7 +333,7 @@ def gather_rows(mesh: Optional[Mesh], xs: Sequence[torch.Tensor]
     out[m] = flat
     bits = out.view(torch.int32) if out.element_size() == 4 else out
     dist.all_reduce(bits, op=dist.ReduceOp.SUM, group=mesh.model_group)
-    _count(mesh, "model")
+    _count(mesh, "model", bits)
     full, off = [], 0
     for x in xs:
         n = x.numel()
@@ -344,7 +356,7 @@ def reduce_scatter_rows(mesh: Optional[Mesh], gs: Sequence[torch.Tensor]
     packed = torch.cat([g.reshape(M, -1) for g in gs], dim=1)
     dist.all_reduce(packed, op=dist.ReduceOp.SUM, group=mesh.model_group)
     mine = packed[m]
-    _count(mesh, "model")
+    _count(mesh, "model", packed)
     local, off = [], 0
     for g in gs:
         n = g.numel() // M

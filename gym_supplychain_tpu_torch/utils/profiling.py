@@ -2,7 +2,8 @@
 metric lines (the counterpart of ``gym_supplychain_tpu/utils/profiling.py``).
 
 Spans mark the layer boundaries of the trainers, the evaluator, the table
-draw and the ``ops/*`` wrappers: ``with span("ppo.gae"):``.  One switch,
+draw, the ``ops/*`` wrappers and the mesh's all-reduces: ``with
+span("ppo.gae"):``.  One switch,
 ``enable(on)``, turns them on; off (the default) ``span`` hands back one
 shared no-op object, so an off span costs a flag test: no
 ``record_function``, no clock, no allocation.  On, a span enters
@@ -17,9 +18,12 @@ the device.
 
 Counters are always on: ``count(name, n)`` adds to one integer registry,
 ``counters()`` reads it and ``reset_counters()`` clears it.  The kernels'
-launchers count their launches there (``launch.<kernel>``), and the
+launchers count their launches there (``launch.<kernel>``), the
 wrappers their weight packs (``ops.pack``, and ``ops.pack_reused`` where
-the greedy runner reuses its last pack).
+the greedy runner reuses its last pack), and ``parallel/mesh.py`` the
+collectives over a mesh's data and model groups (``collective.data``,
+``collective.model``) and the bytes each rank hands them
+(``collective.data_bytes``, ``collective.model_bytes``).
 
 ``trace(logdir)`` records the CPU and, where there is a card, the CUDA
 activity of its block with ``torch.profiler``, with the spans on, and

@@ -178,6 +178,56 @@ def test_ranks_parameters_bit_equal(two_ranks, case):
     assert m0 == m1
 
 
+@pytest.mark.parametrize("epochs", [1, 2])
+def test_data_exchange_is_counted(two_ranks, epochs):
+    """One fused iteration all-reduces over the data group twice for the
+    advantages' normalization, once an epoch for the packed gradients and
+    loss, and once for the metrics; ``collective.data_bytes`` is what each
+    rank handed those all-reduces (float32)."""
+    for r in range(2):
+        ex = two_ranks["res"][r][f"exchange{epochs}"]
+        grads = 4 * (ex["params"] + 1)        # the leaves and the loss
+        assert ex["counters"] == {
+            "collective.data": 2 + epochs + 1,
+            "collective.data_bytes": 2 * 4 + epochs * grads + 2 * 4}
+
+
+@pytest.mark.parametrize("epochs", [1, 2])
+@pytest.mark.parametrize("parent,calls", [("ppo.normalize", lambda e: 2),
+                                          ("ppo.grads", lambda e: e),
+                                          (None, lambda e: 1)])
+def test_data_all_reduce_spans(two_ranks, epochs, parent, calls):
+    """With the spans on, each all-reduce over the data group runs in a
+    ``mesh.data_all_reduce`` span under the trainer's span that called it:
+    the normalization's two, a step's gradients, the metrics' outside any
+    span."""
+    for r in range(2):
+        parents = two_ranks["res"][r][f"exchange{epochs}"]["parents"]
+        assert parents.count(parent) == calls(epochs)
+
+
+@pytest.mark.parametrize("one", ["no mesh", "a mesh of one process"])
+def test_one_process_counts_no_exchange(one):
+    """Without a data axis the trainer counts no collective and opens no
+    ``mesh.*`` span."""
+    from gym_supplychain_tpu_torch.utils import profiling
+
+    mesh = None if one == "no mesh" else pm.make_mesh(device="cpu")
+    init_fn, step = _trainer("fused", "prng", mesh)
+    state = init_fn(0)
+    profiling.reset_counters()
+    profiling.take()
+    was = profiling.enable(True)
+    try:
+        step(state)
+    finally:
+        profiling.enable(was)
+    names = {s.name for s in profiling.take()}
+    assert "ppo.normalize" in names and "ppo.grads" in names
+    assert not {n for n in names if n.startswith("mesh.")}
+    assert not {k for k in profiling.counters() if k.startswith("collective.")}
+
+
 @pytest.mark.parametrize("fused", [False, True])
 def test_mesh_update_matches_jax(two_ranks, fused):
     """Each rank's update over its 8 of 16 lanes, the loss and gradients

@@ -1,10 +1,11 @@
 """Worker process for tests/test_torch_parallel.py: one rank of a 2-process
 gloo group on the CPU (``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``,
 ``MASTER_PORT`` from the launcher).  Runs the port's data-parallel trainers,
-the mesh form of the update on the launcher's data, a checkpoint round
-trip each way and the train CLI with ``--multihost`` and ``--trace-dir``,
-and writes what the tests check under ``OUT`` (one ``.npz`` and one
-``.json`` a rank).
+one fused iteration's collectives (the ``collective.*`` counters and the
+``mesh.data_all_reduce`` spans), the mesh form of the update on the
+launcher's data, a checkpoint round trip each way and the train CLI with
+``--multihost`` and ``--trace-dir``, and writes what the tests check under
+``OUT`` (one ``.npz`` and one ``.json`` a rank).
 
     python tests/torch_parallel_worker.py OUT CLI_PORT
 """
@@ -27,6 +28,8 @@ from gym_supplychain_tpu_torch.parallel.mesh import (  # noqa: E402
     init_distributed, make_mesh, replicated)
 from gym_supplychain_tpu_torch.utils.checkpoint import (  # noqa: E402
     restore_checkpoint, save_checkpoint)
+from gym_supplychain_tpu_torch.utils.profiling import (  # noqa: E402
+    counters, enable, reset_counters, take)
 
 B, T, HIDDEN = 16, 6, (16, 16)
 CASES = {"fused-prng": ("fused", "prng"), "fused-table": ("fused", "table"),
@@ -68,6 +71,26 @@ def main():
         res[name] = {"metrics": metrics,
                      "replicated": replicated(mesh, flat(state))}
         arrays[f"{name}.params"] = flat(state).numpy()
+
+    # the exchange: one fused iteration's collectives, counted, in spans
+    for epochs in (1, 2):
+        cc = sct.make_chain("supplychain-ntom-v0", total_time_steps=T)
+        init_fn, step = ppo.make_ppo_fused(
+            cc, B, ppo.PPOConfig(epochs=epochs, hidden=HIDDEN), mesh=mesh)
+        state = init_fn(0)
+        reset_counters()
+        take()
+        was = enable(True)
+        try:
+            step(state)
+        finally:
+            enable(was)
+        res[f"exchange{epochs}"] = {
+            "counters": {k: v for k, v in counters().items()
+                         if k.startswith("collective.")},
+            "params": sum(p.numel() for p in state.params.flat()),
+            "parents": [s.parent for s in take()
+                        if s.name == "mesh.data_all_reduce"]}
 
     # the mesh form of the update on the launcher's data: the rank's lanes
     data = np.load(os.path.join(out, "update_data.npz"))
